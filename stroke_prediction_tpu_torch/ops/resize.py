@@ -1,0 +1,123 @@
+"""Resize / zoom / crop over channels-last volumes (port of ops/resize.py).
+
+Per-axis linear resizes are small dense (out, n) matrices contracted on the
+target axis, as in the JAX package: ``align_corners=True`` matches torch-0.3
+trilinear upsampling and scipy zoom's grid.  :func:`zoom_inplane_xyz` is the
+numpy form the host-side data and NIfTI code use.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _linear_matrix(n: int, out_size: int, align_corners: bool) -> np.ndarray:
+    """Dense (out_size, n) 1-D linear-interpolation matrix."""
+    if align_corners:
+        coords = np.linspace(0.0, n - 1.0, out_size)
+    else:
+        coords = np.clip((np.arange(out_size) + 0.5) * (n / out_size) - 0.5,
+                         0.0, n - 1.0)
+    i0 = np.clip(np.floor(coords).astype(np.int64), 0, max(n - 2, 0))
+    w = coords - i0
+    m = np.zeros((out_size, n), np.float32)
+    rows = np.arange(out_size)
+    m[rows, i0] = 1.0 - w
+    if n > 1:
+        m[rows, i0 + 1] += w
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def _nearest_matrix(n: int, out_size: int) -> np.ndarray:
+    # scipy order-0 zoom convention: index = round(i * (n-1)/(out-1))
+    if out_size == 1:
+        idx = np.array([0], np.int64)
+    else:
+        idx = np.round(np.linspace(0.0, n - 1.0, out_size)).astype(np.int64)
+    m = np.zeros((out_size, n), np.float32)
+    m[np.arange(out_size), idx] = 1.0
+    return m
+
+
+def _apply_axis_matrix(x: torch.Tensor, m: np.ndarray,
+                       axis: int) -> torch.Tensor:
+    w = torch.as_tensor(m, dtype=x.dtype, device=x.device)
+    return torch.movedim(torch.tensordot(x, w, dims=([axis], [1])), -1, axis)
+
+
+def _axis_linear(x: torch.Tensor, axis: int, out_size: int,
+                 align_corners: bool = True) -> torch.Tensor:
+    n = x.shape[axis]
+    if out_size == n:
+        return x
+    return _apply_axis_matrix(x, _linear_matrix(n, out_size, align_corners),
+                              axis)
+
+
+def resize_linear(x: torch.Tensor, out_sizes: Sequence[int],
+                  axes: Sequence[int],
+                  align_corners: bool = True) -> torch.Tensor:
+    """Separable multilinear resize of the given axes to ``out_sizes``."""
+    for ax, s in zip(axes, out_sizes):
+        x = _axis_linear(x, ax, s, align_corners)
+    return x
+
+
+def resize_nearest(x: torch.Tensor, out_sizes: Sequence[int],
+                   axes: Sequence[int]) -> torch.Tensor:
+    for ax, s in zip(axes, out_sizes):
+        if s != x.shape[ax]:
+            x = _apply_axis_matrix(x, _nearest_matrix(x.shape[ax], s), ax)
+    return x
+
+
+def zoom_inplane(x: torch.Tensor, factor: float, order: int = 1,
+                 hw_axes: Tuple[int, int] = None) -> torch.Tensor:
+    """In-plane (H, W) zoom of a ``(..., D, H, W, C)`` volume; output sizes
+    follow scipy's ``round(size * factor)``."""
+    if hw_axes is None:
+        hw_axes = (x.ndim - 3, x.ndim - 2)
+    out = tuple(int(round(x.shape[a] * factor)) for a in hw_axes)
+    if order == 0:
+        return resize_nearest(x, out, hw_axes)
+    return resize_linear(x, out, hw_axes, align_corners=True)
+
+
+def zoom_inplane_xyz(vol_xyz: np.ndarray, factor: float,
+                     order: int) -> np.ndarray:
+    """numpy in-plane (X, Y) zoom of an (X, Y, Z) volume with the same
+    matrices (the data layer's resample and the testers' x2 zoom back)."""
+    x, y, _ = vol_xyz.shape
+    ox, oy = int(round(x * factor)), int(round(y * factor))
+    if order == 0:
+        mx, my = _nearest_matrix(x, ox), _nearest_matrix(y, oy)
+    else:
+        mx, my = _linear_matrix(x, ox, True), _linear_matrix(y, oy, True)
+    v = vol_xyz.astype(np.float32, copy=False)
+    v = np.tensordot(mx, v, axes=([1], [0]))
+    v = np.tensordot(my, v, axes=([1], [1])).transpose(1, 0, 2)
+    return np.ascontiguousarray(v)
+
+
+def upsample2x_trilinear(x: torch.Tensor) -> torch.Tensor:
+    """x2 trilinear upsample of ``(B, D, H, W, C)`` (align_corners=True)."""
+    d, h, w = x.shape[-4:-1]
+    return resize_linear(x, (2 * d, 2 * h, 2 * w),
+                         (x.ndim - 4, x.ndim - 3, x.ndim - 2),
+                         align_corners=True)
+
+
+def center_crop(x: torch.Tensor,
+                target_spatial: Sequence[int]) -> torch.Tensor:
+    """Center-crop the spatial (D, H, W) axes of ``(B, D, H, W, C)``."""
+    slices = [slice(None)] * x.ndim
+    for ax, t in zip((x.ndim - 4, x.ndim - 3, x.ndim - 2), target_spatial):
+        start = (x.shape[ax] - t) // 2
+        slices[ax] = slice(start, start + t)
+    return x[tuple(slices)]
