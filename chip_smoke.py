@@ -161,21 +161,23 @@ def kernel_phase(torch):
         out = edt_parabola(f2)
         ref = edt_parabola_plain(f2)
         torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
         if not torch.equal(out, ref):
             raise AssertionError(f"K5 differs from its plain version at "
-                                 f"({n_lines}, {n}): max|err| "
-                                 f"{float((out - ref).abs().max())}")
+                                 f"({n_lines}, {n}): max|err| {err}")
         ms = cuda_ms(torch, lambda: edt_parabola(f2), 20)
         plain = cuda_ms(torch, lambda: edt_parabola_plain(f2), 5)
         ops = 2.0 * n_lines * n * n                      # add + min
         bms, by = bound_ms(ops, 8.0 * n_lines * n)
-        print(f"K5 edt_parabola ({n_lines}, {n}): exact; kernel {ms:.4f} ms "
-              f"plain {plain:.4f} ms  bound {bms:.5f} ms ({by})")
+        print(f"K5 edt_parabola ({n_lines}, {n}): max|err| {err} (exact); "
+              f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {bms:.5f} ms "
+              f"({by})")
         k5.setdefault("first", dict(ms=ms, plain_ms=plain, bound_ms=bms,
                                     bound_by=by))
+        k5["max_abs_err"] = max(k5.get("max_abs_err", 0.0), err)
     print("K5 has no single PyTorch library call that computes it "
           "(library_ms null)")
-    return k1, k5["first"]
+    return k1, dict(k5["first"], max_abs_err=k5["max_abs_err"])
 
 
 def slice_phase(torch, work):
@@ -342,11 +344,12 @@ def main():
         {"name": "edt_parabola", "route": "cuda",
          "source": "stroke_prediction_tpu_torch/ops/csrc/edt_parabola.cu",
          "replaces": "stroke_prediction_tpu/ops/edt.py:80",
-         "launches": launches["edt_parabola"], "max_abs_err": 0.0,
+         "launches": launches["edt_parabola"],
+         "max_abs_err": k5["max_abs_err"],
          "ms": 8 * k5["ms"], "plain_ms": 8 * k5["plain_ms"],
          "bound_ms": 8 * k5["bound_ms"], "bound_by": k5["bound_by"],
          "library_ms": None,
-         "per": "one tester case: 8 passes of (3584, 128)"},
+         "per": "one tester case: 8 x one measured (3584, 128) pass"},
     ]
     for k in kernels:
         if k["launches"] < 1:

@@ -2,9 +2,9 @@
 cli/common.py).
 
 The synthetic provider caches its cases under
-``<tempfile.gettempdir()>/stroke_tpu_synth_cache``: with the default
-temporary directory that is the JAX package's cache directory, which is
-harmless because both packages generate byte-identical cases.
+``<tempfile.gettempdir()>/stroke_tpu_torch_synth_cache``, a directory of
+its own: the JAX package writes its cache files in place, so the port never
+reads them (the cases are byte-identical, only the files are not shared).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ DEFAULT_CSV = "/share/data_zoe1/lucas/Linda_Segmentations/clinical_cleaned.csv"
 
 
 def synthetic_cache_dir() -> str:
-    return os.path.join(tempfile.gettempdir(), "stroke_tpu_synth_cache")
+    return os.path.join(tempfile.gettempdir(), "stroke_tpu_torch_synth_cache")
 
 
 def make_provider(args):

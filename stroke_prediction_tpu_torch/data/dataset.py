@@ -2,7 +2,9 @@
 data/dataset.py, numpy only).
 
 For the same seed this module gives byte-identical volumes to the JAX
-package's, so both may share the synthetic disk cache.  Volumes are loaded
+package's.  The synthetic disk cache writes each case atomically (temporary
+file, then rename), so concurrent processes never read a partial file.
+Volumes are loaded
 (or generated) once, preprocessed (in-plane resample, deterministic
 hemispheric flip, padding) and cached in host RAM in the device layout
 ``(D, H, W, C)`` float32.
@@ -182,7 +184,9 @@ class SyntheticCaseProvider:
             return self._cache[index]
         case = self._gen(index)
         os.makedirs(self._cache_dir, exist_ok=True)
-        np.savez(fn, **case)
+        tmp = f"{fn}.{os.getpid()}.tmp.npz"
+        np.savez(tmp, **case)
+        os.replace(tmp, fn)      # atomic: a concurrent reader sees all or none
         self._cache[index] = case
         return case
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 from flax import serialization
 
+from stroke_prediction_tpu.cli import common as jax_common
 from stroke_prediction_tpu.cli import test_unet_segmentation as jax_cli
 from stroke_prediction_tpu.data import dataset as jax_dataset
 from stroke_prediction_tpu.data import loader as jax_loader
@@ -29,6 +30,7 @@ from stroke_prediction_tpu_torch.data import dataset, loader
 from stroke_prediction_tpu_torch.device import resolve_device
 from stroke_prediction_tpu_torch.models.convert import save_unet_checkpoint
 from stroke_prediction_tpu_torch.models.factory import build_model, load_model
+from stroke_prediction_tpu_torch.models.layers import Conv3d
 from stroke_prediction_tpu_torch.models.unet3d import Unet3D
 from stroke_prediction_tpu_torch.utils import checkpoint
 from stroke_prediction_tpu_torch.utils.args import get_args_unet_training
@@ -137,6 +139,23 @@ def test_factory_refuses_unported_kinds():
         build_model({"kind": "cae3d", "channels": [1, 2, 3, 4, 5, 6, 1]})
 
 
+def test_bare_3x3_conv_refused():
+    conv = Conv3d(2, 4)
+    with pytest.raises(NotImplementedError):
+        conv(torch.zeros(1, 5, 5, 5, 2))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--ndevices", "4"], ["--distributed"], ["--coordinator", "h:1"],
+    ["--nprocs", "2"], ["--procid", "0"], ["--profile", "logdir"],
+    ["--distances"]])
+def test_unported_runtime_flags_raise(flags):
+    with pytest.raises(NotImplementedError, match=flags[0]):
+        get_args_unet_training(["unet.model", *flags])
+    # the JAX parser takes the same command line
+    JaxUnetParser().parse_args(["unet.model", *flags])
+
+
 def test_dataset_and_loader_match_jax():
     kw = dict(n_cases=4, shape_xyz=(20, 18, 12), seed=9)
     mods = [dataset.MOD_CBV, dataset.MOD_TTD]
@@ -225,11 +244,18 @@ def test_cli_end_to_end_matches_jax(tmp_path, capsys, monkeypatch):
     common = [ckpt, "--synthetic", "--xyoriginal", "24", "--zsize", "24",
               "--fold", "0", "1", "--seed", "7", "--channels",
               *map(str, CHANNELS)]
+
+    # each side generates and caches its own cases under tmp_path
+    def jax_provider(**kw):
+        return jax_dataset.SyntheticCaseProvider(
+            **{**kw, "cache_dir": str(tmp_path / "jax_cache")})
+
+    monkeypatch.setattr(jax_common, "SyntheticCaseProvider", jax_provider)
     jax_cli.test(JaxUnetParser().parse_args(
         common + ["--outbasepath", str(tmp_path / "jax")]))
     jax_out = capsys.readouterr().out
+    assert os.listdir(tmp_path / "jax_cache")
 
-    # the port generates its own cases instead of reading the JAX cache
     monkeypatch.setattr(port_common, "synthetic_cache_dir",
                         lambda: str(tmp_path / "port_cache"))
     tester = port_cli.test(get_args_unet_training(
@@ -252,6 +278,7 @@ def test_cli_end_to_end_matches_jax(tmp_path, capsys, monkeypatch):
             assert got.shape == want.shape == (24, 24, 24)
             np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
             np.testing.assert_array_equal(aff, aff_want)
-    assert os.path.isdir(tmp_path / "port_cache")
+    assert sorted(os.listdir(tmp_path / "port_cache")) == \
+        sorted(os.listdir(tmp_path / "jax_cache"))
     assert json.loads(json.dumps([c for c, _, _ in tester.case_seconds])) \
         == [int(ln.split()[2].rstrip(":")) for ln in case_lines(port_out)]
