@@ -8,24 +8,42 @@ non-zero without one.  Phases:
 
 1. card name and power limit (nvidia-smi), torch / CUDA versions, kernel
    build (nvcc, from ops/csrc in this checkout) and its seconds;
-2. kernel phase: each hand-written kernel against its plain PyTorch version
-   on the card at the shapes the tester gives it (K1: the ten U-Net 3^3
-   convs at the full reference width on a 68x168x168 volume, plus one
-   z-SAME / ELU / plane-table case; K5: the tester's (28*128, 128) pass and
-   an n = 168 pass), with kernel, plain and library times (CUDA events) and
-   the least time the card could take (bound);
-3. slice phase: the port's full-volume U-Net tester CLI on three synthetic
-   256x256x28 cases (resampled to 128x128x28, padded by 20 to 68x168x168),
-   channels 2 16 32 64 32 16 32 2 with seeded random weights and BN
-   statistics; the launch counts of both kernels in that run; finite
+2. kernel phase, tester shapes: K1 (conv forward) against its plain
+   PyTorch version at the ten U-Net 3^3 convs on a 68x168x168 volume plus
+   one z-SAME / ELU / plane-table case; K5 (EDT parabola pass) at the
+   tester's and the validation step's line shapes; kernel, plain and
+   library times (CUDA events) and the least time the card could take
+   (bound);
+3. kernel phase, training shapes: at the ten convs of one training step
+   (batch 6, 68x104x104 patch), in float32 and in bfloat16, K1 and the
+   backward kernels K2 (fused dx + dW), K3 (dx) and K4 (dW) against their
+   plain versions, each at every layer whichever route the step takes
+   there, K2 and K4 twice for bit-identical dW; one small 's' + ELU +
+   plane-table backward case; times as above, with cuDNN's backward as
+   the library yardstick;
+4. tester phase: the port's full-volume U-Net tester CLI on three
+   synthetic 256x256x28 cases (resampled to 128x128x28, padded by 20 to
+   68x168x168), channels 2 16 32 64 32 16 32 2 with seeded random weights
+   and BN statistics; the launch counts of K1 and K5 in that run; finite
    outputs; one case re-run on the CPU (plain versions) and compared; a
-   torch.profiler trace of three more cases: device time by kernel and
-   the device's busy share.
+   torch.profiler trace of three more cases;
+5. training phase: the port's training CLI at the reference width and
+   patch in its default bfloat16 on eight full-size synthetic cases (six
+   train, two validate, batch 6, three epochs); the launch counts of K1-K5
+   per step against the fused / split rule; finite losses, the artifacts,
+   the best-valid model loaded and run; then 30 more training steps back
+   to back (mean and spread of ms per step) and a torch.profiler trace of
+   one step;
+6. one float32 training step (batch 2, full width and patch) on the card
+   and on the CPU from the same weights and crop: loss, every parameter
+   gradient and the running statistics compared; the same step in float64
+   on the CPU as a third witness of which side is further off.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero.
 """
 
+import copy
 import json
 import os
 import subprocess
@@ -35,19 +53,54 @@ import time
 
 CHANNELS = (2, 16, 32, 64, 32, 16, 32, 2)
 VOLUME_DHW = (68, 168, 168)          # 28 x 128 x 128 resampled, padded 20
+PATCH_DHW = (68, 104, 104)           # the training patch, (W, H, D) reversed
+TRAIN_BATCH = 6
 FOLD = (0, 1, 2)
+TRAIN_FOLD = tuple(range(8))         # 6 training + 2 validation cases
+TIMED_STEPS = 30                     # training steps timed back to back
 K1_TOL = dict(atol=1e-4, rtol=1e-4)  # sums of up to 27 * 96 terms, reordered
 SLICE_ATOL = 1e-4                    # card vs CPU probabilities
+# backward vs plain: float32 dx as K1; float32 dW / db sum up to 6 * 64 *
+# 100 * 100 terms, so relative to the largest entry
+DW_REL = 1e-4
+# bfloat16 outputs (y, dx) vs the plain version on the same bfloat16
+# inputs: both accumulate in float32 and round once to bfloat16, which may
+# land one bfloat16 step (2^-8 of the value) apart
+BF16_REL = 1e-2
+# one float32 step, card vs CPU
+STEP_LOSS_REL, STEP_GRAD_REL, STEP_STATS_ATOL = 1e-5, 1e-3, 1e-5
 
-# H100 SXM data-sheet peaks (dense): float32 outside the tensor cores, HBM3
-PEAK_F32_FLOPS = 67e12
+# H100 SXM data-sheet peaks (dense): float32 outside the tensor cores, bf16
+# on the tensor cores (the peak for bfloat16 inputs), HBM3
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 
 
-def bound_ms(ops, nbytes):
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+def bound_ms(ops, nbytes, dtype="float32"):
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rel_err(got, ref):
+    """max |got - ref| / max |ref|, in float32."""
+    ref = ref.float()
+    return float((got.float() - ref).abs().max() / ref.abs().max())
+
+
+def all_wrappers():
+    from stroke_prediction_tpu_torch.ops.conv3x3 import KERNEL_WRAPPERS
+    from stroke_prediction_tpu_torch.ops.edt import edt_parabola
+    return KERNEL_WRAPPERS + (edt_parabola,)
+
+
+def reset_launches():
+    for fn in all_wrappers():
+        fn.launches = 0
+
+
+def read_launches():
+    return {fn.__name__: fn.launches for fn in all_wrappers()}
 
 
 def cuda_ms(torch, fn, iters):
@@ -152,9 +205,12 @@ def kernel_phase(torch):
           f"{err_s:.3e}")
     k1["max_abs_err"] = max(k1["max_abs_err"], err_s)
 
-    # K5: exact against the plain version; some lines without a site
+    # K5: exact against the plain version; some lines without a site.
+    # (3584, 128): a tester case's pass; (11424, 168): one at n = 168;
+    # (3584, 64): a validation step's pass (2 x 28 x 64 lines of a 64^2
+    # plane)
     k5 = {}
-    for n_lines, n in ((28 * 128, 128), (68 * 168, 168)):
+    for n_lines, n in ((28 * 128, 128), (68 * 168, 168), (2 * 28 * 64, 64)):
         f2 = torch.randint(0, n, (n_lines, n), generator=gen,
                            device=dev).float() ** 2
         f2[::8] = _BIG
@@ -172,12 +228,180 @@ def kernel_phase(torch):
         print(f"K5 edt_parabola ({n_lines}, {n}): max|err| {err} (exact); "
               f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {bms:.5f} ms "
               f"({by})")
-        k5.setdefault("first", dict(ms=ms, plain_ms=plain, bound_ms=bms,
-                                    bound_by=by))
+        k5[(n_lines, n)] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
+                                bound_by=by)
         k5["max_abs_err"] = max(k5.get("max_abs_err", 0.0), err)
     print("K5 has no single PyTorch library call that computes it "
           "(library_ms null)")
-    return k1, dict(k5["first"], max_abs_err=k5["max_abs_err"])
+    return k1, k5
+
+
+def train_kernel_phase(torch):
+    """K1 and K2-K4 at the ten convs of one training step, float32 and
+    bfloat16.  Returns {dtype: [per-layer dict]} and the 's'-case errors."""
+    from stroke_prediction_tpu_torch.ops.conv3x3 import (
+        bwd_route, conv3x3, conv3x3_bwd_dw, conv3x3_bwd_dw_plain,
+        conv3x3_bwd_dx, conv3x3_bwd_dx_plain, conv3x3_bwd_fused,
+        conv3x3_plain, fold_bn_zsame)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def uniform(shape, lo, hi, dtype=torch.float32):
+        t = torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+        return t.to(dtype)
+
+    rel = {}     # (kernel, dtype) -> largest max|err| / max|ref| seen
+
+    def note(key, got, ref):
+        rel[key] = max(rel.get(key, 0.0), rel_err(got, ref))
+        return float((got.float() - ref.float()).abs().max())
+
+    def check_out(name, got, ref, dtype):
+        """y / dx: float32 as K1; bfloat16 within one rounding step."""
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, **K1_TOL)
+        elif rel_err(got, ref) > BF16_REL:
+            raise AssertionError(f"{name}: rel err {rel_err(got, ref)}")
+        return note((name.split()[0] + " y/dx", str(dtype)[6:]), got, ref)
+
+    def check_sum(name, got, ref, dtype):
+        """dW / db, float32 in both types."""
+        if rel_err(got, ref) > DW_REL:
+            raise AssertionError(f"{name}: rel err {rel_err(got, ref)}")
+        return note((name.split()[0] + " dW/db", str(dtype)[6:]), got, ref)
+
+    shapes = unet_conv_shapes(PATCH_DHW, CHANNELS)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        nb = 2 if dtype == torch.bfloat16 else 4
+        rows = []
+        print(f"K1-K4 per layer of one training step (batch {TRAIN_BATCH}, "
+              f"{dname}, 'v', LeakyReLU 0.01; ms kernel / plain / cuDNN / "
+              f"bound):")
+        for i, (d, h, w, ci, co) in enumerate(shapes, 1):
+            route = bwd_route(ci, co, i > 1)
+            x = uniform((TRAIN_BATCH, d, h, w, ci), -1.0, 1.0, dtype)
+            bnd = (27 * ci) ** -0.5
+            k = uniform((3, 3, 3, ci, co), -bnd, bnd, dtype)
+            b = uniform((co,), -bnd, bnd)
+            y = conv3x3(x, k, b, "leaky_relu", 0.01)
+            err = {"K1": check_out(f"K1 L{i} {dname}", y,
+                                   conv3x3_plain(x, k, b, "leaky_relu", 0.01),
+                                   dtype)}
+            g = uniform(y.shape, -1.0, 1.0, dtype)
+            a = (g, y, "leaky_relu", 0.01)
+            rdx = conv3x3_bwd_dx_plain(g, y, k, x.shape, "leaky_relu", 0.01)
+            rdk, rdb = conv3x3_bwd_dw_plain(x, *a)
+            dx2, dk2, db2 = conv3x3_bwd_fused(x, g, y, k, "leaky_relu", 0.01)
+            dx3 = conv3x3_bwd_dx(g, y, k, x.shape, "leaky_relu", 0.01)
+            dk4, db4 = conv3x3_bwd_dw(x, *a)
+            dk2b, db2b = conv3x3_bwd_fused(x, g, y, k, "leaky_relu",
+                                           0.01)[1:]
+            dk4b, db4b = conv3x3_bwd_dw(x, *a)
+            torch.cuda.synchronize()
+            for name, p, q in (("K2", (dk2, db2), (dk2b, db2b)),
+                               ("K4", (dk4, db4), (dk4b, db4b))):
+                if not (torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])):
+                    raise AssertionError(f"{name} L{i} {dname}: dW or db "
+                                         f"differs between two runs")
+            tag = f"L{i} {dname}"
+            err["K2"] = max(check_out(f"K2 dx {tag}", dx2, rdx, dtype),
+                            check_sum(f"K2 dk {tag}", dk2, rdk, dtype),
+                            check_sum(f"K2 db {tag}", db2, rdb, dtype))
+            err["K3"] = check_out(f"K3 dx {tag}", dx3, rdx, dtype)
+            err["K4"] = max(check_sum(f"K4 dk {tag}", dk4, rdk, dtype),
+                            check_sum(f"K4 db {tag}", db4, rdb, dtype))
+            del rdx, rdk, rdb, dx2, dk2, db2, dx3, dk4, db4, dk2b, db2b
+            del dk4b, db4b
+
+            # times; the library yardstick is cuDNN's dgrad / wgrad on the
+            # masked cotangent (TF32 off), which the port never calls
+            iters = 5
+            gp = (g.float() * torch.where(y > 0, 1.0, 0.01)).to(dtype)
+            x_l, g_l = x.permute(0, 4, 1, 2, 3), gp.permute(0, 4, 1, 2, 3)
+            w_l = k.permute(4, 3, 0, 1, 2).contiguous()
+            in_size = tuple(x_l.shape)
+            w_size = tuple(w_l.shape)
+            ms = {
+                "K1": cuda_ms(torch, lambda: conv3x3(
+                    x, k, b, "leaky_relu", 0.01), iters),
+                "K2": cuda_ms(torch, lambda: conv3x3_bwd_fused(
+                    x, g, y, k, "leaky_relu", 0.01), iters),
+                "K3": cuda_ms(torch, lambda: conv3x3_bwd_dx(
+                    g, y, k, x.shape, "leaky_relu", 0.01), iters),
+                "K4": cuda_ms(torch, lambda: conv3x3_bwd_dw(x, *a), iters)}
+            plain = {
+                "K1": cuda_ms(torch, lambda: conv3x3_plain(
+                    x, k, b, "leaky_relu", 0.01), iters),
+                "K3": cuda_ms(torch, lambda: conv3x3_bwd_dx_plain(
+                    g, y, k, x.shape, "leaky_relu", 0.01), iters),
+                "K4": cuda_ms(torch, lambda: conv3x3_bwd_dw_plain(x, *a),
+                              iters)}
+            plain["K2"] = plain["K3"] + plain["K4"]
+            lib = {
+                "K1": cuda_ms(torch, lambda: torch.nn.functional.conv3d(
+                    x_l, w_l, b.to(dtype)), iters),
+                "K3": cuda_ms(torch, lambda: torch.nn.grad.conv3d_input(
+                    in_size, w_l, g_l), iters),
+                "K4": cuda_ms(torch, lambda: torch.nn.grad.conv3d_weight(
+                    x_l, w_size, g_l), iters)}
+            lib["K2"] = lib["K3"] + lib["K4"]
+            flops = 2.0 * 27 * ci * co * y[..., 0].numel()
+            nx, ny, nk = x.numel(), y.numel(), k.numel()
+            ops = {"K1": flops, "K2": 2 * flops, "K3": flops, "K4": flops}
+            nbytes = {                      # each input once, each output once
+                "K1": nb * (nx + nk + ny) + 4 * co,
+                "K2": nb * (nx + 2 * ny + nk + nx) + 4 * (nk + co),
+                "K3": nb * (2 * ny + nk + nx),
+                "K4": nb * (nx + 2 * ny) + 4 * (nk + co)}
+            bnd_ms = {key: bound_ms(ops[key], nbytes[key], dname)
+                      for key in ms}
+            rows.append(dict(layer=i, route=route, shape=(d, h, w, ci, co),
+                             err=err, ms=ms, plain=plain, lib=lib,
+                             bound=bnd_ms, ops=ops, bytes=nbytes))
+            print(f"  L{i:<2} in {d}x{h}x{w} {ci:>2}->{co:<2} route "
+                  f"{route:5s} "
+                  + "  ".join(f"{key} {ms[key]:.4f}/{plain[key]:.4f}/"
+                              f"{lib[key]:.4f}/{bnd_ms[key][0]:.4f}"
+                              f"({bnd_ms[key][1][0]})" for key in ms)
+                  + "  max|err| " + " ".join(f"{key} {v:.3e}"
+                                             for key, v in err.items()))
+            del x, k, b, y, g, gp, x_l, g_l, w_l
+        results[dname] = rows
+
+    # z-SAME + ELU + per-plane bias table, backward (the CAE encoder's form)
+    s_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = uniform((2, 12, 20, 22, 8), -1.0, 1.0, dtype)
+        k, table = fold_bn_zsame(uniform((3, 3, 3, 8, 16), -0.1, 0.1),
+                                 uniform((16,), -0.1, 0.1),
+                                 uniform((8,), 0.5, 1.5),
+                                 uniform((8,), -0.5, 0.5), 12)
+        k = k.to(dtype).contiguous()
+        y = conv3x3(x, k, table, "elu", 1.0, "s")
+        g = uniform(y.shape, -1.0, 1.0, dtype)
+        a = (g, y, "elu", 1.0, "s")
+        rdx = conv3x3_bwd_dx_plain(g, y, k, x.shape, "elu", 1.0, "s")
+        rdk, rdb = conv3x3_bwd_dw_plain(x, *a, True)
+        dx2, dk2, db2 = conv3x3_bwd_fused(x, g, y, k, "elu", 1.0, "s", True)
+        dx3 = conv3x3_bwd_dx(g, y, k, x.shape, "elu", 1.0, "s")
+        dk4, db4 = conv3x3_bwd_dw(x, *a, True)
+        torch.cuda.synchronize()
+        dname = str(dtype).split(".")[1]
+        s_err[dname] = max(
+            check_out("K2 's' dx", dx2, rdx, dtype),
+            check_out("K3 's' dx", dx3, rdx, dtype),
+            *(check_sum(n, p, q, dtype) for n, p, q in (
+                ("K2 's' dk", dk2, rdk), ("K2 's' db", db2, rdb),
+                ("K4 's' dk", dk4, rdk), ("K4 's' db", db4, rdb))))
+    print(f"K2-K4 's' + ELU + plane table (2, 12, 20, 22, 8->16): max|err| "
+          f"{s_err}")
+    print("largest max|err| / max|ref| over the layers (y, dx in the "
+          "storage type; dW, db float32 in both): " + "; ".join(
+              f"{k} {d} {v:.3e}" for (k, d), v in sorted(rel.items())))
+    return results, s_err
 
 
 def slice_phase(torch, work):
@@ -186,8 +410,6 @@ def slice_phase(torch, work):
         UnetSegmentationTester)
     from stroke_prediction_tpu_torch.models.convert import save_unet_checkpoint
     from stroke_prediction_tpu_torch.models.unet3d import Unet3D
-    from stroke_prediction_tpu_torch.ops.conv3x3 import conv3x3
-    from stroke_prediction_tpu_torch.ops.edt import edt_parabola
     from stroke_prediction_tpu_torch.utils.args import get_args_unet_training
     from stroke_prediction_tpu_torch.utils.nifti import read_nifti
 
@@ -208,15 +430,17 @@ def slice_phase(torch, work):
         [ckpt, "--synthetic", "--fold", *map(str, FOLD), "--outbasepath",
          out_base, "--device", "cuda", "--channels", *map(str, CHANNELS)])
 
-    conv3x3.launches = 0
-    edt_parabola.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     tester = cli.test(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"conv3x3": conv3x3.launches, "edt_parabola": edt_parabola.launches}
+    launches = read_launches()
     print(f"slice: tester CLI on {len(FOLD)} cases in {wall:.2f} s; "
           f"launches {launches}")
+    if any(launches[k] for k in ("conv3x3_bwd_fused", "conv3x3_bwd_dx",
+                                 "conv3x3_bwd_dw")):
+        raise AssertionError("the tester launched a backward kernel")
     n = len(tester.case_seconds)
     if n != len(FOLD):
         raise AssertionError(f"tester ran {n} cases, expected {len(FOLD)}")
@@ -274,6 +498,265 @@ def slice_phase(torch, work):
     return launches, infer_ms
 
 
+def train_phase(torch, work):
+    """The port's training CLI at the reference configuration on the card:
+    launch counts per step, finite losses, artifacts, the best-valid model
+    loaded and run, ms per step, a profile of one step."""
+    from stroke_prediction_tpu_torch.cli import train_unet_segmentation as cli
+    from stroke_prediction_tpu_torch.models.factory import load_model
+    from stroke_prediction_tpu_torch.ops.conv3x3 import bwd_route
+    from stroke_prediction_tpu_torch.utils.args import get_args_unet_training
+
+    base = os.path.join(work, "train")
+    args = get_args_unet_training(
+        [os.path.join(work, "unused.model"), "--synthetic",
+         "--fold", *map(str, TRAIN_FOLD), "--validsetsize", "0.25",
+         "--batchsize", str(TRAIN_BATCH), "--epochs", "3",
+         "--outbasepath", base, "--device", "cuda",
+         "--channels", *map(str, CHANNELS)])
+    if args.dtype != "bfloat16":
+        raise AssertionError(f"the CLI's default dtype is {args.dtype}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    learner = cli.train(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    steps = dict(learner.step_counts)
+    print(f"\ntrain: CLI, 3 epochs in {wall:.2f} s; steps {steps}; "
+          f"launches {launches}")
+
+    # launches per step from the fused / split rule
+    routes = [bwd_route(ci, co, i > 0) for i, (*_, ci, co) in
+              enumerate(unet_conv_shapes(PATCH_DHW, CHANNELS))]
+    n_train, n_eval = steps["train"], steps["eval"]
+    want = {
+        "conv3x3": 10 * (n_train + n_eval + steps["visual"]),
+        "conv3x3_bwd_fused": routes.count("fused") * n_train,
+        "conv3x3_bwd_dx": routes.count("split") * n_train,
+        "conv3x3_bwd_dw": (routes.count("split") + routes.count("dw"))
+        * n_train,
+        "edt_parabola": 8 * n_eval}
+    print(f"train: routes per layer {routes}; expected launches {want}")
+    if n_train != 3 or n_eval != 3:
+        raise AssertionError(f"expected 3 train and 3 eval steps: {steps}")
+    for name, n in want.items():
+        if launches[name] != n or n < 1:
+            raise AssertionError(f"{name} launched {launches[name]} times, "
+                                 f"expected {n} (>= 1)")
+
+    curves = learner._metric_dtos
+    for phase in ("training", "validate"):
+        losses = [m["loss"] for m in curves[phase]]
+        print(f"train: {phase} losses {losses}")
+        if len(losses) != 3 or not all(0.0 <= v <= 1.0 for v in losses):
+            raise AssertionError(f"{phase} losses {losses}")
+    names = ["_unet.model", "_unet.optim", "_unet.json", "_unet_final.model"]
+    try:
+        import matplotlib  # noqa: F401
+        names += ["_visual_1.png", "_visual_plots.png"]
+    except ImportError:
+        print("train: no matplotlib here, so no PNGs are expected")
+    for suffix in names:
+        if not os.path.getsize(base + suffix):
+            raise AssertionError(f"empty {base + suffix}")
+    model, config = load_model(base + "_unet.model", "cuda")
+    with torch.no_grad():
+        seg = model(torch.zeros((1,) + PATCH_DHW + (2,), device="cuda"))
+    torch.cuda.synchronize()
+    if tuple(seg.shape) != (1, 28, 64, 64, 2) or not torch.isfinite(
+            seg).all():
+        raise AssertionError(f"best-valid model: output {tuple(seg.shape)}")
+    print(f"train: best-valid model {config} runs: output "
+          f"{tuple(seg.shape)}")
+
+    print(f"train: CLI training passes (s, steps): "
+          f"{learner.train_pass_seconds}")
+    step_ms = time_steps(torch, learner)
+    profile_step(torch, learner)
+    return launches, step_ms, learner
+
+
+def time_steps(torch, learner, n=TIMED_STEPS):
+    """``n`` of the learner's training steps back to back on the stacked
+    training cases, as its training pass runs them (gather, crop, forward,
+    loss, backward, Adam, metrics on the device), after one warm-up step.
+    Host ms per step between two synchronizes, and the spread of the device
+    ms between CUDA events recorded after each step.  Returns the mean of
+    the events' ms per step."""
+    data, _ = learner.device_data(learner._dataloader_training)
+    rows = torch.arange(TRAIN_BATCH, device="cuda")
+
+    def step():
+        learner.train_step({k: None if v is None else v.index_select(0, rows)
+                            for k, v in data.items()})
+
+    step()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks[0].record()
+    for i in range(n):
+        step()
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / n
+    per = sorted(marks[i].elapsed_time(marks[i + 1]) for i in range(n))
+    mean = sum(per) / n
+    std = (sum((v - mean) ** 2 for v in per) / n) ** 0.5
+    print(f"train: {n} steps back to back (bfloat16, batch {TRAIN_BATCH}): "
+          f"host {host_ms:.3f} ms per step; CUDA events per step mean "
+          f"{mean:.3f} ms, std {std:.3f}, min {per[0]:.3f}, median "
+          f"{per[n // 2]:.3f}, max {per[-1]:.3f}")
+    return mean
+
+
+def profile_step(torch, learner):
+    """One training step: device time by phase (CUDA events around the
+    parts of ``UnetSegmentationLearner.train_step``) and by kernel
+    (torch.profiler), and the device's busy share of the step's wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    data, _ = learner.device_data(learner._dataloader_training)
+    rows = torch.arange(TRAIN_BATCH, device="cuda")
+    batch = {k: None if v is None else v.index_select(0, rows)
+             for k, v in data.items()}
+    model, opt = learner._model.train(), learner._optimizer
+
+    def step(marks):
+        marks[0].record()
+        images, labels = learner.crop(batch)
+        loss, outs = learner.forward_loss(images, labels)
+        marks[1].record()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        marks[2].record()
+        opt.step()
+        marks[3].record()
+        with torch.no_grad():
+            learner._metrics(loss, *(o.detach() for o in outs),
+                             training=True)
+        marks[4].record()
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    step(marks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(marks)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    phases = ["crop + forward + loss", "backward", "Adam", "metrics"]
+    print(f"train profile: one step {wall_ms:.2f} ms (host clock); by phase "
+          f"(CUDA events): " + "; ".join(
+              f"{name} {marks[i].elapsed_time(marks[i + 1]):.3f} ms"
+              for i, name in enumerate(phases)))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(marks)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy_ms:
+        print("train profile: no device time in the trace (not measured)")
+        return
+    print(f"train profile: device busy {busy_ms:.3f} ms of {wall_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}% busy); "
+          f"{sum(e.count for e in kernels)} kernels")
+    rules = [("conv3x3_fwd", "K1 conv forward"),
+             ("bwd_tile_kernel<__nv_bfloat16, true, true>", "K2 fused"),
+             ("bwd_tile_kernel<float, true, true>", "K2 fused"),
+             ("true, false>", "K3 dx"), ("false, true>", "K4 dW"),
+             ("finalize", "K2/K4 dW, db reductions"),
+             ("MeanOps", "BN moments (means)"), ("MaxOps", "max reductions"),
+             ("multi_tensor_apply", "Adam (foreach)"),
+             ("gemm", "matmuls (upsample, 1^3 head)"),
+             ("xmma", "matmuls (upsample, 1^3 head)"),
+             ("Memcpy", "copies"), ("copy", "copies / casts")]
+    groups = {}
+    for e in kernels:
+        g = next((name for frag, name in rules if frag in e.key),
+                 "other elementwise / reductions")
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    print("  by kernel: " + "; ".join(
+        f"{g} {ms:.3f} ms ({100 * ms / busy_ms:.1f}%)"
+        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for e in kernels[:15]:
+        ms = e.self_device_time_total / 1e3
+        print(f"  {ms:8.4f} ms {100 * ms / busy_ms:5.1f}%  x{e.count}"
+              f"  {e.key[:100]}")
+
+
+def step_vs_cpu(torch, learner):
+    """One float32 training step (forward, loss, backward; no optimizer
+    step) at full width and patch, batch 2, on the card and on the CPU from
+    the same weights and crop; the same step in float64 on the CPU says
+    which float32 side is further off, and by which gradient."""
+    from stroke_prediction_tpu_torch.data.augment import (
+        crop_patch, random_offsets)
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_IMAGES, KEY_LABELS)
+    from stroke_prediction_tpu_torch.models.unet3d import Unet3D
+
+    data, _ = learner.device_data(learner._dataloader_training)
+    images = data[KEY_IMAGES][:2].cpu()
+    labels = data[KEY_LABELS][:2].cpu()
+    offsets = random_offsets(torch.Generator().manual_seed(2), 2,
+                             tuple(images.shape[1:4]), PATCH_DHW[::-1])
+    imgs, labs = crop_patch(images, labels, offsets, PATCH_DHW[::-1],
+                            (20, 20, 20))
+    model = Unet3D(CHANNELS, generator=torch.Generator().manual_seed(3))
+    out = {}
+    for side, dev, dtype in (("card", "cuda", torch.float32),
+                             ("CPU", "cpu", torch.float32),
+                             ("CPU float64", "cpu", torch.float64)):
+        m = copy.deepcopy(model).to(dev, dtype).train()
+        m.compute_dtype = dtype
+        t0 = time.perf_counter()
+        seg = m(imgs.to(dev))
+        labs_d = labs.to(dev, dtype)
+        loss = learner.loss(seg[..., 0:1], seg[..., 1:2], labs_d[..., 0:1],
+                            labs_d[..., 1:2])
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[side] = (float(loss.detach()),
+                     {k: p.grad.cpu().double()
+                      for k, p in m.named_parameters()},
+                     {k: b.cpu().double() for k, b in m.named_buffers()},
+                     secs)
+
+    def compare(a, b):
+        """(loss rel, (worst grad err / max|grad|, its name), stats err)."""
+        (l_a, g_a, b_a, _), (l_b, g_b, b_b, _) = out[a], out[b]
+        grad = max((rel_err(g_a[k], g_b[k]), k) for k in g_b)
+        stats = max(float((b_a[k] - b_b[k]).abs().max()) for k in b_b)
+        print(f"step {a} vs {b} (batch 2, {len(g_b)} gradients): loss "
+              f"{l_a:.9f} / {l_b:.9f} (rel {abs(l_a - l_b) / abs(l_b):.2e}); "
+              f"max grad err {grad[0]:.2e} of max|grad| at {grad[1]}; "
+              f"running stats max|err| {stats:.2e}")
+        return abs(l_a - l_b) / abs(l_b), grad, stats
+
+    print("\nstep seconds: " + ", ".join(f"{side} {v[3]:.2f} s"
+                                         for side, v in out.items()))
+    loss_rel, grad, stats_err = compare("card", "CPU")
+    card64 = compare("card", "CPU float64")
+    cpu64 = compare("CPU", "CPU float64")
+    print(f"step float32 vs float64: card {card64[1][0]:.2e}, CPU "
+          f"{cpu64[1][0]:.2e} of max|grad|: the "
+          f"{'card' if card64[1][0] > cpu64[1][0] else 'CPU'} is further off")
+    if loss_rel > STEP_LOSS_REL or grad[0] > STEP_GRAD_REL or \
+            stats_err > STEP_STATS_ATOL:
+        raise AssertionError("card and CPU training steps differ")
+    return dict(loss_rel=loss_rel, grad_rel=grad[0], worst_grad=grad[1],
+                stats_err=stats_err, card_vs_f64=card64[1][0],
+                cpu_vs_f64=cpu64[1][0])
+
+
 def profile_cases(torch, tester, batch, infer_ms, reps=3):
     """Device time per tester case by kernel (torch.profiler, CUPTI) and the
     device's busy share of the unprofiled ms per case."""
@@ -329,32 +812,90 @@ def main():
         print(log.read_text().strip())
 
     k1, k5 = kernel_phase(torch)
+    train_k, s_err = train_kernel_phase(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        launches, case_ms = slice_phase(torch, work)
+        t_launches, case_ms = slice_phase(torch, work)
+        launches, step_ms, learner = train_phase(torch, work)
+        step = step_vs_cpu(torch, learner)
 
+    def per_step(key, dtype="bfloat16"):
+        """Sums over the layers whose route runs ``key`` in one step."""
+        runs = {"K1": ("dw", "fused", "split"), "K2": ("fused",),
+                "K3": ("split",), "K4": ("dw", "split")}[key]
+        rows = [r for r in train_k[dtype] if r["route"] in runs]
+        t_ops = sum(r["ops"][key] for r in rows) / PEAK_FLOPS[dtype]
+        t_bytes = sum(r["bytes"][key] for r in rows) / PEAK_BYTES
+        return dict(
+            max_abs_err=max(r["err"][key] for r in rows),
+            max_abs_err_f32=max(r["err"][key] for r in train_k["float32"]),
+            ms=sum(r["ms"][key] for r in rows),
+            plain_ms=sum(r["plain"][key] for r in rows),
+            library_ms=sum(r["lib"][key] for r in rows),
+            bound_ms=sum(r["bound"][key][0] for r in rows),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            gflop=sum(r["ops"][key] for r in rows) / 1e9,
+            layers=[r["layer"] for r in rows])
+
+    for dtype in ("float32", "bfloat16"):
+        print(f"per training step, {dtype}, summed over the layers each "
+              f"kernel runs on (ms kernel / plain / cuDNN / bound): " +
+              "; ".join(f"{key} {v['ms']:.4f} / {v['plain_ms']:.4f} / "
+                        f"{v['library_ms']:.4f} / {v['bound_ms']:.4f} "
+                        f"({v['bound_by']}, {v['gflop']:.2f} GFLOP, "
+                        f"L{v['layers']})"
+                        for key, v in ((key, per_step(key, dtype))
+                                       for key in ("K1", "K2", "K3", "K4"))))
+    csrc = "stroke_prediction_tpu_torch/ops/csrc/"
+    s2d = "stroke_prediction_tpu/ops/pallas/s2d.py:"
+    step_per = (f"one training step (bfloat16, batch {TRAIN_BATCH}, patch "
+                f"68x104x104): the layers the route sends here")
     kernels = [
-        {"name": "conv3x3_fwd", "route": "cuda",
-         "source": "stroke_prediction_tpu_torch/ops/csrc/conv3x3_fwd.cu",
-         "replaces": "stroke_prediction_tpu/ops/pallas/s2d.py:387",
-         "launches": launches["conv3x3"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": k1["library_ms"],
-         "per": "one tester case: the 10 U-Net convs"},
+        dict({"name": "conv3x3_fwd", "route": "cuda",
+              "source": csrc + "conv3x3_fwd.cu", "replaces": s2d + "387",
+              "launches": launches["conv3x3"]}, **per_step("K1"),
+             per=step_per + " (all 10)",
+             tester={"launches": t_launches["conv3x3"], "ms": k1["ms"],
+                     "plain_ms": k1["plain_ms"],
+                     "library_ms": k1["library_ms"],
+                     "bound_ms": k1["bound_ms"],
+                     "per": "one tester case (float32, batch 1)"}),
+        dict({"name": "conv3x3_bwd_fused", "route": "cuda",
+              "source": csrc + "conv3x3_bwd.cu", "replaces": s2d + "491",
+              "launches": launches["conv3x3_bwd_fused"]}, **per_step("K2"),
+             per=step_per),
+        dict({"name": "conv3x3_bwd_dx", "route": "cuda",
+              "source": csrc + "conv3x3_bwd.cu", "replaces": s2d + "589",
+              "launches": launches["conv3x3_bwd_dx"]}, **per_step("K3"),
+             per=step_per),
+        dict({"name": "conv3x3_bwd_dw", "route": "cuda",
+              "source": csrc + "conv3x3_bwd.cu", "replaces": s2d + "623",
+              "launches": launches["conv3x3_bwd_dw"]}, **per_step("K4"),
+             per=step_per),
         {"name": "edt_parabola", "route": "cuda",
-         "source": "stroke_prediction_tpu_torch/ops/csrc/edt_parabola.cu",
+         "source": csrc + "edt_parabola.cu",
          "replaces": "stroke_prediction_tpu/ops/edt.py:80",
          "launches": launches["edt_parabola"],
          "max_abs_err": k5["max_abs_err"],
-         "ms": 8 * k5["ms"], "plain_ms": 8 * k5["plain_ms"],
-         "bound_ms": 8 * k5["bound_ms"], "bound_by": k5["bound_by"],
-         "library_ms": None,
-         "per": "one tester case: 8 x one measured (3584, 128) pass"},
+         "ms": 8 * k5[(3584, 64)]["ms"],
+         "plain_ms": 8 * k5[(3584, 64)]["plain_ms"],
+         "bound_ms": 8 * k5[(3584, 64)]["bound_ms"],
+         "bound_by": k5[(3584, 64)]["bound_by"], "library_ms": None,
+         "per": "one validation step: 8 x one measured (3584, 64) pass",
+         "tester": {"launches": t_launches["edt_parabola"],
+                    "ms": 8 * k5[(3584, 128)]["ms"],
+                    "plain_ms": 8 * k5[(3584, 128)]["plain_ms"],
+                    "bound_ms": 8 * k5[(3584, 128)]["bound_ms"],
+                    "per": "one tester case: 8 x one measured (3584, 128) "
+                           "pass"}},
     ]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")
     print(f"tester ms per case (card, after the first case): {case_ms:.2f}")
+    print(f"training ms per step (card, bfloat16, mean of {TIMED_STEPS} "
+          f"back to back, CUDA events): {step_ms:.3f}; card vs CPU float32 "
+          f"step {step}; 's' backward "
+          f"max|err| {s_err}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,6 +57,20 @@ class BatchLoader:
             yield self.dataset.stack(chunk)
 
 
+def get_stroke_shape_training_data(dataset: StrokeDataset3D,
+                                   fold_indices: Sequence[int], ratio: float,
+                                   seed: int = 4, batchsize: int = 2):
+    """(training loader, validation loader or None), both shuffled per epoch
+    from their own ``seed``-seeded RNG, as in the JAX package."""
+    train_idx, valid_idx = fold_split(len(dataset), fold_indices, ratio, seed)
+    train = BatchLoader(dataset, train_idx, batchsize, shuffle=True,
+                        seed=seed)
+    valid = (BatchLoader(dataset, valid_idx, batchsize, shuffle=True,
+                         seed=seed)
+             if valid_idx else None)
+    return train, valid
+
+
 def get_testdata(dataset, indices, seed=None, shuffle=True) -> BatchLoader:
     """Batch-size-1 loader for per-case test metrics."""
     items = sorted(set(range(len(dataset))).intersection(set(indices)))

@@ -24,13 +24,14 @@ def batch_dice_loss(outputs: torch.Tensor, targets: torch.Tensor,
     if targets.shape[-1] != len(label_weights):
         raise ValueError("Ground truth number of labels does not match "
                          "label weight vector")
-    o = outputs.float()
-    t = targets.float()
+    wide = torch.promote_types(outputs.dtype, torch.float32)
+    o = outputs.to(wide)
+    t = targets.to(wide)
     axes = tuple(range(o.ndim - 1))
     inter = torch.sum(o * t, dim=axes)
     denom = torch.sum(o * o, dim=axes) + torch.sum(t * t, dim=axes)
     dice = (2.0 * inter + epsilon) / (denom + epsilon)
-    w = torch.as_tensor(label_weights, dtype=torch.float32, device=o.device)
+    w = torch.as_tensor(label_weights, dtype=wide, device=o.device)
     return 1.0 - torch.sum(w * dice)
 
 

@@ -10,6 +10,10 @@ import torch
 
 from stroke_prediction_tpu_torch.core.dto import UnetDto, init_unet_dto
 
+# colour scale limits of the CBV / TTD panels in the learners' PNG grids
+IMSHOW_VMAX_CBV = 12
+IMSHOW_VMAX_TTD = 40
+
 
 def unet_dto_from_batch(images: torch.Tensor,
                         labels: Optional[torch.Tensor]) -> UnetDto:

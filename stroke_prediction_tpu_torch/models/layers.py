@@ -1,14 +1,17 @@
-"""Model layers (port of models/layers.py), evaluation mode.
+"""Model layers (port of models/layers.py).
 
 Parameters keep the JAX package's layout — conv kernels ``(kD, kH, kW,
 C_in, C_out)``, BN ``scale``/``bias`` with ``mean``/``var`` running stats —
 so a flax checkpoint maps onto them by name only (models/convert.py).
+Parameters, BN statistics and their gradients stay float32; the convs run
+in the input's type (float32 or bfloat16), as ``compute_dtype`` does in the
+JAX package.
 
-In evaluation the BN running statistics fold exactly into the following
-VALID conv (``fold_bn``) and the activation runs in the conv kernel's
-epilogue, as on the JAX package's s2d path.  Training (BN batch statistics
-and their running update, and the backward kernels) belongs to the training
-slice; the modules raise in ``train()`` mode.
+BN is folded into the following VALID conv (``fold_bn``) and the activation
+runs in the conv kernel's epilogue, as on the JAX package's s2d path.  In
+training the fold uses the batch statistics, so the conv's kernel and bias
+gradients flow back through the fold to BN's ``scale`` / ``bias`` and,
+through the batch mean and variance, to the input.
 """
 
 from __future__ import annotations
@@ -19,14 +22,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from stroke_prediction_tpu_torch.ops.conv3x3 import activation, conv3x3, fold_bn
-
-
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} is ported for evaluation only; call "
-            ".eval() (training is not ported yet)")
+from stroke_prediction_tpu_torch.ops.conv3x3 import (
+    Conv3x3Fn, activation, fold_bn)
 
 
 class Conv3d(nn.Module):
@@ -50,36 +47,57 @@ class Conv3d(nn.Module):
 
     def forward(self, x: torch.Tensor, act: str = "none",
                 alpha: float = 0.01) -> torch.Tensor:
+        """1^3 conv in x's type: ``x @ kernel + bias``, then ``act``."""
         if self.kernel.shape[0] != 1:
             raise NotImplementedError(
                 "a bare 3^3 Conv3d is not ported yet; BnConvActBlock runs "
                 "its folded 3^3 conv through conv3x3")
-        return activation(x @ self.kernel[0, 0, 0] + self.bias, act, alpha)
+        y = x @ self.kernel[0, 0, 0].to(x.dtype) + self.bias.to(x.dtype)
+        return activation(y, act, alpha)
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm3d parameters and running statistics over (B, D, H, W, C).
-    In evaluation :meth:`affine` gives the per-channel ``bn(x) = x*s + t``
-    with ``s = scale * rsqrt(var + eps)``, ``t = bias - mean * s``, which
-    the following conv folds in."""
+    """BatchNorm3d over (B, D, H, W, C) with flax's semantics
+    (layers.py ``BatchNorm`` / ``_BNCore``).
 
-    def __init__(self, features: int, epsilon: float = 1e-5):
+    :meth:`affine` gives the per-channel ``bn(x) = x*s + t`` with
+    ``s = scale * rsqrt(var + eps)`` and ``t = bias - mean * s``, which the
+    following conv folds in.  In training, mean and var are the batch's
+    moments ``E[x]`` and ``max(E[x^2] - E[x]^2, 0)`` (the biased
+    variance), in float32 (float64 for a float64 input) and kept in the
+    autograd graph, and the running statistics take
+    ``ra = 0.9 * ra + 0.1 * batch`` (flax momentum 0.9); in evaluation the
+    running statistics are used."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        _eval_only(self)
-        s = self.scale * torch.rsqrt(self.var + self.epsilon)
-        return s, self.bias - self.mean * s
+    def affine(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.training:
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            axes = tuple(range(x.ndim - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        s = self.scale * torch.rsqrt(var + self.epsilon)
+        return s, self.bias - mean * s
 
 
 class BnConvActBlock(nn.Module):
     """BN -> 3^3 VALID conv -> activation, with BN folded into the conv and
-    the activation fused into its kernel."""
+    the activation fused into its kernel (:class:`Conv3x3Fn`)."""
 
     def __init__(self, in_features: int, features: int,
                  act: str = "leaky_relu", act_param: float = 0.01):
@@ -89,7 +107,7 @@ class BnConvActBlock(nn.Module):
         self.act, self.act_param = act, act_param
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s, t = self.bn.affine()
+        s, t = self.bn.affine(x)
         kernel, bias = fold_bn(self.conv.kernel, self.conv.bias, s, t)
-        return conv3x3(x.contiguous(), kernel.contiguous(), bias, self.act,
-                       self.act_param)
+        return Conv3x3Fn.apply(x.contiguous(), kernel, bias, self.act,
+                               self.act_param, "v")

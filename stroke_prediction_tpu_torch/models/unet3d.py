@@ -6,8 +6,12 @@ upsampling, center-crop skip concatenation ``[upsampled, cropped skip]``,
 and a 1^3 conv -> LeakyReLU(0.01) -> 1^3 conv -> sigmoid head.  The channel
 list ``[in, b1, b2, b3, b4, b5, bC, out]`` is the reference ``--channels``.
 
-Its ten 3^3 convs run in kernel K1 (ops/conv3x3.py); everything else is
-plain PyTorch.  Evaluation mode only (see models/layers.py).
+Its ten 3^3 convs run in kernel K1 forward and K2-K4 backward
+(ops/conv3x3.py); everything else is plain PyTorch.  ``train()`` uses BN
+batch statistics (models/layers.py), ``eval()`` the running ones.  The
+input is cast to ``compute_dtype`` (float32 or bfloat16) at entry, the
+convs, pools, upsamples and the 1^3 head run in it, and the sigmoid runs in
+float32 (unet3d.py:112, 140-143).
 """
 
 from __future__ import annotations
@@ -54,10 +58,16 @@ class UnetBlock(nn.Module):
 class Unet3D(nn.Module):
     def __init__(self, channels: Sequence[int] = (2, 32, 64, 128, 64, 32,
                                                   32, 2),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16,
+                                 torch.float64):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16 "
+                             f"(float64 on the CPU), got {compute_dtype}")
         c_in, b1, b2, b3, b4, b5, b_c, n_classes = channels
         self.channels = tuple(channels)
+        self.compute_dtype = compute_dtype
         self.blocks = nn.ModuleList([
             UnetBlock(c_in, b1), UnetBlock(b1, b2), UnetBlock(b2, b3),
             UnetBlock(b3 + b2, b4), UnetBlock(b4 + b1, b5)])
@@ -69,8 +79,8 @@ class Unet3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, D, H, W, n_in) -> segmentation (B, D', H', W', n_classes)
-        in [0, 1]."""
-        r1 = self.blocks[0](x)
+        in [0, 1], float32 (float64 for a float64 compute type)."""
+        r1 = self.blocks[0](x.to(self.compute_dtype))
         r2 = self.blocks[1](max_pool3d(r1))
         r3 = self.blocks[2](max_pool3d(r2))
         u3 = upsample2x_trilinear(r3)
@@ -79,5 +89,6 @@ class Unet3D(nn.Module):
         u4 = upsample2x_trilinear(r4)
         r5 = self.blocks[4](torch.cat([u4, center_crop(r1, u4.shape[1:4])],
                                       dim=-1))
-        h = self.head[0](r5, act="leaky_relu", alpha=0.01)
-        return torch.sigmoid(self.head[1](h))
+        h = self.head[1](self.head[0](r5, act="leaky_relu", alpha=0.01))
+        return torch.sigmoid(h.to(torch.promote_types(h.dtype,
+                                                      torch.float32)))

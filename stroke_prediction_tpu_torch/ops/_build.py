@@ -4,8 +4,9 @@ Every ``ops/csrc/*.cu`` file is compiled for Hopper (``sm_90a``) by its own
 ``nvcc`` process, all started together, and the objects are linked into one
 shared library with a plain C interface.  The library lands in
 ``build/torch_kernels/`` beside the package (listed in ``.gitignore``), keyed
-by a hash of the sources and flags, so a process builds at most once and a
-changed source always rebuilds.  The first CUDA call of any kernel wrapper
+by a hash of the sources, the headers they share (``csrc/*.cuh``) and the
+flags, so a process builds at most once and a changed file always
+rebuilds.  The first CUDA call of any kernel wrapper
 triggers the build; nothing happens at import time.
 
 There is no fallback: when ``nvcc`` is missing or fails, :func:`library`
@@ -32,12 +33,31 @@ COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
+_FWD = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+_BWD_FUSED = [_P] * 9 + [_I] * 9 + [_F, _I, _P]
+_BWD_DX = [_P] * 4 + [_I] * 8 + [_F, _P]
+_BWD_DW = [_P] * 7 + [_I] * 9 + [_F, _I, _P]
 # C entry points: name -> argtypes (all return a cudaError_t as int)
 SIGNATURES = {
     # x, kernel, bias, y, batch, d_in, h, w, c_in, c_out, z_pad,
     # bias_table, act, alpha, stream
-    "conv3x3_fwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _P],
+    "conv3x3_fwd_f32": _FWD,
+    "conv3x3_fwd_bf16": _FWD,
+    # with_dx, bf16, batch, d_in, h, w, z_pad -> *n_tiles, *n_blocks
+    "conv3x3_bwd_plan": [_I] * 7 + [ctypes.POINTER(_LL),
+                                    ctypes.POINTER(_I)],
+    # x, kernel, y, g, dx, dk, db, partials, db partials, batch, d_in, h, w,
+    # c_in, c_out, z_pad, bias_table, act, alpha, n_blocks, stream
+    "conv3x3_bwd_fused_f32": _BWD_FUSED,
+    "conv3x3_bwd_fused_bf16": _BWD_FUSED,
+    # kernel, y, g, dx, batch, d_in, h, w, c_in, c_out, z_pad, act, alpha,
+    # stream
+    "conv3x3_bwd_dx_f32": _BWD_DX,
+    "conv3x3_bwd_dx_bf16": _BWD_DX,
+    # x, y, g, dk, db, partials, db partials, batch, d_in, h, w, c_in, c_out,
+    # z_pad, bias_table, act, alpha, n_blocks, stream
+    "conv3x3_bwd_dw_f32": _BWD_DW,
+    "conv3x3_bwd_dw_bf16": _BWD_DW,
     # f, out, n_lines, n, stream
     "edt_parabola_f32": [_P, _P, _LL, _I, _P],
 }
@@ -60,7 +80,7 @@ def _nvcc() -> str:
 
 def _key(srcs: List[Path]) -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for src in srcs:
+    for src in srcs + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -1,0 +1,57 @@
+// Device helpers shared by the conv kernels: loads of float32 or bfloat16
+// storage into float32 registers, stores back, and the activations.
+//
+// bfloat16 is the upper half of a float32, so a load is a 16-bit shift and
+// exact; a store rounds to nearest even (__float2bfloat16_rn), as PyTorch's
+// .to(torch.bfloat16) does.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace stroke {
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned>(u) << 16);
+}
+
+// Four consecutive values; p is aligned to 4 elements.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// act: 0 none, 1 LeakyReLU(alpha), 2 ELU(alpha) with the exp of the clamped
+// value (s2d.py _act).
+__device__ __forceinline__ float activate(float y, int act, float alpha) {
+  if (act == 1) return y > 0.f ? y : alpha * y;
+  if (act == 2) return y > 0.f ? y : alpha * (expf(fminf(y, 0.f)) - 1.f);
+  return y;
+}
+
+// d act / d pre-activation, from the saved OUTPUT y (s2d.py _s2d_conv_bwd):
+// LeakyReLU 1 or alpha (alpha at y == 0), ELU 1 or y + alpha, none 1.
+__device__ __forceinline__ float act_grad(float y, int act, float alpha) {
+  if (act == 1) return y > 0.f ? 1.f : alpha;
+  if (act == 2) return y > 0.f ? 1.f : y + alpha;
+  return 1.f;
+}
+
+}  // namespace stroke

@@ -4,15 +4,19 @@
 // _conv_kernel (launched by _s2d_conv_p, API s2d_conv).  What it computes is
 // carried over, not the TPU layout: the s2d 2x2x2 cell packing only existed to
 // fill the MXU's 128 lanes, so this kernel runs a direct convolution over
-// channels-last NDHWC float32.
+// channels-last NDHWC.
 //
-//   x      (B, D_in, H, W, C_in)    contiguous float32
-//   kernel (3, 3, 3, C_in, C_out)   contiguous float32 (BN already folded in)
-//   bias   (C_out,) or a per-output-plane (D_out, C_out) table (z-SAME fold)
-//   y      (B, D_out, H-2, W-2, C_out)
+//   x      (B, D_in, H, W, C_in)    contiguous float32 or bfloat16
+//   kernel (3, 3, 3, C_in, C_out)   contiguous, x's type (BN already folded in)
+//   bias   (C_out,) or a per-output-plane (D_out, C_out) table (z-SAME fold),
+//          float32 for both storage types
+//   y      (B, D_out, H-2, W-2, C_out), x's type
 //   H/W are valid; D is valid (z_pad 0, D_out = D_in - 2) or zero-padded by
 //   one plane on each side (z_pad 1, D_out = D_in).  act: 0 none,
 //   1 LeakyReLU(alpha), 2 ELU(alpha) with the exp of the clamped value.
+//   bfloat16 storage is read into float32, accumulated in float32 and
+//   rounded once on the store (s2d.py: f32 accumulation, out_dtype =
+//   cells.dtype).
 //
 // Design: each thread owns one output voxel and a tile of kCoTile output
 // channels held in registers; it walks the 27 taps x C_in and accumulates in
@@ -26,20 +30,22 @@
 // (each input and output once) are far below that.  A tensor-core implicit
 // GEMM (TF32 or bf16) is the later, faster design.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
+
+using stroke::activate;
+using stroke::load1;
+using stroke::load4;
+using stroke::store1;
 
 constexpr int kThreads = 128;  // output voxels per block, one per thread
 constexpr int kCoTile = 16;    // output channels per block (registers)
-
-__device__ __forceinline__ float activate(float y, int act, float alpha) {
-  if (act == 1) return y > 0.f ? y : alpha * y;
-  if (act == 2) return y > 0.f ? y : alpha * (expf(fminf(y, 0.f)) - 1.f);
-  return y;
-}
 
 // acc[c] += xv * w[c] for the kCoTile channels of one weight row.
 __device__ __forceinline__ void fma_row(float (&acc)[kCoTile], float xv,
@@ -55,10 +61,10 @@ __device__ __forceinline__ void fma_row(float (&acc)[kCoTile], float xv,
   }
 }
 
-template <bool kVec4>
+template <typename T, bool kVec4>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ bias, float* __restrict__ y,
+conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const float* __restrict__ bias, T* __restrict__ y,
                    int batch, int d_in, int h, int w_in, int c_in, int c_out,
                    int d_out, int z_pad, int bias_table, int act,
                    float alpha) {
@@ -93,7 +99,7 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int row = i / kCoTile;  // (ky * 3 + kx) * c_in + ci
       const int co = co0 + c;
       w_s[i] = co < c_out
-                   ? w[((long long)kz * 9 * c_in + row) * c_out + co]
+                   ? load1(w + ((long long)kz * 9 * c_in + row) * c_out + co)
                    : 0.f;
     }
     __syncthreads();
@@ -101,13 +107,13 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (!active || iz < 0 || iz >= d_in) continue;  // padded plane: zeros
     for (int ky = 0; ky < 3; ++ky) {
       for (int kx = 0; kx < 3; ++kx) {
-        const float* xp =
+        const T* xp =
             x + ((((long long)ob * d_in + iz) * h + oy + ky) * w_in + ox + kx) *
                     c_in;
         const float* wp = w_s + (ky * 3 + kx) * c_in * kCoTile;
         if (kVec4) {
           for (int ci = 0; ci < c_in; ci += 4) {
-            const float4 xv = __ldg(reinterpret_cast<const float4*>(xp + ci));
+            const float4 xv = load4(xp + ci);
             fma_row(acc, xv.x, wp + (ci + 0) * kCoTile);
             fma_row(acc, xv.y, wp + (ci + 1) * kCoTile);
             fma_row(acc, xv.z, wp + (ci + 2) * kCoTile);
@@ -115,7 +121,7 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
           }
         } else {
           for (int ci = 0; ci < c_in; ++ci) {
-            fma_row(acc, __ldg(xp + ci), wp + ci * kCoTile);
+            fma_row(acc, load1(xp + ci), wp + ci * kCoTile);
           }
         }
       }
@@ -123,17 +129,17 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
   if (!active) return;
 
-  float* yp = y + v * c_out;
+  T* yp = y + v * c_out;
   const float* bp = bias + (bias_table ? (long long)oz * c_out : 0);
 #pragma unroll
   for (int c = 0; c < kCoTile; ++c) {
     const int co = co0 + c;
-    if (co < c_out) yp[co] = activate(acc[c] + bp[co], act, alpha);
+    if (co < c_out) store1(yp + co, activate(acc[c] + bp[co], act, alpha));
   }
 }
 
-template <bool kVec4>
-cudaError_t launch(const float* x, const float* w, const float* bias, float* y,
+template <typename T, bool kVec4>
+cudaError_t launch(const T* x, const T* w, const float* bias, T* y,
                    int batch, int d_in, int h, int w_in, int c_in, int c_out,
                    int d_out, int z_pad, int bias_table, int act, float alpha,
                    cudaStream_t stream) {
@@ -143,33 +149,53 @@ cudaError_t launch(const float* x, const float* w, const float* bias, float* y,
   const size_t smem = sizeof(float) * 9 * (size_t)c_in * kCoTile;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        conv3x3_fwd_kernel<kVec4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        conv3x3_fwd_kernel<T, kVec4>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  conv3x3_fwd_kernel<kVec4><<<grid, kThreads, smem, stream>>>(
+  conv3x3_fwd_kernel<T, kVec4><<<grid, kThreads, smem, stream>>>(
       x, w, bias, y, batch, d_in, h, w_in, c_in, c_out, d_out, z_pad,
       bias_table, act, alpha);
   return cudaGetLastError();
 }
 
+template <typename T>
+int conv3x3_fwd(const T* x, const T* w, const float* bias, T* y, int batch,
+                int d_in, int h, int w_in, int c_in, int c_out, int z_pad,
+                int bias_table, int act, float alpha, void* stream) {
+  const int d_out = d_in - 2 + 2 * z_pad;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec4 =
+      c_in % 4 == 0 &&
+      reinterpret_cast<std::uintptr_t>(x) % (4 * sizeof(T)) == 0;
+  if (vec4) {
+    return launch<T, true>(x, w, bias, y, batch, d_in, h, w_in, c_in, c_out,
+                           d_out, z_pad, bias_table, act, alpha, s);
+  }
+  return launch<T, false>(x, w, bias, y, batch, d_in, h, w_in, c_in, c_out,
+                          d_out, z_pad, bias_table, act, alpha, s);
+}
+
 }  // namespace
 
-// Returns the launch's cudaError_t (0 on success).  The caller has checked
+// Return the launch's cudaError_t (0 on success).  The caller has checked
 // shapes, dtypes, devices and contiguity, and allocated y.
 extern "C" int conv3x3_fwd_f32(const float* x, const float* w,
                                const float* bias, float* y, int batch,
                                int d_in, int h, int w_in, int c_in, int c_out,
                                int z_pad, int bias_table, int act, float alpha,
                                void* stream) {
-  const int d_out = d_in - 2 + 2 * z_pad;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec4 = c_in % 4 == 0 &&
-                    reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
-  if (vec4) {
-    return launch<true>(x, w, bias, y, batch, d_in, h, w_in, c_in, c_out,
-                        d_out, z_pad, bias_table, act, alpha, s);
-  }
-  return launch<false>(x, w, bias, y, batch, d_in, h, w_in, c_in, c_out,
-                       d_out, z_pad, bias_table, act, alpha, s);
+  return conv3x3_fwd<float>(x, w, bias, y, batch, d_in, h, w_in, c_in, c_out,
+                            z_pad, bias_table, act, alpha, stream);
+}
+
+extern "C" int conv3x3_fwd_bf16(const __nv_bfloat16* x,
+                                const __nv_bfloat16* w, const float* bias,
+                                __nv_bfloat16* y, int batch, int d_in, int h,
+                                int w_in, int c_in, int c_out, int z_pad,
+                                int bias_table, int act, float alpha,
+                                void* stream) {
+  return conv3x3_fwd<__nv_bfloat16>(x, w, bias, y, batch, d_in, h, w_in, c_in,
+                                    c_out, z_pad, bias_table, act, alpha,
+                                    stream);
 }

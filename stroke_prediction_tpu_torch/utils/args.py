@@ -1,10 +1,12 @@
 """CLI flags (port of utils/args.py, the U-Net parsers).
 
 The same flags and defaults as the JAX package's ``ExpParser`` /
-``UnetParser``, plus ``--device {cuda,cpu}`` (default ``cuda``).  The
-runtime flags of the parallel and training paths (``--ndevices``,
-``--distributed`` and its addresses, ``--profile``, ``--distances``) parse
-as in the JAX package, but the port has not ported what reads them yet:
+``UnetParser``, plus ``--device {cuda,cpu}`` (default ``cuda``).
+``--dtype`` picks the training compute type (bfloat16 by default; the tester
+runs float32) and ``--distances`` computes HD/ASSD on training batches too.
+The runtime flags of the parallel path and the profiler (``--ndevices``,
+``--distributed`` and its addresses, ``--profile``) parse as in the JAX
+package, but the port has not ported what reads them yet:
 :meth:`ExpParser.parse_args` raises ``NotImplementedError`` when one of them
 is set to anything but its default.
 """
@@ -16,8 +18,7 @@ from typing import Optional, Sequence
 
 # flag -> default; any other value raises until its slice is ported
 UNPORTED_FLAGS = {"ndevices": 1, "distributed": False, "coordinator": None,
-                  "nprocs": None, "procid": None, "profile": None,
-                  "distances": False}
+                  "nprocs": None, "procid": None, "profile": None}
 
 
 class ExpParser(argparse.ArgumentParser):
@@ -58,7 +59,9 @@ class ExpParser(argparse.ArgumentParser):
                           help="No-op, kept for compatibility")
         self.add_argument("--distances", action="store_true",
                           default=False,
-                          help="Compute HD/ASSD every training batch")
+                          help="Compute HD/ASSD every training AND "
+                               "validation batch (default: validation "
+                               "only)")
         self.add_argument("--profile", type=str, default=None,
                           metavar="LOGDIR",
                           help="Profile one training epoch into LOGDIR")

@@ -231,3 +231,24 @@ def load_checkpoint(path: str):
     if "__config__" in payload:
         config = json.loads(payload["__config__"].tobytes().decode())
     return payload["state"], config
+
+
+def save_curves(path: str, curves: Dict[str, Any]) -> None:
+    """Metric curves as plain JSON, ``{"training": [epoch dict, ...],
+    "validate": [...]}``, written as the JAX package writes them (float
+    ``inf`` as JSON ``Infinity``)."""
+
+    def default(o):
+        if isinstance(o, (np.floating, np.integer)):
+            return o.item()
+        if isinstance(o, np.ndarray):
+            return o.tolist()
+        raise TypeError(type(o))
+
+    with open(path, "w") as f:
+        json.dump(curves, f, default=default)
+
+
+def load_curves(path: str) -> Dict[str, Any]:
+    with open(path, "r") as f:
+        return json.load(f)

@@ -1,0 +1,172 @@
+"""Port parity: the backward of the fused 3x3x3 conv (K2-K4 wrappers and
+``Conv3x3Fn``, ops/conv3x3.py) against ``jax.vjp`` of the JAX package's s2d
+conv, whose backward is the Pallas ``_bwd_kernel`` / ``_dx_kernel`` /
+``_dw_kernel`` run in interpret mode.
+
+Tolerance: max |diff| <= 1e-5 * max |ref| per tensor.  Both sides are
+float32 sums of the same terms in another order (dx over 27 * C_out terms,
+dW and db over the batch's voxels)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stroke_prediction_tpu.ops.pallas.s2d import (
+    fold_bn_zsame as jax_fold_bn_zsame)
+from stroke_prediction_tpu.ops.pallas.s2d import s2d_conv, s2d_pack, s2d_unpack
+from stroke_prediction_tpu_torch.ops import conv3x3 as conv_mod
+from stroke_prediction_tpu_torch.ops.conv3x3 import (
+    Conv3x3Fn, bwd_route, conv3x3_bwd_dw, conv3x3_bwd_dx, conv3x3_bwd_fused)
+
+torch.set_num_threads(1)
+
+REL = 1e-5
+ALPHA = {"none": 0.01, "leaky_relu": 0.01, "elu": 0.7}
+
+
+def _assert_close(got, ref, name):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, name
+    err = np.abs(got - ref).max()
+    assert err <= REL * np.abs(ref).max(), (name, err, np.abs(ref).max())
+
+
+def _case(seed, mode, bias_kind, b=2, d=6, h=8, w=9, ci=3, co=4):
+    rs = np.random.RandomState(seed)
+    x = (rs.rand(b, d, h, w, ci) - 0.5).astype(np.float32)
+    k = ((rs.rand(3, 3, 3, ci, co) - 0.5) * 0.6).astype(np.float32)
+    bias = ((rs.rand(co) - 0.5) * 0.4).astype(np.float32)
+    d_out = d if mode == "s" else d - 2
+    if bias_kind == "plane_table":
+        scale = (0.5 + rs.rand(ci)).astype(np.float32)
+        shift = (rs.rand(ci) - 0.5).astype(np.float32)
+        k, bias = (np.array(a) for a in jax_fold_bn_zsame(
+            jnp.asarray(k), jnp.asarray(bias), jnp.asarray(scale),
+            jnp.asarray(shift), d_out))
+    g = (rs.rand(b, d_out, h - 2, w - 2, co) - 0.5).astype(np.float32)
+    return x, k, bias, g
+
+
+def _jax_grads(x, k, bias, g, mode, act, input_grad=True):
+    """(y, dx, dk, db) of the s2d conv, cotangent g (interpret mode)."""
+    def f(x, k, bias):
+        s = s2d_pack(x, dtype=jnp.float32)
+        return s2d_unpack(s2d_conv(s, k, bias, act=act, alpha=ALPHA[act],
+                                   modes=(mode, "v", "v"),
+                                   input_grad=input_grad))
+
+    y, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(k), jnp.asarray(bias))
+    return (np.asarray(y),) + tuple(np.asarray(a)
+                                    for a in vjp(jnp.asarray(g)))
+
+
+@pytest.mark.parametrize("bias_kind", ["vector", "plane_table"])
+@pytest.mark.parametrize("act", ["none", "leaky_relu", "elu"])
+@pytest.mark.parametrize("mode", ["v", "s"])
+def test_conv3x3_backward_matches_s2d_vjp(mode, act, bias_kind):
+    x, k, bias, g = _case(3, mode, bias_kind)
+    _, rdx, rdk, rdb = _jax_grads(x, k, bias, g, mode, act)
+
+    xt, kt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, k, bias))
+    before = [f.launches for f in conv_mod.KERNEL_WRAPPERS]
+    y = Conv3x3Fn.apply(xt, kt, bt, act, ALPHA[act], mode)
+    y.backward(torch.from_numpy(g))
+    assert [f.launches for f in conv_mod.KERNEL_WRAPPERS] == before  # CPU
+    for got, ref, name in ((xt.grad, rdx, "dx"), (kt.grad, rdk, "dk"),
+                           (bt.grad, rdb, "db")):
+        _assert_close(got.numpy(), ref, name)
+    # 's' mode: the padded planes take no dx, the first and last input
+    # planes only their in-range taps
+    if mode == "s":
+        _assert_close(xt.grad[:, [0, -1]].numpy(), rdx[:, [0, -1]],
+                      "dx edge planes")
+
+    # each wrapper on its own gives the same gradients
+    yd, gt, kd = y.detach(), torch.from_numpy(g), torch.from_numpy(k)
+    table = bias_kind == "plane_table"
+    dx, dk, db = conv3x3_bwd_fused(torch.from_numpy(x), gt, yd, kd, act,
+                                   ALPHA[act], mode, table)
+    dx3 = conv3x3_bwd_dx(gt, yd, kd, x.shape, act, ALPHA[act], mode)
+    dk4, db4 = conv3x3_bwd_dw(torch.from_numpy(x), gt, yd, act, ALPHA[act],
+                              mode, table)
+    for got, ref, name in ((dx, rdx, "fused dx"), (dk, rdk, "fused dk"),
+                           (db, rdb, "fused db"), (dx3, rdx, "dx"),
+                           (dk4, rdk, "dw dk"), (db4, rdb, "dw db")):
+        _assert_close(got.numpy(), ref, name)
+
+
+@pytest.mark.parametrize("mode", ["v", "s"])
+def test_conv3x3_data_input_takes_dw_only(mode):
+    """An input without grad (the entry conv on data) gives the kernel and
+    bias gradients of JAX's ``input_grad=False`` conv and no dx."""
+    x, k, bias, g = _case(5, mode, "vector", ci=2, co=5)
+    _, _, rdk, rdb = _jax_grads(x, k, bias, g, mode, "leaky_relu",
+                                input_grad=False)
+    xt = torch.from_numpy(x)
+    kt, bt = (torch.from_numpy(a).requires_grad_() for a in (k, bias))
+    y = Conv3x3Fn.apply(xt, kt, bt, "leaky_relu", 0.01, mode)
+    y.backward(torch.from_numpy(g))
+    assert xt.grad is None
+    _assert_close(kt.grad.numpy(), rdk, "dk")
+    _assert_close(bt.grad.numpy(), rdb, "db")
+
+
+def test_conv3x3_leaky_relu_grad_at_zero_output():
+    """At y == 0 exactly the JAX rule takes alpha (the test is y > 0)."""
+    x = torch.zeros(1, 3, 3, 3, 1)
+    k = torch.ones(3, 3, 3, 1, 1, requires_grad=True)
+    b = torch.zeros(1, requires_grad=True)
+    y = Conv3x3Fn.apply(x, k, b, "leaky_relu", 0.25, "v")
+    assert float(y.detach()) == 0.0
+    y.backward(torch.ones_like(y))
+    assert float(b.grad) == pytest.approx(0.25)
+
+
+def test_conv3x3_fn_gradcheck_float64():
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.rand(1, 4, 4, 5, 2)).requires_grad_()
+    k = torch.from_numpy(rs.rand(3, 3, 3, 2, 3) - 0.5).requires_grad_()
+    b = torch.from_numpy(rs.rand(3) - 0.5).requires_grad_()
+    for act, mode in (("leaky_relu", "v"), ("elu", "s")):
+        assert torch.autograd.gradcheck(
+            lambda x, k, b: Conv3x3Fn.apply(x, k, b, act, 0.3, mode),
+            (x, k, b))
+
+
+def test_bwd_route_at_reference_width():
+    """The fused / split rule on the reference U-Net's ten convs (channels
+    2 16 32 64 32 16 32 2): K4 alone on the entry conv, K2 on L2, L3, L10,
+    K3 + K4 on L4-L9."""
+    layers = [(2, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64),
+              (96, 32), (32, 32), (48, 16), (16, 16)]
+    routes = [bwd_route(ci, co, i > 0) for i, (ci, co) in enumerate(layers)]
+    assert routes == ["dw", "fused", "fused", "split", "split", "split",
+                      "split", "split", "split", "fused"]
+
+
+@pytest.mark.parametrize("bad", ["g_shape", "y_shape", "kernel_shape",
+                                 "act", "mode"])
+def test_conv3x3_bwd_rejects_bad_arguments(bad):
+    x = torch.zeros(1, 5, 5, 5, 2)
+    k = torch.zeros(3, 3, 3, 2, 4)
+    g = y = torch.zeros(1, 3, 3, 3, 4)
+    kw = dict(act="none", mode="v")
+    if bad == "g_shape":
+        g = torch.zeros(1, 3, 3, 3, 5)
+    elif bad == "y_shape":
+        y = torch.zeros(1, 4, 3, 3, 4)
+    elif bad == "kernel_shape":
+        k = torch.zeros(3, 3, 3, 3, 4)
+    elif bad == "act":
+        kw["act"] = "relu"
+    else:
+        kw["mode"] = "x"
+    with pytest.raises(ValueError):
+        conv3x3_bwd_fused(x, g, y, k, **kw)
+    with pytest.raises(ValueError):
+        conv3x3_bwd_dx(g, y, k, x.shape, **kw)
+    if bad != "kernel_shape":
+        with pytest.raises(ValueError):
+            conv3x3_bwd_dw(x, g, y, **kw)

@@ -33,7 +33,8 @@ from stroke_prediction_tpu_torch.models.factory import build_model, load_model
 from stroke_prediction_tpu_torch.models.layers import Conv3d
 from stroke_prediction_tpu_torch.models.unet3d import Unet3D
 from stroke_prediction_tpu_torch.utils import checkpoint
-from stroke_prediction_tpu_torch.utils.args import get_args_unet_training
+from stroke_prediction_tpu_torch.utils.args import (
+    UNPORTED_FLAGS, get_args_unet_training)
 
 torch.set_num_threads(1)
 
@@ -147,9 +148,10 @@ def test_bare_3x3_conv_refused():
 
 @pytest.mark.parametrize("flags", [
     ["--ndevices", "4"], ["--distributed"], ["--coordinator", "h:1"],
-    ["--nprocs", "2"], ["--procid", "0"], ["--profile", "logdir"],
-    ["--distances"]])
+    ["--nprocs", "2"], ["--procid", "0"], ["--profile", "logdir"]])
 def test_unported_runtime_flags_raise(flags):
+    """Each runtime flag of a slice not ported yet raises."""
+    assert flags[0].lstrip("-") in UNPORTED_FLAGS
     with pytest.raises(NotImplementedError, match=flags[0]):
         get_args_unet_training(["unet.model", *flags])
     # the JAX parser takes the same command line
@@ -208,10 +210,15 @@ def test_port_imports_without_jax_and_never_the_jax_package():
             "import stroke_prediction_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
-            "print('ok')\n")
+            "print(' '.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    assert out.returncode == 0, out.stderr
+    loaded = set(out.stdout.split())
+    for mod in ("cli.train_unet_segmentation", "train.learner",
+                "train.unet_learner", "train.optim", "data.augment",
+                "ops.conv3x3", "ops.pooling", "models.convert"):
+        assert "stroke_prediction_tpu_torch." + mod in loaded, mod
 
 
 def _random_unet_checkpoint(path):

@@ -93,9 +93,21 @@ def test_state_dict_round_trip(jax_unet):
         np.testing.assert_array_equal(flat_b[path], leaf)
 
 
-def test_unet3d_refuses_training_mode():
-    with pytest.raises(NotImplementedError):
-        Unet3D(CHANNELS)(torch.zeros(1, 44, 44, 44, 2))
+def test_unet3d_refuses_float16_compute():
+    """A compute type that the conv kernels do not take."""
+    with pytest.raises(ValueError):
+        Unet3D(CHANNELS, compute_dtype=torch.float16)
+
+
+def test_unet3d_train_mode_moves_running_stats():
+    """A train-mode forward normalises with the batch statistics and moves
+    the running ones."""
+    net = Unet3D(CHANNELS).train()
+    bn = net.blocks[0].layers[0].bn
+    before = bn.mean.clone()
+    gen = torch.Generator().manual_seed(0)
+    net(torch.rand(2, 44, 44, 44, 2, generator=gen))
+    assert not torch.equal(before, bn.mean)
 
 
 def test_unet3d_seeded_init_is_reproducible():
