@@ -16,11 +16,13 @@ non-zero without one.  Phases:
    (bound);
 3. kernel phase, training shapes: at the ten convs of one training step
    (batch 6, 68x104x104 patch), in float32 and in bfloat16, K1 and the
-   backward kernels K2 (fused dx + dW), K3 (dx) and K4 (dW) against their
-   plain versions, each at every layer whichever route the step takes
-   there, K2 and K4 twice for bit-identical dW; one small 's' + ELU +
-   plane-table backward case; times as above, with cuDNN's backward as
-   the library yardstick;
+   backward kernels K2 (fused dx + dW; bfloat16 on the tensor cores, at the
+   layers its channel bound takes: L2, L3, L10), K3 (dx) and K4 (dW)
+   against their plain versions, each at every layer whichever route the
+   step takes there, K2 and K4 twice for bit-identical dW and db; K2 vs
+   K3 + K4 per fused layer; a small 's' + ELU + plane-table backward case
+   and an odd-channel (3 -> 4) one; times as above, with cuDNN's backward
+   as the library yardstick;
 4. tester phase: the port's full-volume U-Net tester CLI on three
    synthetic 256x256x28 cases (resampled to 128x128x28, padded by 20 to
    68x168x168), channels 2 16 32 64 32 16 32 2 with seeded random weights
@@ -282,6 +284,8 @@ def train_kernel_phase(torch):
               f"bound):")
         for i, (d, h, w, ci, co) in enumerate(shapes, 1):
             route = bwd_route(ci, co, i > 1)
+            # the bfloat16 K2 takes only the channels its route allows
+            k2 = dtype == torch.float32 or bwd_route(ci, co) == "fused"
             x = uniform((TRAIN_BATCH, d, h, w, ci), -1.0, 1.0, dtype)
             bnd = (27 * ci) ** -0.5
             k = uniform((3, 3, 3, ci, co), -bnd, bnd, dtype)
@@ -294,27 +298,31 @@ def train_kernel_phase(torch):
             a = (g, y, "leaky_relu", 0.01)
             rdx = conv3x3_bwd_dx_plain(g, y, k, x.shape, "leaky_relu", 0.01)
             rdk, rdb = conv3x3_bwd_dw_plain(x, *a)
-            dx2, dk2, db2 = conv3x3_bwd_fused(x, g, y, k, "leaky_relu", 0.01)
             dx3 = conv3x3_bwd_dx(g, y, k, x.shape, "leaky_relu", 0.01)
             dk4, db4 = conv3x3_bwd_dw(x, *a)
-            dk2b, db2b = conv3x3_bwd_fused(x, g, y, k, "leaky_relu",
-                                           0.01)[1:]
             dk4b, db4b = conv3x3_bwd_dw(x, *a)
+            runs = [("K4", (dk4, db4), (dk4b, db4b))]
+            if k2:
+                dx2, dk2, db2 = conv3x3_bwd_fused(x, g, y, k, "leaky_relu",
+                                                  0.01)
+                dk2b, db2b = conv3x3_bwd_fused(x, g, y, k, "leaky_relu",
+                                               0.01)[1:]
+                runs.append(("K2", (dk2, db2), (dk2b, db2b)))
             torch.cuda.synchronize()
-            for name, p, q in (("K2", (dk2, db2), (dk2b, db2b)),
-                               ("K4", (dk4, db4), (dk4b, db4b))):
+            for name, p, q in runs:
                 if not (torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])):
                     raise AssertionError(f"{name} L{i} {dname}: dW or db "
                                          f"differs between two runs")
             tag = f"L{i} {dname}"
-            err["K2"] = max(check_out(f"K2 dx {tag}", dx2, rdx, dtype),
-                            check_sum(f"K2 dk {tag}", dk2, rdk, dtype),
-                            check_sum(f"K2 db {tag}", db2, rdb, dtype))
+            if k2:
+                err["K2"] = max(check_out(f"K2 dx {tag}", dx2, rdx, dtype),
+                                check_sum(f"K2 dk {tag}", dk2, rdk, dtype),
+                                check_sum(f"K2 db {tag}", db2, rdb, dtype))
+                del dx2, dk2, db2, dk2b, db2b
             err["K3"] = check_out(f"K3 dx {tag}", dx3, rdx, dtype)
             err["K4"] = max(check_sum(f"K4 dk {tag}", dk4, rdk, dtype),
                             check_sum(f"K4 db {tag}", db4, rdb, dtype))
-            del rdx, rdk, rdb, dx2, dk2, db2, dx3, dk4, db4, dk2b, db2b
-            del dk4b, db4b
+            del rdx, rdk, rdb, dx3, dk4, db4, dk4b, db4b, runs
 
             # times; the library yardstick is cuDNN's dgrad / wgrad on the
             # masked cotangent (TF32 off), which the port never calls
@@ -327,11 +335,12 @@ def train_kernel_phase(torch):
             ms = {
                 "K1": cuda_ms(torch, lambda: conv3x3(
                     x, k, b, "leaky_relu", 0.01), iters),
-                "K2": cuda_ms(torch, lambda: conv3x3_bwd_fused(
-                    x, g, y, k, "leaky_relu", 0.01), iters),
                 "K3": cuda_ms(torch, lambda: conv3x3_bwd_dx(
                     g, y, k, x.shape, "leaky_relu", 0.01), iters),
                 "K4": cuda_ms(torch, lambda: conv3x3_bwd_dw(x, *a), iters)}
+            if k2:
+                ms["K2"] = cuda_ms(torch, lambda: conv3x3_bwd_fused(
+                    x, g, y, k, "leaky_relu", 0.01), iters)
             plain = {
                 "K1": cuda_ms(torch, lambda: conv3x3_plain(
                     x, k, b, "leaky_relu", 0.01), iters),
@@ -357,7 +366,7 @@ def train_kernel_phase(torch):
                 "K3": nb * (2 * ny + nk + nx),
                 "K4": nb * (nx + 2 * ny) + 4 * (nk + co)}
             bnd_ms = {key: bound_ms(ops[key], nbytes[key], dname)
-                      for key in ms}
+                      for key in ops}
             rows.append(dict(layer=i, route=route, shape=(d, h, w, ci, co),
                              err=err, ms=ms, plain=plain, lib=lib,
                              bound=bnd_ms, ops=ops, bytes=nbytes))
@@ -368,36 +377,58 @@ def train_kernel_phase(torch):
                               f"({bnd_ms[key][1][0]})" for key in ms)
                   + "  max|err| " + " ".join(f"{key} {v:.3e}"
                                              for key, v in err.items()))
+            if route == "fused":
+                split = ms["K3"] + ms["K4"]
+                print(f"      L{i} K2 {ms['K2']:.4f} ms vs K3 + K4 "
+                      f"{split:.4f} ms ({split / ms['K2']:.2f}x); cuDNN "
+                      f"dgrad + wgrad {lib['K2']:.4f} ms; K2 at "
+                      f"{ops['K2'] / ms['K2'] / 1e9:.1f} TFLOP/s")
             del x, k, b, y, g, gp, x_l, g_l, w_l
         results[dname] = rows
 
-    # z-SAME + ELU + per-plane bias table, backward (the CAE encoder's form)
+    # z-SAME + ELU + per-plane bias table, backward (the CAE encoder's
+    # form), and an odd channel count (3 -> 4: padded channels, scalar
+    # staging) in 'v' + LeakyReLU
     s_err = {}
     for dtype in (torch.float32, torch.bfloat16):
-        x = uniform((2, 12, 20, 22, 8), -1.0, 1.0, dtype)
-        k, table = fold_bn_zsame(uniform((3, 3, 3, 8, 16), -0.1, 0.1),
-                                 uniform((16,), -0.1, 0.1),
-                                 uniform((8,), 0.5, 1.5),
-                                 uniform((8,), -0.5, 0.5), 12)
-        k = k.to(dtype).contiguous()
-        y = conv3x3(x, k, table, "elu", 1.0, "s")
-        g = uniform(y.shape, -1.0, 1.0, dtype)
-        a = (g, y, "elu", 1.0, "s")
-        rdx = conv3x3_bwd_dx_plain(g, y, k, x.shape, "elu", 1.0, "s")
-        rdk, rdb = conv3x3_bwd_dw_plain(x, *a, True)
-        dx2, dk2, db2 = conv3x3_bwd_fused(x, g, y, k, "elu", 1.0, "s", True)
-        dx3 = conv3x3_bwd_dx(g, y, k, x.shape, "elu", 1.0, "s")
-        dk4, db4 = conv3x3_bwd_dw(x, *a, True)
-        torch.cuda.synchronize()
         dname = str(dtype).split(".")[1]
-        s_err[dname] = max(
-            check_out("K2 's' dx", dx2, rdx, dtype),
-            check_out("K3 's' dx", dx3, rdx, dtype),
-            *(check_sum(n, p, q, dtype) for n, p, q in (
-                ("K2 's' dk", dk2, rdk), ("K2 's' db", db2, rdb),
-                ("K4 's' dk", dk4, rdk), ("K4 's' db", db4, rdb))))
-    print(f"K2-K4 's' + ELU + plane table (2, 12, 20, 22, 8->16): max|err| "
-          f"{s_err}")
+        for case, (shape, co, act, alpha, mode) in (
+                ("'s' + ELU + plane table", ((2, 12, 20, 22, 8), 16, "elu",
+                                             1.0, "s")),
+                ("3 -> 4", ((2, 9, 23, 37, 3), 4, "leaky_relu", 0.01,
+                            "v"))):
+            x = uniform(shape, -1.0, 1.0, dtype)
+            ci, d_out = shape[-1], shape[1] - 2 * (mode == "v")
+            k, bias = fold_bn_zsame(uniform((3, 3, 3, ci, co), -0.1, 0.1),
+                                    uniform((co,), -0.1, 0.1),
+                                    uniform((ci,), 0.5, 1.5),
+                                    uniform((ci,), -0.5, 0.5), d_out)
+            table = mode == "s"
+            if not table:
+                bias = bias[0].contiguous()
+            k = k.to(dtype).contiguous()
+            y = conv3x3(x, k, bias, act, alpha, mode)
+            g = uniform(y.shape, -1.0, 1.0, dtype)
+            a = (g, y, act, alpha, mode)
+            rdx = conv3x3_bwd_dx_plain(g, y, k, x.shape, act, alpha, mode)
+            rdk, rdb = conv3x3_bwd_dw_plain(x, *a, table)
+            dx2, dk2, db2 = conv3x3_bwd_fused(x, *a[:2], k, *a[2:], table)
+            dk2b, db2b = conv3x3_bwd_fused(x, *a[:2], k, *a[2:], table)[1:]
+            dx3 = conv3x3_bwd_dx(g, y, k, x.shape, act, alpha, mode)
+            dk4, db4 = conv3x3_bwd_dw(x, *a, table)
+            torch.cuda.synchronize()
+            if not (torch.equal(dk2, dk2b) and torch.equal(db2, db2b)):
+                raise AssertionError(f"K2 {case} {dname}: dW or db differs "
+                                     f"between two runs")
+            s_err[f"{case} {dname}"] = max(
+                check_out(f"K2 {case} dx", dx2, rdx, dtype),
+                check_out(f"K3 {case} dx", dx3, rdx, dtype),
+                *(check_sum(n, p, q, dtype) for n, p, q in (
+                    (f"K2 {case} dk", dk2, rdk), (f"K2 {case} db", db2, rdb),
+                    (f"K4 {case} dk", dk4, rdk),
+                    (f"K4 {case} db", db4, rdb))))
+    print(f"K2-K4 's' + ELU + plane table (2, 12, 20, 22, 8->16) and 3 -> 4 "
+          f"(2, 9, 23, 37): max|err| {s_err}")
     print("largest max|err| / max|ref| over the layers (y, dx in the "
           "storage type; dW, db float32 in both): " + "; ".join(
               f"{k} {d} {v:.3e}" for (k, d), v in sorted(rel.items())))
@@ -667,7 +698,7 @@ def profile_step(torch, learner):
           f"({100 * busy_ms / wall_ms:.1f}% busy); "
           f"{sum(e.count for e in kernels)} kernels")
     rules = [("conv3x3_fwd", "K1 conv forward"),
-             ("bwd_tile_kernel<__nv_bfloat16, true, true>", "K2 fused"),
+             ("conv3x3_bwd_tc_kernel", "K2 fused"),
              ("bwd_tile_kernel<float, true, true>", "K2 fused"),
              ("true, false>", "K3 dx"), ("false, true>", "K4 dW"),
              ("finalize", "K2/K4 dW, db reductions"),
@@ -860,9 +891,9 @@ def main():
                      "bound_ms": k1["bound_ms"],
                      "per": "one tester case (float32, batch 1)"}),
         dict({"name": "conv3x3_bwd_fused", "route": "cuda",
-              "source": csrc + "conv3x3_bwd.cu", "replaces": s2d + "491",
+              "source": csrc + "conv3x3_bwd_tc.cu", "replaces": s2d + "491",
               "launches": launches["conv3x3_bwd_fused"]}, **per_step("K2"),
-             per=step_per),
+             source_float32=csrc + "conv3x3_bwd.cu", per=step_per),
         dict({"name": "conv3x3_bwd_dx", "route": "cuda",
               "source": csrc + "conv3x3_bwd.cu", "replaces": s2d + "589",
               "launches": launches["conv3x3_bwd_dx"]}, **per_step("K3"),

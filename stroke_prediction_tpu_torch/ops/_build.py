@@ -43,8 +43,9 @@ SIGNATURES = {
     # bias_table, act, alpha, stream
     "conv3x3_fwd_f32": _FWD,
     "conv3x3_fwd_bf16": _FWD,
-    # with_dx, bf16, batch, d_in, h, w, z_pad -> *n_tiles, *n_blocks
-    "conv3x3_bwd_plan": [_I] * 7 + [ctypes.POINTER(_LL),
+    # with_dx, bf16, batch, d_in, h, w, c_in, c_out, z_pad -> *n_tiles,
+    # *n_blocks
+    "conv3x3_bwd_plan": [_I] * 9 + [ctypes.POINTER(_LL),
                                     ctypes.POINTER(_I)],
     # x, kernel, y, g, dx, dk, db, partials, db partials, batch, d_in, h, w,
     # c_in, c_out, z_pad, bias_table, act, alpha, n_blocks, stream

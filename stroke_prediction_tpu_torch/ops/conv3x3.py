@@ -10,7 +10,8 @@ channels-last volumes, float32 or bfloat16 (float32 accumulation).
 * :func:`conv3x3` — the forward wrapper (K1, ``csrc/conv3x3_fwd.cu``).
 * :func:`conv3x3_bwd_fused` (K2), :func:`conv3x3_bwd_dx` (K3),
   :func:`conv3x3_bwd_dw` (K4) — the backward wrappers
-  (``csrc/conv3x3_bwd.cu``).
+  (``csrc/conv3x3_bwd.cu``; the bfloat16 K2 is ``csrc/conv3x3_bwd_tc.cu``,
+  on the tensor cores).
 * :class:`Conv3x3Fn` — the autograd function: K1 forward; K2, or K3 + K4,
   backward (:func:`bwd_route`); K4 alone when the input needs no gradient
   (the entry conv on data, s2d.py ``input_grad=False``).
@@ -36,19 +37,28 @@ MODES = {"v": 0, "s": 1}   # z valid, or z zero-padded by one plane
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 # Route rule for the backward (the counterpart of _BWD_FUSED_VMEM_BUDGET,
-# s2d.py:676-681): the fused K2 pass when the layer's float32 dW block
-# 27 * C_in * C_out * 4 bytes is at most 64 KB, else K3 + K4.  On the U-Net
-# at the reference width that fuses L2, L3 and L10.  The threshold stands in
-# for the TPU's VMEM budget; it is not an H100 measurement, and on the H100
-# the fused pass is slower than K3 + K4 on those layers (PERF.md).
+# s2d.py:676-681): the fused K2 pass when the layer's float32 dW block, with
+# channels padded to 16 as the bfloat16 K2 keeps it in registers,
+# 27 * C_in' * C_out' * 4 bytes, is at most 64 KB, else K3 + K4.  On the
+# U-Net at the reference width that fuses L2, L3 and L10.  The threshold
+# stands in for the TPU's VMEM budget and is the bfloat16 K2's bound; it is
+# not set from H100 times.
 FUSED_DW_BYTES = 64 * 1024
+
+
+def _pad16(c: int) -> int:
+    return -(-c // 16) * 16
+
+
+def _fused_fits(c_in: int, c_out: int) -> bool:
+    return 27 * _pad16(c_in) * _pad16(c_out) * 4 <= FUSED_DW_BYTES
 
 
 def bwd_route(c_in: int, c_out: int, input_grad: bool = True) -> str:
     """'fused' (K2), 'split' (K3 + K4) or 'dw' (K4 alone)."""
     if not input_grad:
         return "dw"
-    return "fused" if 27 * c_in * c_out * 4 <= FUSED_DW_BYTES else "split"
+    return "fused" if _fused_fits(c_in, c_out) else "split"
 
 
 def activation(y: torch.Tensor, act: str, alpha: float) -> torch.Tensor:
@@ -210,8 +220,20 @@ conv3x3.launches = 0   # kernel launches since the caller last reset it
 
 def _masked_cotangent(g: torch.Tensor, y: torch.Tensor, act: str,
                       alpha: float) -> torch.Tensor:
-    """g' = g * act'(y), bfloat16 computed in float32."""
-    return _acc(g) * activation_grad(_acc(y), act, alpha)
+    """g' = g * act'(y) in the storage type, as s2d.py:879-889 forms it:
+    for bfloat16 storage alpha, ELU's ``y + alpha`` and the product are each
+    rounded to bfloat16 (the kernels round at the same places); returned in
+    the working type."""
+    if y.dtype != torch.bfloat16:
+        return g * activation_grad(y, act, alpha)
+    bf = torch.bfloat16
+    alpha = float(torch.tensor(alpha, dtype=bf))
+    y = y.float()
+    if act == "elu":
+        dact = torch.where(y > 0, 1.0, (y + alpha).to(bf).float())
+    else:
+        dact = activation_grad(y, act, alpha)
+    return (g.float() * dact).to(bf).float()
 
 
 def conv3x3_bwd_dx_plain(g: torch.Tensor, y: torch.Tensor,
@@ -276,12 +298,13 @@ def _check_bwd(x_shape, g, y, act, mode, kernel=None, x=None):
             raise ValueError(f"{name} is on {t.device}, y on {y.device}")
 
 
-def _plan(with_dx: bool, sfx: str, x_shape, mode: str) -> Tuple[int, int]:
+def _plan(with_dx: bool, sfx: str, x_shape, co: int,
+          mode: str) -> Tuple[int, int]:
     """(n_tiles, n_blocks) of a fused or dW-only pass on this card."""
-    b, d, h, w, _ = x_shape
+    b, d, h, w, ci = x_shape
     n_tiles, n_blocks = ctypes.c_longlong(0), ctypes.c_int(0)
     err = _build.library().conv3x3_bwd_plan(
-        int(with_dx), int(sfx == "bf16"), b, d, h, w, MODES[mode],
+        int(with_dx), int(sfx == "bf16"), b, d, h, w, ci, co, MODES[mode],
         ctypes.byref(n_tiles), ctypes.byref(n_blocks))
     _build.check("conv3x3_bwd_plan", err)
     return n_tiles.value, n_blocks.value
@@ -291,7 +314,7 @@ def _dw_buffers(with_dx: bool, sfx: str, x_shape, co: int, mode: str,
                 bias_table: bool, dev):
     """dk, db and the scratch of a fused or dW-only pass: per-block dW
     partials and per-tile db partials (float32), and the block count."""
-    n_tiles, n_blocks = _plan(with_dx, sfx, x_shape, mode)
+    n_tiles, n_blocks = _plan(with_dx, sfx, x_shape, co, mode)
     ci = x_shape[-1]
     f32 = dict(dtype=torch.float32, device=dev)
     db_shape = (_out_depth(x_shape[1], mode), co) if bias_table else (co,)
@@ -359,7 +382,9 @@ def conv3x3_bwd_fused(x: torch.Tensor, g: torch.Tensor, y: torch.Tensor,
                       alpha: float = 0.01, mode: str = "v",
                       bias_table: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dx, dk, db) of :func:`conv3x3` in one pass (K2)."""
+    """(dx, dk, db) of :func:`conv3x3` in one pass (K2).  On the card,
+    bfloat16 takes only the channel counts that :func:`bwd_route` sends
+    here (the tensor-core kernel keeps the padded dW block in registers)."""
     _check_bwd(x.shape, g, y, act, mode, kernel=kernel, x=x)
     if not _on_card("conv3x3_bwd_fused", y.device):
         return conv3x3_bwd_fused_plain(x, g, y, kernel, act, alpha, mode,
@@ -368,6 +393,10 @@ def conv3x3_bwd_fused(x: torch.Tensor, g: torch.Tensor, y: torch.Tensor,
                        [("x", x), ("g", g), ("y", y), ("kernel", kernel)])
     b, d, h, w, ci = x.shape
     co = kernel.shape[-1]
+    if sfx == "bf16" and not _fused_fits(ci, co):
+        raise ValueError(f"conv3x3_bwd_fused: bfloat16 {ci} -> {co} channels "
+                         f"is outside the fused kernel's bound; bwd_route "
+                         f"sends it to K3 + K4")
     dx = torch.empty_like(x)
     dk, db, part, dbp, n_blocks = _dw_buffers(True, sfx, x.shape, co, mode,
                                               bias_table, y.device)

@@ -2,7 +2,9 @@
 // (kernels K2, K3 and K4 of the port).
 //
 // Replaces the TPU kernels of stroke_prediction_tpu/ops/pallas/s2d.py:
-//   K2  conv3x3_bwd_fused_*  <- _bwd_kernel   (fused dx + dW in one pass)
+//   K2  conv3x3_bwd_fused_f32 <- _bwd_kernel  (fused dx + dW in one pass;
+//                               the bfloat16 K2 is conv3x3_bwd_tc.cu, on
+//                               the tensor cores)
 //   K3  conv3x3_bwd_dx_*     <- _dx_kernel    (dx alone)
 //   K4  conv3x3_bwd_dw_*     <- _dw_kernel + _dw_taps (dW alone; also the
 //                               entry conv, whose input is data: no dx)
@@ -10,16 +12,19 @@
 // over, not the s2d cell layout, superpatch weights or tap-table fold-back:
 //
 //   g'           = g * act'(y)   (from the saved OUTPUT: LeakyReLU 1 / alpha,
-//                                 ELU 1 / y + alpha, none 1)
+//                                 ELU 1 / y + alpha, none 1; for bfloat16
+//                                 storage rounded as s2d.py:879-889 does)
 //   dx[z,h,w,i]  = sum_{t,o} g'[z - tz + p, h - ty, w - tx, o] * k[t, i, o]
 //   dk[t, i, o]  = sum_{b,z,h,w} x[z + tz - p, h + ty, w + tx, i] * g'[.., o]
 //   db[o]        = sum g'[.., o]   (or db[z, o] per output plane for the
 //                                   z-SAME plane table)
 // over NDHWC tensors, p = z_pad (0 'v', 1 's'), out-of-range terms zero.
-// x, k, y, g and dx are float32 or bfloat16; g' and every sum are float32;
-// dk and db are float32 (s2d.py:943-944).
+// x, k, y, g and dx are float32 or bfloat16; g' (bfloat16 values for
+// bfloat16 storage) and every sum are float32; dk and db are float32
+// (s2d.py:943-944).
 //
-// Design (one templated tile kernel, three instantiations):
+// Design (one templated tile kernel, four instantiations: K2 float32, K3
+// and K4 in both types):
 //   * A block of 128 threads owns a tile of 4 rows x 32 columns of one depth
 //     plane of one sample, in INPUT coordinates for dx and OUTPUT
 //     coordinates for dW (the two tilings coincide).  Per channel tile of
@@ -48,7 +53,7 @@
 //     them in tile order (per output plane for the table).
 //
 // Which of K2 or K3 + K4 a layer takes is the caller's rule
-// (ops/conv3x3.py bwd_route); every instantiation takes every shape.
+// (ops/conv3x3.py bwd_route); every instantiation here takes every shape.
 //
 // Bound on the H100: dx and dW are each 2 * 27 * C_in * C_out FLOPs per
 // output voxel at the float32 CUDA-core rate (67 TFLOP/s), since this
@@ -59,10 +64,12 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "conv3x3_bwd.cuh"
 
 namespace {
 
-using stroke::act_grad;
+using stroke::cotangent;
+using stroke::Geo;
 using stroke::load1;
 using stroke::store1;
 
@@ -74,33 +81,11 @@ constexpr int kRW = kTW + 2;           // halo region columns
 constexpr int kPlane = kRH * kRW;      // voxels of one region plane
 constexpr int kCT = 16;                // channel tile
 constexpr int kCS = 20;                // staged channel stride (floats)
-constexpr int kFinThreads = 256;
-
-struct Geo {
-  int batch, d_in, h, w, c_in, c_out, d_out, h_out, w_out, z_pad;
-  int tile_d, n_th, n_tw;  // tile space: depth planes, row / column tiles
-  long long n_tiles;
-};
 
 Geo make_geo(int batch, int d_in, int h, int w, int c_in, int c_out,
              int z_pad, bool input_space) {
-  Geo g;
-  g.batch = batch;
-  g.d_in = d_in;
-  g.h = h;
-  g.w = w;
-  g.c_in = c_in;
-  g.c_out = c_out;
-  g.z_pad = z_pad;
-  g.d_out = d_in - 2 + 2 * z_pad;
-  g.h_out = h - 2;
-  g.w_out = w - 2;
-  // dx tiles the input; dW alone tiles the (smaller) output
-  g.tile_d = input_space ? d_in : g.d_out;
-  g.n_th = ((input_space ? h : g.h_out) + kTH - 1) / kTH;
-  g.n_tw = ((input_space ? w : g.w_out) + kTW - 1) / kTW;
-  g.n_tiles = (long long)batch * g.tile_d * g.n_th * g.n_tw;
-  return g;
+  return stroke::make_geo(batch, d_in, h, w, c_in, c_out, z_pad, input_space,
+                          kTH, kTW);
 }
 
 template <bool kDx, bool kDw>
@@ -184,7 +169,7 @@ conv3x3_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ k,
             const long long idx =
                 ((((long long)b * geo.d_out + oz) * geo.h_out + oh) *
                      geo.w_out + ow) * c_out + co0 + c;
-            v = load1(g + idx) * act_grad(load1(y + idx), act, alpha);
+            v = cotangent<T>(load1(g + idx), load1(y + idx), act, alpha);
           }
           gs[vox * kCS + c] = v;
         }
@@ -307,67 +292,11 @@ conv3x3_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ k,
   }
 }
 
-// dk[i] = sum over the blocks' partials, in block order.
-__global__ void dw_finalize_kernel(const float* __restrict__ part,
-                                   float* __restrict__ dk, int n_part,
-                                   long long n) {
-  const long long i = (long long)blockIdx.x * kFinThreads + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int q = 0; q < n_part; ++q) s += part[q * n + i];
-  dk[i] = s;
-}
-
-// db[o] (or db[z, o] for the plane table) = sum of the tiles' g' sums, one
-// block per entry, in a fixed order.
-__global__ void __launch_bounds__(kFinThreads)
-db_finalize_kernel(const float* __restrict__ dbp, float* __restrict__ db,
-                   Geo geo, int bias_table) {
-  __shared__ float red[kFinThreads];
-  const int entry = blockIdx.x;
-  const int o = entry % geo.c_out, zo = entry / geo.c_out;
-  const long long per_plane = (long long)geo.n_th * geo.n_tw;
-  const long long n = bias_table ? geo.batch * per_plane : geo.n_tiles;
-  float s = 0.f;
-  for (long long j = threadIdx.x; j < n; j += kFinThreads) {
-    const long long tile =
-        bias_table
-            ? ((j / per_plane) * geo.tile_d + zo) * per_plane + j % per_plane
-            : j;
-    s += dbp[tile * geo.c_out + o];
-  }
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int half = kFinThreads / 2; half > 0; half /= 2) {
-    if (threadIdx.x < half) red[threadIdx.x] += red[threadIdx.x + half];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) db[entry] = red[0];
-}
-
 template <typename T, bool kDx, bool kDw>
 cudaError_t set_smem() {
   return cudaFuncSetAttribute(conv3x3_bwd_tile_kernel<T, kDx, kDw>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)(sizeof(float) * smem_floats<kDx, kDw>()));
-}
-
-// Persistent grid: as many blocks as are resident on the card at once.
-template <typename T, bool kDx, bool kDw>
-cudaError_t resident_blocks(int* out) {
-  cudaError_t err = set_smem<T, kDx, kDw>();
-  if (err != cudaSuccess) return err;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, conv3x3_bwd_tile_kernel<T, kDx, kDw>, kThreads,
-      sizeof(float) * smem_floats<kDx, kDw>());
-  if (err != cudaSuccess) return err;
-  *out = per_sm * n_sm;
-  return cudaSuccess;
 }
 
 template <typename T, bool kDx, bool kDw>
@@ -383,20 +312,6 @@ cudaError_t launch_tiles(const T* x, const T* k, const T* y, const T* g,
   return cudaGetLastError();
 }
 
-cudaError_t launch_finalize(const float* part, const float* dbp, float* dk,
-                            float* db, const Geo& geo, int bias_table,
-                            int n_part, cudaStream_t stream) {
-  const long long n = 27LL * geo.c_in * geo.c_out;
-  dw_finalize_kernel<<<(unsigned)((n + kFinThreads - 1) / kFinThreads),
-                       kFinThreads, 0, stream>>>(part, dk, n_part, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n_db = bias_table ? geo.d_out * geo.c_out : geo.c_out;
-  db_finalize_kernel<<<n_db, kFinThreads, 0, stream>>>(dbp, db, geo,
-                                                       bias_table);
-  return cudaGetLastError();
-}
-
 template <typename T>
 int bwd_fused(const T* x, const T* k, const T* y, const T* g, T* dx,
               float* dk, float* db, float* part, float* dbp, int batch,
@@ -408,7 +323,8 @@ int bwd_fused(const T* x, const T* k, const T* y, const T* g, T* dx,
   cudaError_t err = launch_tiles<T, true, true>(
       x, k, y, g, dx, part, dbp, geo, act, alpha, n_blocks, s);
   if (err != cudaSuccess) return err;
-  return launch_finalize(part, dbp, dk, db, geo, bias_table, n_blocks, s);
+  return stroke::launch_finalize(part, dbp, dk, db, geo, bias_table, n_blocks,
+                                 s);
 }
 
 template <typename T>
@@ -431,7 +347,8 @@ int bwd_dw(const T* x, const T* y, const T* g, float* dk, float* db,
   cudaError_t err = launch_tiles<T, false, true>(
       x, nullptr, y, g, nullptr, part, dbp, geo, act, alpha, n_blocks, s);
   if (err != cudaSuccess) return err;
-  return launch_finalize(part, dbp, dk, db, geo, bias_table, n_blocks, s);
+  return stroke::launch_finalize(part, dbp, dk, db, geo, bias_table, n_blocks,
+                                 s);
 }
 
 }  // namespace
@@ -439,24 +356,30 @@ int bwd_dw(const T* x, const T* y, const T* g, float* dk, float* db,
 // Sizes of the scratch buffers for a fused (with_dx 1) or dW-only (0) pass:
 // the number of tiles (db partials: n_tiles x C_out floats) and of
 // persistent blocks (dW partials: n_blocks x 27 x C_in x C_out floats).
+// The bfloat16 fused pass is conv3x3_bwd_tc.cu's kernel.
 extern "C" int conv3x3_bwd_plan(int with_dx, int bf16, int batch, int d_in,
-                                int h, int w, int z_pad, long long* n_tiles,
-                                int* n_blocks) {
-  const Geo geo = make_geo(batch, d_in, h, w, 1, 1, z_pad, with_dx != 0);
-  int resident = 0;
-  cudaError_t err;
-  if (with_dx) {
-    err = bf16 ? resident_blocks<__nv_bfloat16, true, true>(&resident)
-               : resident_blocks<float, true, true>(&resident);
-  } else {
-    err = bf16 ? resident_blocks<__nv_bfloat16, false, true>(&resident)
-               : resident_blocks<float, false, true>(&resident);
+                                int h, int w, int c_in, int c_out, int z_pad,
+                                long long* n_tiles, int* n_blocks) {
+  if (with_dx && bf16) {
+    return stroke::conv3x3_bwd_tc_plan(batch, d_in, h, w, c_in, c_out, z_pad,
+                                       n_tiles, n_blocks);
   }
-  if (err != cudaSuccess) return err;
+  const Geo geo = make_geo(batch, d_in, h, w, c_in, c_out, z_pad,
+                           with_dx != 0);
   *n_tiles = geo.n_tiles;
-  long long nb = resident < geo.n_tiles ? resident : geo.n_tiles;
-  *n_blocks = (int)(nb > 0 ? nb : 1);
-  return cudaSuccess;
+  if (with_dx) {
+    return stroke::persistent_blocks(
+        conv3x3_bwd_tile_kernel<float, true, true>, kThreads,
+        sizeof(float) * smem_floats<true, true>(), geo.n_tiles, n_blocks);
+  }
+  return bf16 ? stroke::persistent_blocks(
+                    conv3x3_bwd_tile_kernel<__nv_bfloat16, false, true>,
+                    kThreads, sizeof(float) * smem_floats<false, true>(),
+                    geo.n_tiles, n_blocks)
+              : stroke::persistent_blocks(
+                    conv3x3_bwd_tile_kernel<float, false, true>, kThreads,
+                    sizeof(float) * smem_floats<false, true>(), geo.n_tiles,
+                    n_blocks);
 }
 
 // Each entry point returns the first failing launch's cudaError_t (0 on
@@ -470,17 +393,6 @@ extern "C" int conv3x3_bwd_fused_f32(
   return bwd_fused<float>(x, k, y, g, dx, dk, db, part, dbp, batch, d_in, h,
                           w, c_in, c_out, z_pad, bias_table, act, alpha,
                           n_blocks, stream);
-}
-
-extern "C" int conv3x3_bwd_fused_bf16(
-    const __nv_bfloat16* x, const __nv_bfloat16* k, const __nv_bfloat16* y,
-    const __nv_bfloat16* g, __nv_bfloat16* dx, float* dk, float* db,
-    float* part, float* dbp, int batch, int d_in, int h, int w, int c_in,
-    int c_out, int z_pad, int bias_table, int act, float alpha, int n_blocks,
-    void* stream) {
-  return bwd_fused<__nv_bfloat16>(x, k, y, g, dx, dk, db, part, dbp, batch,
-                                  d_in, h, w, c_in, c_out, z_pad, bias_table,
-                                  act, alpha, n_blocks, stream);
 }
 
 extern "C" int conv3x3_bwd_dx_f32(const float* k, const float* y,

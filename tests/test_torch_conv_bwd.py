@@ -97,6 +97,43 @@ def test_conv3x3_backward_matches_s2d_vjp(mode, act, bias_kind):
         _assert_close(got.numpy(), ref, name)
 
 
+@pytest.mark.parametrize("bias_kind", ["vector", "plane_table"])
+@pytest.mark.parametrize("act", ["leaky_relu", "elu"])
+@pytest.mark.parametrize("mode", ["v", "s"])
+def test_conv3x3_backward_bfloat16_matches_s2d_vjp(mode, act, bias_kind):
+    """bfloat16 x, float32 parameters (the training default) against the
+    s2d conv on ``s2d_pack(..., dtype=bfloat16)``.  Both sides form g' in
+    bfloat16 (s2d.py:879-889) and sum it in float32, so dk and db agree to
+    float32 reordering (1e-5 of max|ref|).  dx is rounded once to bfloat16
+    from float32 sums taken in another order: at most 0.1% of its elements
+    may land one bfloat16 step (2^-7 of the value) apart."""
+    x, k, bias, g = _case(3, mode, bias_kind, d=6, h=10, w=11, ci=16, co=16)
+    bf = jnp.bfloat16
+
+    def f(x, k, bias):
+        s = s2d_pack(x, dtype=bf)
+        return s2d_unpack(s2d_conv(s, k, bias, act=act, alpha=ALPHA[act],
+                                   modes=(mode, "v", "v")))
+
+    y_ref, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(k), jnp.asarray(bias))
+    rdx, rdk, rdb = (np.asarray(a, np.float32)
+                     for a in vjp(jnp.asarray(g).astype(bf)))
+
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    kt, bt = (torch.from_numpy(a).requires_grad_() for a in (k, bias))
+    y = Conv3x3Fn.apply(xt, kt, bt, act, ALPHA[act], mode)
+    y.backward(torch.from_numpy(g).to(torch.bfloat16))
+    assert xt.grad.dtype == torch.bfloat16
+    assert kt.grad.dtype == bt.grad.dtype == torch.float32
+    _assert_close(kt.grad.numpy(), rdk, "dk")
+    _assert_close(bt.grad.numpy(), rdb, "db")
+    dx = xt.grad.float().numpy()
+    off = np.abs(dx - rdx)
+    assert (off > 0).mean() <= 1e-3, ("dx elements off", (off > 0).mean())
+    assert np.all(off <= 2.0 ** -7 * np.abs(rdx)), ("dx off by more than one "
+                                                    "bf16 step", off.max())
+
+
 @pytest.mark.parametrize("mode", ["v", "s"])
 def test_conv3x3_data_input_takes_dw_only(mode):
     """An input without grad (the entry conv on data) gives the kernel and
@@ -144,6 +181,16 @@ def test_bwd_route_at_reference_width():
     routes = [bwd_route(ci, co, i > 0) for i, (ci, co) in enumerate(layers)]
     assert routes == ["dw", "fused", "fused", "split", "split", "split",
                       "split", "split", "split", "fused"]
+
+
+@pytest.mark.parametrize("c_in, c_out, route", [
+    (3, 4, "fused"), (1, 32, "fused"), (17, 16, "fused"), (16, 17, "fused"),
+    (17, 17, "split"), (3, 40, "split"), (33, 1, "split")])
+def test_bwd_route_counts_channels_padded_to_16(c_in, c_out, route):
+    """The fused route takes the shapes whose dW block, channels padded to
+    16, is at most 64 KB: (16, 16), (16, 32) or (32, 16) after padding,
+    the bfloat16 K2's bound."""
+    assert bwd_route(c_in, c_out) == route
 
 
 @pytest.mark.parametrize("bad", ["g_shape", "y_shape", "kernel_shape",
