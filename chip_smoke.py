@@ -17,12 +17,15 @@ non-zero without one.  Phases:
 3. kernel phase, training shapes: at the ten convs of one training step
    (batch 6, 68x104x104 patch), in float32 and in bfloat16, K1 and the
    backward kernels K2 (fused dx + dW; bfloat16 on the tensor cores, at the
-   layers its channel bound takes: L2, L3, L10), K3 (dx) and K4 (dW)
-   against their plain versions, each at every layer whichever route the
-   step takes there, K2 and K4 twice for bit-identical dW and db; K2 vs
-   K3 + K4 per fused layer; a small 's' + ELU + plane-table backward case
-   and an odd-channel (3 -> 4) one; times as above, with cuDNN's backward
-   as the library yardstick;
+   layers its channel bound takes: L2, L3, L10), K3 (dx; bfloat16 on the
+   tensor cores) and K4 (dW) against their plain versions, each at every
+   layer whichever route the step takes there, K2 and K4 twice for
+   bit-identical dW and db and K3 twice for a bit-identical dx; K2 vs
+   K3 + K4 per fused layer; K3 vs cuDNN's dgrad, its TFLOP/s and its tile
+   efficiency per split layer; a small 's' + ELU + plane-table backward
+   case, an odd-channel (3 -> 4) one and K3 at a wide 192 -> 64 layer (the
+   Unet3D class default's L7); times as above, with cuDNN's backward as the
+   library yardstick;
 4. tester phase: the port's full-volume U-Net tester CLI on three
    synthetic 256x256x28 cases (resampled to 128x128x28, padded by 20 to
    68x168x168), channels 2 16 32 64 32 16 32 2 with seeded random weights
@@ -60,6 +63,7 @@ TRAIN_BATCH = 6
 FOLD = (0, 1, 2)
 TRAIN_FOLD = tuple(range(8))         # 6 training + 2 validation cases
 TIMED_STEPS = 30                     # training steps timed back to back
+K3_TILE = (8, 16)                    # bfloat16 K3's tile: rows x columns
 K1_TOL = dict(atol=1e-4, rtol=1e-4)  # sums of up to 27 * 96 terms, reordered
 SLICE_ATOL = 1e-4                    # card vs CPU probabilities
 # backward vs plain: float32 dx as K1; float32 dW / db sum up to 6 * 64 *
@@ -299,6 +303,7 @@ def train_kernel_phase(torch):
             rdx = conv3x3_bwd_dx_plain(g, y, k, x.shape, "leaky_relu", 0.01)
             rdk, rdb = conv3x3_bwd_dw_plain(x, *a)
             dx3 = conv3x3_bwd_dx(g, y, k, x.shape, "leaky_relu", 0.01)
+            dx3b = conv3x3_bwd_dx(g, y, k, x.shape, "leaky_relu", 0.01)
             dk4, db4 = conv3x3_bwd_dw(x, *a)
             dk4b, db4b = conv3x3_bwd_dw(x, *a)
             runs = [("K4", (dk4, db4), (dk4b, db4b))]
@@ -309,6 +314,9 @@ def train_kernel_phase(torch):
                                                0.01)[1:]
                 runs.append(("K2", (dk2, db2), (dk2b, db2b)))
             torch.cuda.synchronize()
+            if not torch.equal(dx3, dx3b):
+                raise AssertionError(f"K3 L{i} {dname}: dx differs between "
+                                     f"two runs")
             for name, p, q in runs:
                 if not (torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])):
                     raise AssertionError(f"{name} L{i} {dname}: dW or db "
@@ -322,7 +330,7 @@ def train_kernel_phase(torch):
             err["K3"] = check_out(f"K3 dx {tag}", dx3, rdx, dtype)
             err["K4"] = max(check_sum(f"K4 dk {tag}", dk4, rdk, dtype),
                             check_sum(f"K4 db {tag}", db4, rdb, dtype))
-            del rdx, rdk, rdb, dx3, dk4, db4, dk4b, db4b, runs
+            del rdx, rdk, rdb, dx3, dx3b, dk4, db4, dk4b, db4b, runs
 
             # times; the library yardstick is cuDNN's dgrad / wgrad on the
             # masked cotangent (TF32 off), which the port never calls
@@ -367,9 +375,13 @@ def train_kernel_phase(torch):
                 "K4": nb * (nx + 2 * ny) + 4 * (nk + co)}
             bnd_ms = {key: bound_ms(ops[key], nbytes[key], dname)
                       for key in ops}
+            # share of the bfloat16 K3's tiled input plane that is real
+            th, tw = K3_TILE
+            tile_eff = h * w / (-(-h // th) * th * -(-w // tw) * tw)
             rows.append(dict(layer=i, route=route, shape=(d, h, w, ci, co),
                              err=err, ms=ms, plain=plain, lib=lib,
-                             bound=bnd_ms, ops=ops, bytes=nbytes))
+                             bound=bnd_ms, ops=ops, bytes=nbytes,
+                             tile_eff=tile_eff))
             print(f"  L{i:<2} in {d}x{h}x{w} {ci:>2}->{co:<2} route "
                   f"{route:5s} "
                   + "  ".join(f"{key} {ms[key]:.4f}/{plain[key]:.4f}/"
@@ -383,6 +395,12 @@ def train_kernel_phase(torch):
                       f"{split:.4f} ms ({split / ms['K2']:.2f}x); cuDNN "
                       f"dgrad + wgrad {lib['K2']:.4f} ms; K2 at "
                       f"{ops['K2'] / ms['K2'] / 1e9:.1f} TFLOP/s")
+            if route == "split" and dtype == torch.bfloat16:
+                print(f"      L{i} K3 {ms['K3']:.4f} ms vs cuDNN dgrad "
+                      f"{lib['K3']:.4f} ms ({ms['K3'] / lib['K3']:.2f}x); K3 "
+                      f"at {ops['K3'] / ms['K3'] / 1e9:.1f} TFLOP/s; tile "
+                      f"efficiency {tile_eff:.3f} ({th}x{tw} tiles over "
+                      f"{h}x{w})")
             del x, k, b, y, g, gp, x_l, g_l, w_l
         results[dname] = rows
 
@@ -429,6 +447,25 @@ def train_kernel_phase(torch):
                     (f"K4 {case} db", db4, rdb))))
     print(f"K2-K4 's' + ELU + plane table (2, 12, 20, 22, 8->16) and 3 -> 4 "
           f"(2, 9, 23, 37): max|err| {s_err}")
+
+    # K3 at a wide layer: the Unet3D class default (2, 32, 64, 128, 64, 32,
+    # 32, 2) has a 192 -> 64 conv (L7), which the bfloat16 kernel takes as
+    # two N slices of 96 input channels
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        shape, co = (2, 10, 20, 22, 192), 64
+        x = uniform(shape, -1.0, 1.0, dtype)
+        k = uniform((3, 3, 3, 192, co), -192 ** -0.5, 192 ** -0.5, dtype)
+        y = conv3x3(x, k, uniform((co,), -0.1, 0.1), "leaky_relu", 0.01)
+        g = uniform(y.shape, -1.0, 1.0, dtype)
+        dx3 = conv3x3_bwd_dx(g, y, k, shape, "leaky_relu", 0.01)
+        rdx = conv3x3_bwd_dx_plain(g, y, k, shape, "leaky_relu", 0.01)
+        torch.cuda.synchronize()
+        s_err[f"K3 192 -> 64 {dname}"] = check_out(
+            f"K3 192->64 dx {dname}", dx3, rdx, dtype)
+    print(f"K3 192 -> 64 {shape}: max|err| float32 "
+          f"{s_err['K3 192 -> 64 float32']:.3e}, bfloat16 "
+          f"{s_err['K3 192 -> 64 bfloat16']:.3e}")
     print("largest max|err| / max|ref| over the layers (y, dx in the "
           "storage type; dW, db float32 in both): " + "; ".join(
               f"{k} {d} {v:.3e}" for (k, d), v in sorted(rel.items())))
@@ -698,9 +735,11 @@ def profile_step(torch, learner):
           f"({100 * busy_ms / wall_ms:.1f}% busy); "
           f"{sum(e.count for e in kernels)} kernels")
     rules = [("conv3x3_fwd", "K1 conv forward"),
+             ("conv3x3_bwd_dx_tc_kernel", "K3 dx"),
              ("conv3x3_bwd_tc_kernel", "K2 fused"),
              ("bwd_tile_kernel<float, true, true>", "K2 fused"),
-             ("true, false>", "K3 dx"), ("false, true>", "K4 dW"),
+             ("float, true, false>", "K3 dx (float32)"),
+             ("false, true>", "K4 dW"),
              ("finalize", "K2/K4 dW, db reductions"),
              ("MeanOps", "BN moments (means)"), ("MaxOps", "max reductions"),
              ("multi_tensor_apply", "Adam (foreach)"),
@@ -895,9 +934,10 @@ def main():
               "launches": launches["conv3x3_bwd_fused"]}, **per_step("K2"),
              source_float32=csrc + "conv3x3_bwd.cu", per=step_per),
         dict({"name": "conv3x3_bwd_dx", "route": "cuda",
-              "source": csrc + "conv3x3_bwd.cu", "replaces": s2d + "589",
+              "source": csrc + "conv3x3_bwd_dx_tc.cu",
+              "replaces": s2d + "589",
               "launches": launches["conv3x3_bwd_dx"]}, **per_step("K3"),
-             per=step_per),
+             source_float32=csrc + "conv3x3_bwd.cu", per=step_per),
         dict({"name": "conv3x3_bwd_dw", "route": "cuda",
               "source": csrc + "conv3x3_bwd.cu", "replaces": s2d + "623",
               "launches": launches["conv3x3_bwd_dw"]}, **per_step("K4"),

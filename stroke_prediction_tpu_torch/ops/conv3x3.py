@@ -10,8 +10,9 @@ channels-last volumes, float32 or bfloat16 (float32 accumulation).
 * :func:`conv3x3` — the forward wrapper (K1, ``csrc/conv3x3_fwd.cu``).
 * :func:`conv3x3_bwd_fused` (K2), :func:`conv3x3_bwd_dx` (K3),
   :func:`conv3x3_bwd_dw` (K4) — the backward wrappers
-  (``csrc/conv3x3_bwd.cu``; the bfloat16 K2 is ``csrc/conv3x3_bwd_tc.cu``,
-  on the tensor cores).
+  (``csrc/conv3x3_bwd.cu``; the bfloat16 K2 and K3 are
+  ``csrc/conv3x3_bwd_tc.cu`` and ``csrc/conv3x3_bwd_dx_tc.cu``, on the
+  tensor cores).
 * :class:`Conv3x3Fn` — the autograd function: K1 forward; K2, or K3 + K4,
   backward (:func:`bwd_route`); K4 alone when the input needs no gradient
   (the entry conv on data, s2d.py ``input_grad=False``).

@@ -5,7 +5,9 @@
 //   K2  conv3x3_bwd_fused_f32 <- _bwd_kernel  (fused dx + dW in one pass;
 //                               the bfloat16 K2 is conv3x3_bwd_tc.cu, on
 //                               the tensor cores)
-//   K3  conv3x3_bwd_dx_*     <- _dx_kernel    (dx alone)
+//   K3  conv3x3_bwd_dx_f32   <- _dx_kernel    (dx alone; the bfloat16 K3
+//                               is conv3x3_bwd_dx_tc.cu, on the tensor
+//                               cores)
 //   K4  conv3x3_bwd_dw_*     <- _dw_kernel + _dw_taps (dW alone; also the
 //                               entry conv, whose input is data: no dx)
 // and the db reduction that _s2d_conv_bwd did in XLA.  The math is carried
@@ -19,12 +21,13 @@
 //   db[o]        = sum g'[.., o]   (or db[z, o] per output plane for the
 //                                   z-SAME plane table)
 // over NDHWC tensors, p = z_pad (0 'v', 1 's'), out-of-range terms zero.
-// x, k, y, g and dx are float32 or bfloat16; g' (bfloat16 values for
-// bfloat16 storage) and every sum are float32; dk and db are float32
-// (s2d.py:943-944).
+// x, y and g are float32 or bfloat16 (K4 takes both); k and dx are float32
+// here, as the bfloat16 K2 and K3 have tensor-core sources of their own;
+// g' (bfloat16 values for bfloat16 storage) and every sum are float32; dk
+// and db are float32 (s2d.py:943-944).
 //
-// Design (one templated tile kernel, four instantiations: K2 float32, K3
-// and K4 in both types):
+// Design (one templated tile kernel, four instantiations: K2 and K3
+// float32, K4 in both types):
 //   * A block of 128 threads owns a tile of 4 rows x 32 columns of one depth
 //     plane of one sample, in INPUT coordinates for dx and OUTPUT
 //     coordinates for dW (the two tilings coincide).  Per channel tile of
@@ -328,16 +331,6 @@ int bwd_fused(const T* x, const T* k, const T* y, const T* g, T* dx,
 }
 
 template <typename T>
-int bwd_dx(const T* k, const T* y, const T* g, T* dx, int batch, int d_in,
-           int h, int w, int c_in, int c_out, int z_pad, int act, float alpha,
-           void* stream) {
-  const Geo geo = make_geo(batch, d_in, h, w, c_in, c_out, z_pad, true);
-  return launch_tiles<T, true, false>(nullptr, k, y, g, dx, nullptr, nullptr,
-                                      geo, act, alpha, (int)geo.n_tiles,
-                                      static_cast<cudaStream_t>(stream));
-}
-
-template <typename T>
 int bwd_dw(const T* x, const T* y, const T* g, float* dk, float* db,
            float* part, float* dbp, int batch, int d_in, int h, int w,
            int c_in, int c_out, int z_pad, int bias_table, int act,
@@ -400,18 +393,10 @@ extern "C" int conv3x3_bwd_dx_f32(const float* k, const float* y,
                                   int d_in, int h, int w, int c_in, int c_out,
                                   int z_pad, int act, float alpha,
                                   void* stream) {
-  return bwd_dx<float>(k, y, g, dx, batch, d_in, h, w, c_in, c_out, z_pad,
-                       act, alpha, stream);
-}
-
-extern "C" int conv3x3_bwd_dx_bf16(const __nv_bfloat16* k,
-                                   const __nv_bfloat16* y,
-                                   const __nv_bfloat16* g, __nv_bfloat16* dx,
-                                   int batch, int d_in, int h, int w,
-                                   int c_in, int c_out, int z_pad, int act,
-                                   float alpha, void* stream) {
-  return bwd_dx<__nv_bfloat16>(k, y, g, dx, batch, d_in, h, w, c_in, c_out,
-                               z_pad, act, alpha, stream);
+  const Geo geo = make_geo(batch, d_in, h, w, c_in, c_out, z_pad, true);
+  return launch_tiles<float, true, false>(
+      nullptr, k, y, g, dx, nullptr, nullptr, geo, act, alpha,
+      (int)geo.n_tiles, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int conv3x3_bwd_dw_f32(const float* x, const float* y,

@@ -1,9 +1,10 @@
-// What the two backward sources share (conv3x3_bwd.cu: float32 K2, K3 and
-// K4 on the CUDA cores; conv3x3_bwd_tc.cu: bfloat16 K2 on the tensor
-// cores): the tile space over a volume, and the two reductions that sum
-// the persistent blocks' dW partials and the tiles' db partials in a fixed
-// order (so dW and db are bit-identical from run to run, with no float
-// atomics).
+// What the backward sources share (conv3x3_bwd.cu: float32 K2 and K3, K4
+// in both types, on the CUDA cores; conv3x3_bwd_tc.cu and
+// conv3x3_bwd_dx_tc.cu: bfloat16 K2 and K3 on the tensor cores): the tile
+// space over a volume, the persistent grid size, and the two reductions
+// that sum the persistent blocks' dW partials and the tiles' db partials
+// in a fixed order (so dW and db are bit-identical from run to run, with
+// no float atomics).
 
 #pragma once
 

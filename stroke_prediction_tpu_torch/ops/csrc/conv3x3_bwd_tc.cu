@@ -32,7 +32,8 @@
 //     M = the tile's 144 input voxels (warp w owns row w: 16 voxels),
 //     N = C_in, K = 27 taps x C_out.  The A fragment of a tap is 16
 //     voxels' g' rows at that tap's shift, fetched by ldmatrix.x4 from
-//     per-lane row addresses; B comes from the weight stage.
+//     per-lane row addresses; B comes from the weight stage.  (The PTX
+//     helpers are mma_bf16.cuh's, shared with the bfloat16 K3.)
 //   * dW: a second GEMM on the same staged g': M = (tap, C_in), N = C_out,
 //     K = the tile's output voxels.  Warp w owns the taps (tz, ty) =
 //     (w / 3, w % 3), tx = 0..2.  A (x at +t) and B (g') are fetched with
@@ -60,12 +61,19 @@
 
 #include "common.cuh"
 #include "conv3x3_bwd.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using stroke::cotangent;
+using stroke::cotangent2;
+using stroke::cp_async16;
+using stroke::cp_async_wait_all;
 using stroke::Geo;
+using stroke::ldsm_x4;
+using stroke::ldsm_x4_trans;
+using stroke::mma_bf16;
 
 constexpr int kWarps = 9;
 constexpr int kThreads = 32 * kWarps;
@@ -87,69 +95,6 @@ constexpr size_t smem_bytes() {
                          + (size_t)kRegion * (COP + 8)  // g' region
                          + (size_t)kRegion * (CIP + 8)) // x region
          + sizeof(float) * kWarps * 32;                 // db row sums
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// d += a * b for one 16x8x16 product: a row-major 16x16, b column-major
-// 16x8 (k contiguous), d 16x8 float32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes from global to shared memory; zeros when !valid.
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float lo_bf16(unsigned u) {
-  return __uint_as_float(u << 16);
-}
-
-__device__ __forceinline__ float hi_bf16(unsigned u) {
-  return __uint_as_float(u & 0xffff0000u);
-}
-
-// Two g' values (exact bfloat16) from two packed g and y values.
-__device__ __forceinline__ unsigned cotangent2(unsigned g2, unsigned y2,
-                                               int act, float alpha) {
-  const __nv_bfloat162 r = __floats2bfloat162_rn(
-      cotangent<bf16>(lo_bf16(g2), lo_bf16(y2), act, alpha),
-      cotangent<bf16>(hi_bf16(g2), hi_bf16(y2), act, alpha));
-  return *reinterpret_cast<const unsigned*>(&r);
 }
 
 template <int CIP, int COP>
