@@ -17,15 +17,15 @@ non-zero without one.  Phases:
 3. kernel phase, training shapes: at the ten convs of one training step
    (batch 6, 68x104x104 patch), in float32 and in bfloat16, K1 and the
    backward kernels K2 (fused dx + dW; bfloat16 on the tensor cores, at the
-   layers its channel bound takes: L2, L3, L10), K3 (dx; bfloat16 on the
-   tensor cores) and K4 (dW) against their plain versions, each at every
-   layer whichever route the step takes there, K2 and K4 twice for
+   layers its channel bound takes: L2, L3, L10), K3 (dx) and K4 (dW + db;
+   both bfloat16 on the tensor cores) against their plain versions, each at
+   every layer whichever route the step takes there, K2 and K4 twice for
    bit-identical dW and db and K3 twice for a bit-identical dx; K2 vs
-   K3 + K4 per fused layer; K3 vs cuDNN's dgrad, its TFLOP/s and its tile
-   efficiency per split layer; a small 's' + ELU + plane-table backward
-   case, an odd-channel (3 -> 4) one and K3 at a wide 192 -> 64 layer (the
-   Unet3D class default's L7); times as above, with cuDNN's backward as the
-   library yardstick;
+   K3 + K4 per fused layer; K3 vs cuDNN's dgrad and K4 vs cuDNN's wgrad,
+   each with its TFLOP/s and tile efficiency, per layer of its route; a
+   small 's' + ELU + plane-table backward case, an odd-channel (3 -> 4) one
+   and K3 and K4 at a wide 192 -> 64 layer (the Unet3D class default's
+   L7); times as above, with cuDNN's backward as the library yardstick;
 4. tester phase: the port's full-volume U-Net tester CLI on three
    synthetic 256x256x28 cases (resampled to 128x128x28, padded by 20 to
    68x168x168), channels 2 16 32 64 32 16 32 2 with seeded random weights
@@ -64,6 +64,7 @@ FOLD = (0, 1, 2)
 TRAIN_FOLD = tuple(range(8))         # 6 training + 2 validation cases
 TIMED_STEPS = 30                     # training steps timed back to back
 K3_TILE = (8, 16)                    # bfloat16 K3's tile: rows x columns
+K4_TILE = (9, 16)                    # bfloat16 K4's tile (output plane)
 K1_TOL = dict(atol=1e-4, rtol=1e-4)  # sums of up to 27 * 96 terms, reordered
 SLICE_ATOL = 1e-4                    # card vs CPU probabilities
 # backward vs plain: float32 dx as K1; float32 dW / db sum up to 6 * 64 *
@@ -375,13 +376,17 @@ def train_kernel_phase(torch):
                 "K4": nb * (nx + 2 * ny) + 4 * (nk + co)}
             bnd_ms = {key: bound_ms(ops[key], nbytes[key], dname)
                       for key in ops}
-            # share of the bfloat16 K3's tiled input plane that is real
+            # share of the bfloat16 K3's tiled input plane and of K4's
+            # tiled output plane that is real
             th, tw = K3_TILE
             tile_eff = h * w / (-(-h // th) * th * -(-w // tw) * tw)
+            ho, wo = h - 2, w - 2
+            uh, uw = K4_TILE
+            tile_eff4 = ho * wo / (-(-ho // uh) * uh * -(-wo // uw) * uw)
             rows.append(dict(layer=i, route=route, shape=(d, h, w, ci, co),
                              err=err, ms=ms, plain=plain, lib=lib,
                              bound=bnd_ms, ops=ops, bytes=nbytes,
-                             tile_eff=tile_eff))
+                             tile_eff=tile_eff, tile_eff4=tile_eff4))
             print(f"  L{i:<2} in {d}x{h}x{w} {ci:>2}->{co:<2} route "
                   f"{route:5s} "
                   + "  ".join(f"{key} {ms[key]:.4f}/{plain[key]:.4f}/"
@@ -401,6 +406,12 @@ def train_kernel_phase(torch):
                       f"at {ops['K3'] / ms['K3'] / 1e9:.1f} TFLOP/s; tile "
                       f"efficiency {tile_eff:.3f} ({th}x{tw} tiles over "
                       f"{h}x{w})")
+            if route in ("dw", "split") and dtype == torch.bfloat16:
+                print(f"      L{i} K4 {ms['K4']:.4f} ms vs cuDNN wgrad "
+                      f"{lib['K4']:.4f} ms ({ms['K4'] / lib['K4']:.2f}x); K4 "
+                      f"at {ops['K4'] / ms['K4'] / 1e9:.1f} TFLOP/s; tile "
+                      f"efficiency {tile_eff4:.3f} ({uh}x{uw} tiles over "
+                      f"{ho}x{wo})")
             del x, k, b, y, g, gp, x_l, g_l, w_l
         results[dname] = rows
 
@@ -434,10 +445,13 @@ def train_kernel_phase(torch):
             dk2b, db2b = conv3x3_bwd_fused(x, *a[:2], k, *a[2:], table)[1:]
             dx3 = conv3x3_bwd_dx(g, y, k, x.shape, act, alpha, mode)
             dk4, db4 = conv3x3_bwd_dw(x, *a, table)
+            dk4b, db4b = conv3x3_bwd_dw(x, *a, table)
             torch.cuda.synchronize()
-            if not (torch.equal(dk2, dk2b) and torch.equal(db2, db2b)):
-                raise AssertionError(f"K2 {case} {dname}: dW or db differs "
-                                     f"between two runs")
+            for name, p, q in (("K2", (dk2, db2), (dk2b, db2b)),
+                               ("K4", (dk4, db4), (dk4b, db4b))):
+                if not (torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])):
+                    raise AssertionError(f"{name} {case} {dname}: dW or db "
+                                         f"differs between two runs")
             s_err[f"{case} {dname}"] = max(
                 check_out(f"K2 {case} dx", dx2, rdx, dtype),
                 check_out(f"K3 {case} dx", dx3, rdx, dtype),
@@ -448,9 +462,9 @@ def train_kernel_phase(torch):
     print(f"K2-K4 's' + ELU + plane table (2, 12, 20, 22, 8->16) and 3 -> 4 "
           f"(2, 9, 23, 37): max|err| {s_err}")
 
-    # K3 at a wide layer: the Unet3D class default (2, 32, 64, 128, 64, 32,
-    # 32, 2) has a 192 -> 64 conv (L7), which the bfloat16 kernel takes as
-    # two N slices of 96 input channels
+    # K3 and K4 at a wide layer: the Unet3D class default (2, 32, 64, 128,
+    # 64, 32, 32, 2) has a 192 -> 64 conv (L7), which the bfloat16 K3 takes
+    # as two N slices of 96 input channels and K4 as 12 x 2 slice pairs
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         shape, co = (2, 10, 20, 22, 192), 64
@@ -458,14 +472,26 @@ def train_kernel_phase(torch):
         k = uniform((3, 3, 3, 192, co), -192 ** -0.5, 192 ** -0.5, dtype)
         y = conv3x3(x, k, uniform((co,), -0.1, 0.1), "leaky_relu", 0.01)
         g = uniform(y.shape, -1.0, 1.0, dtype)
+        a = (g, y, "leaky_relu", 0.01)
         dx3 = conv3x3_bwd_dx(g, y, k, shape, "leaky_relu", 0.01)
         rdx = conv3x3_bwd_dx_plain(g, y, k, shape, "leaky_relu", 0.01)
+        dk4, db4 = conv3x3_bwd_dw(x, *a)
+        dk4b, db4b = conv3x3_bwd_dw(x, *a)
+        rdk, rdb = conv3x3_bwd_dw_plain(x, *a)
         torch.cuda.synchronize()
+        if not (torch.equal(dk4, dk4b) and torch.equal(db4, db4b)):
+            raise AssertionError(f"K4 192 -> 64 {dname}: dW or db differs "
+                                 f"between two runs")
         s_err[f"K3 192 -> 64 {dname}"] = check_out(
             f"K3 192->64 dx {dname}", dx3, rdx, dtype)
-    print(f"K3 192 -> 64 {shape}: max|err| float32 "
-          f"{s_err['K3 192 -> 64 float32']:.3e}, bfloat16 "
-          f"{s_err['K3 192 -> 64 bfloat16']:.3e}")
+        s_err[f"K4 192 -> 64 {dname}"] = max(
+            check_sum(f"K4 192->64 dk {dname}", dk4, rdk, dtype),
+            check_sum(f"K4 192->64 db {dname}", db4, rdb, dtype))
+    print(f"K3, K4 192 -> 64 {shape}: max|err| float32 "
+          f"{s_err['K3 192 -> 64 float32']:.3e}, "
+          f"{s_err['K4 192 -> 64 float32']:.3e}; bfloat16 "
+          f"{s_err['K3 192 -> 64 bfloat16']:.3e}, "
+          f"{s_err['K4 192 -> 64 bfloat16']:.3e}")
     print("largest max|err| / max|ref| over the layers (y, dx in the "
           "storage type; dW, db float32 in both): " + "; ".join(
               f"{k} {d} {v:.3e}" for (k, d), v in sorted(rel.items())))
@@ -736,10 +762,11 @@ def profile_step(torch, learner):
           f"{sum(e.count for e in kernels)} kernels")
     rules = [("conv3x3_fwd", "K1 conv forward"),
              ("conv3x3_bwd_dx_tc_kernel", "K3 dx"),
+             ("conv3x3_bwd_dw_tc_kernel", "K4 dW"),
              ("conv3x3_bwd_tc_kernel", "K2 fused"),
              ("bwd_tile_kernel<float, true, true>", "K2 fused"),
              ("float, true, false>", "K3 dx (float32)"),
-             ("false, true>", "K4 dW"),
+             ("false, true>", "K4 dW (float32)"),
              ("finalize", "K2/K4 dW, db reductions"),
              ("MeanOps", "BN moments (means)"), ("MaxOps", "max reductions"),
              ("multi_tensor_apply", "Adam (foreach)"),
@@ -939,9 +966,10 @@ def main():
               "launches": launches["conv3x3_bwd_dx"]}, **per_step("K3"),
              source_float32=csrc + "conv3x3_bwd.cu", per=step_per),
         dict({"name": "conv3x3_bwd_dw", "route": "cuda",
-              "source": csrc + "conv3x3_bwd.cu", "replaces": s2d + "623",
+              "source": csrc + "conv3x3_bwd_dw_tc.cu",
+              "replaces": s2d + "623",
               "launches": launches["conv3x3_bwd_dw"]}, **per_step("K4"),
-             per=step_per),
+             source_float32=csrc + "conv3x3_bwd.cu", per=step_per),
         {"name": "edt_parabola", "route": "cuda",
          "source": csrc + "edt_parabola.cu",
          "replaces": "stroke_prediction_tpu/ops/edt.py:80",

@@ -47,13 +47,18 @@ class Conv3d(nn.Module):
 
     def forward(self, x: torch.Tensor, act: str = "none",
                 alpha: float = 0.01) -> torch.Tensor:
-        """1^3 conv in x's type: ``x @ kernel + bias``, then ``act``."""
+        """1^3 conv: ``act(x @ kernel + bias)`` with the kernel in x's type,
+        the product summed and the bias and activation applied in float32
+        (float64 for a float64 x), rounded once to x's type, as s2d.py
+        ``s2d_conv1x1`` does."""
         if self.kernel.shape[0] != 1:
             raise NotImplementedError(
                 "a bare 3^3 Conv3d is not ported yet; BnConvActBlock runs "
                 "its folded 3^3 conv through conv3x3")
-        y = x @ self.kernel[0, 0, 0].to(x.dtype) + self.bias.to(x.dtype)
-        return activation(y, act, alpha)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        k = self.kernel[0, 0, 0].to(x.dtype).to(acc)
+        y = torch.matmul(x.to(acc), k) + self.bias.to(acc)
+        return activation(y, act, alpha).to(x.dtype)
 
 
 class BatchNorm(nn.Module):

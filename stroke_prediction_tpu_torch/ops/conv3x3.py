@@ -10,9 +10,9 @@ channels-last volumes, float32 or bfloat16 (float32 accumulation).
 * :func:`conv3x3` — the forward wrapper (K1, ``csrc/conv3x3_fwd.cu``).
 * :func:`conv3x3_bwd_fused` (K2), :func:`conv3x3_bwd_dx` (K3),
   :func:`conv3x3_bwd_dw` (K4) — the backward wrappers
-  (``csrc/conv3x3_bwd.cu``; the bfloat16 K2 and K3 are
-  ``csrc/conv3x3_bwd_tc.cu`` and ``csrc/conv3x3_bwd_dx_tc.cu``, on the
-  tensor cores).
+  (``csrc/conv3x3_bwd.cu`` for float32; the bfloat16 K2, K3 and K4 are
+  ``csrc/conv3x3_bwd_tc.cu``, ``csrc/conv3x3_bwd_dx_tc.cu`` and
+  ``csrc/conv3x3_bwd_dw_tc.cu``, on the tensor cores).
 * :class:`Conv3x3Fn` — the autograd function: K1 forward; K2, or K3 + K4,
   backward (:func:`bwd_route`); K4 alone when the input needs no gradient
   (the entry conv on data, s2d.py ``input_grad=False``).
@@ -301,7 +301,9 @@ def _check_bwd(x_shape, g, y, act, mode, kernel=None, x=None):
 
 def _plan(with_dx: bool, sfx: str, x_shape, co: int,
           mode: str) -> Tuple[int, int]:
-    """(n_tiles, n_blocks) of a fused or dW-only pass on this card."""
+    """(n_tiles, n_part) of a fused or dW-only pass on this card: its db
+    partial rows and its dW partial rows (one per persistent block, or per
+    chunk of tiles in the bfloat16 dW-only pass)."""
     b, d, h, w, ci = x_shape
     n_tiles, n_blocks = ctypes.c_longlong(0), ctypes.c_int(0)
     err = _build.library().conv3x3_bwd_plan(
@@ -313,8 +315,8 @@ def _plan(with_dx: bool, sfx: str, x_shape, co: int,
 
 def _dw_buffers(with_dx: bool, sfx: str, x_shape, co: int, mode: str,
                 bias_table: bool, dev):
-    """dk, db and the scratch of a fused or dW-only pass: per-block dW
-    partials and per-tile db partials (float32), and the block count."""
+    """dk, db and the scratch of a fused or dW-only pass: the plan's rows
+    of dW partials and per-tile db partials (float32), and the row count."""
     n_tiles, n_blocks = _plan(with_dx, sfx, x_shape, co, mode)
     ci = x_shape[-1]
     f32 = dict(dtype=torch.float32, device=dev)

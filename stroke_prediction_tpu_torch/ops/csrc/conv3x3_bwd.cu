@@ -8,8 +8,10 @@
 //   K3  conv3x3_bwd_dx_f32   <- _dx_kernel    (dx alone; the bfloat16 K3
 //                               is conv3x3_bwd_dx_tc.cu, on the tensor
 //                               cores)
-//   K4  conv3x3_bwd_dw_*     <- _dw_kernel + _dw_taps (dW alone; also the
-//                               entry conv, whose input is data: no dx)
+//   K4  conv3x3_bwd_dw_f32   <- _dw_kernel + _dw_taps (dW alone; also the
+//                               entry conv, whose input is data: no dx;
+//                               the bfloat16 K4 is conv3x3_bwd_dw_tc.cu,
+//                               on the tensor cores)
 // and the db reduction that _s2d_conv_bwd did in XLA.  The math is carried
 // over, not the s2d cell layout, superpatch weights or tap-table fold-back:
 //
@@ -21,13 +23,12 @@
 //   db[o]        = sum g'[.., o]   (or db[z, o] per output plane for the
 //                                   z-SAME plane table)
 // over NDHWC tensors, p = z_pad (0 'v', 1 's'), out-of-range terms zero.
-// x, y and g are float32 or bfloat16 (K4 takes both); k and dx are float32
-// here, as the bfloat16 K2 and K3 have tensor-core sources of their own;
-// g' (bfloat16 values for bfloat16 storage) and every sum are float32; dk
-// and db are float32 (s2d.py:943-944).
+// Every operand is float32 here, as the bfloat16 K2, K3 and K4 have
+// tensor-core sources of their own; g' and every sum are float32; dk and db
+// are float32 (s2d.py:943-944).
 //
-// Design (one templated tile kernel, four instantiations: K2 and K3
-// float32, K4 in both types):
+// Design (one templated tile kernel, three instantiations: K2, K3 and K4,
+// all float32):
 //   * A block of 128 threads owns a tile of 4 rows x 32 columns of one depth
 //     plane of one sample, in INPUT coordinates for dx and OUTPUT
 //     coordinates for dW (the two tilings coincide).  Per channel tile of
@@ -330,49 +331,36 @@ int bwd_fused(const T* x, const T* k, const T* y, const T* g, T* dx,
                                  s);
 }
 
-template <typename T>
-int bwd_dw(const T* x, const T* y, const T* g, float* dk, float* db,
-           float* part, float* dbp, int batch, int d_in, int h, int w,
-           int c_in, int c_out, int z_pad, int bias_table, int act,
-           float alpha, int n_blocks, void* stream) {
-  const Geo geo = make_geo(batch, d_in, h, w, c_in, c_out, z_pad, false);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_tiles<T, false, true>(
-      x, nullptr, y, g, nullptr, part, dbp, geo, act, alpha, n_blocks, s);
-  if (err != cudaSuccess) return err;
-  return stroke::launch_finalize(part, dbp, dk, db, geo, bias_table, n_blocks,
-                                 s);
-}
-
 }  // namespace
 
 // Sizes of the scratch buffers for a fused (with_dx 1) or dW-only (0) pass:
-// the number of tiles (db partials: n_tiles x C_out floats) and of
-// persistent blocks (dW partials: n_blocks x 27 x C_in x C_out floats).
-// The bfloat16 fused pass is conv3x3_bwd_tc.cu's kernel.
+// the number of tiles (db partials: n_tiles x C_out floats) and of dW
+// partials (n_blocks x 27 x C_in x C_out floats: one per persistent block
+// here, one per chunk of tiles in the bfloat16 passes).  The bfloat16
+// fused pass is conv3x3_bwd_tc.cu's kernel, the bfloat16 dW-only pass
+// conv3x3_bwd_dw_tc.cu's.
 extern "C" int conv3x3_bwd_plan(int with_dx, int bf16, int batch, int d_in,
                                 int h, int w, int c_in, int c_out, int z_pad,
                                 long long* n_tiles, int* n_blocks) {
-  if (with_dx && bf16) {
-    return stroke::conv3x3_bwd_tc_plan(batch, d_in, h, w, c_in, c_out, z_pad,
-                                       n_tiles, n_blocks);
+  if (bf16) {
+    return with_dx ? stroke::conv3x3_bwd_tc_plan(batch, d_in, h, w, c_in,
+                                                 c_out, z_pad, n_tiles,
+                                                 n_blocks)
+                   : stroke::conv3x3_bwd_dw_tc_plan(batch, d_in, h, w, c_in,
+                                                    c_out, z_pad, n_tiles,
+                                                    n_blocks);
   }
   const Geo geo = make_geo(batch, d_in, h, w, c_in, c_out, z_pad,
                            with_dx != 0);
   *n_tiles = geo.n_tiles;
-  if (with_dx) {
-    return stroke::persistent_blocks(
-        conv3x3_bwd_tile_kernel<float, true, true>, kThreads,
-        sizeof(float) * smem_floats<true, true>(), geo.n_tiles, n_blocks);
-  }
-  return bf16 ? stroke::persistent_blocks(
-                    conv3x3_bwd_tile_kernel<__nv_bfloat16, false, true>,
-                    kThreads, sizeof(float) * smem_floats<false, true>(),
-                    geo.n_tiles, n_blocks)
-              : stroke::persistent_blocks(
-                    conv3x3_bwd_tile_kernel<float, false, true>, kThreads,
-                    sizeof(float) * smem_floats<false, true>(), geo.n_tiles,
-                    n_blocks);
+  return with_dx ? stroke::persistent_blocks(
+                       conv3x3_bwd_tile_kernel<float, true, true>, kThreads,
+                       sizeof(float) * smem_floats<true, true>(),
+                       geo.n_tiles, n_blocks)
+                 : stroke::persistent_blocks(
+                       conv3x3_bwd_tile_kernel<float, false, true>, kThreads,
+                       sizeof(float) * smem_floats<false, true>(),
+                       geo.n_tiles, n_blocks);
 }
 
 // Each entry point returns the first failing launch's cudaError_t (0 on
@@ -405,20 +393,11 @@ extern "C" int conv3x3_bwd_dw_f32(const float* x, const float* y,
                                   int d_in, int h, int w, int c_in, int c_out,
                                   int z_pad, int bias_table, int act,
                                   float alpha, int n_blocks, void* stream) {
-  return bwd_dw<float>(x, y, g, dk, db, part, dbp, batch, d_in, h, w, c_in,
-                       c_out, z_pad, bias_table, act, alpha, n_blocks,
-                       stream);
-}
-
-extern "C" int conv3x3_bwd_dw_bf16(const __nv_bfloat16* x,
-                                   const __nv_bfloat16* y,
-                                   const __nv_bfloat16* g, float* dk,
-                                   float* db, float* part, float* dbp,
-                                   int batch, int d_in, int h, int w,
-                                   int c_in, int c_out, int z_pad,
-                                   int bias_table, int act, float alpha,
-                                   int n_blocks, void* stream) {
-  return bwd_dw<__nv_bfloat16>(x, y, g, dk, db, part, dbp, batch, d_in, h, w,
-                               c_in, c_out, z_pad, bias_table, act, alpha,
-                               n_blocks, stream);
+  const Geo geo = make_geo(batch, d_in, h, w, c_in, c_out, z_pad, false);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_tiles<float, false, true>(
+      x, nullptr, y, g, nullptr, part, dbp, geo, act, alpha, n_blocks, s);
+  if (err != cudaSuccess) return err;
+  return stroke::launch_finalize(part, dbp, dk, db, geo, bias_table, n_blocks,
+                                 s);
 }

@@ -1,10 +1,10 @@
-// What the backward sources share (conv3x3_bwd.cu: float32 K2 and K3, K4
-// in both types, on the CUDA cores; conv3x3_bwd_tc.cu and
-// conv3x3_bwd_dx_tc.cu: bfloat16 K2 and K3 on the tensor cores): the tile
-// space over a volume, the persistent grid size, and the two reductions
-// that sum the persistent blocks' dW partials and the tiles' db partials
-// in a fixed order (so dW and db are bit-identical from run to run, with
-// no float atomics).
+// What the backward sources share (conv3x3_bwd.cu: float32 K2, K3 and K4
+// on the CUDA cores; conv3x3_bwd_tc.cu, conv3x3_bwd_dx_tc.cu and
+// conv3x3_bwd_dw_tc.cu: bfloat16 K2, K3 and K4 on the tensor cores): the
+// tile space over a volume, the persistent grid size, and the two
+// reductions that sum the blocks' (or chunks') dW partials and the tiles'
+// db partials in a fixed order (so dW and db are bit-identical from run to
+// run, with no float atomics).
 
 #pragma once
 
@@ -126,5 +126,11 @@ cudaError_t persistent_blocks(Kernel kernel, int threads, size_t smem,
 int conv3x3_bwd_tc_plan(int batch, int d_in, int h, int w, int c_in,
                         int c_out, int z_pad, long long* n_tiles,
                         int* n_blocks);
+
+// The bfloat16 dW-only pass of conv3x3_bwd_dw_tc.cu: its tile count and
+// its number of tile chunks (rows of dW partials), for any C_in, C_out >= 1.
+int conv3x3_bwd_dw_tc_plan(int batch, int d_in, int h, int w, int c_in,
+                           int c_out, int z_pad, long long* n_tiles,
+                           int* n_chunks);
 
 }  // namespace stroke

@@ -165,17 +165,38 @@ def test_conv3x3_backward_bfloat16_split_widths_match_s2d_vjp(
         jax.clear_caches()
 
 
-@pytest.mark.parametrize("mode", ["v", "s"])
-def test_conv3x3_data_input_takes_dw_only(mode):
+@pytest.mark.parametrize("mode, dtype", [
+    ("v", "float32"), ("s", "float32"), ("v", "bfloat16"), ("s", "bfloat16")],
+    ids=["v", "s", "v-bfloat16", "s-bfloat16"])
+def test_conv3x3_data_input_takes_dw_only(mode, dtype):
     """An input without grad (the entry conv on data) gives the kernel and
-    bias gradients of JAX's ``input_grad=False`` conv and no dx."""
-    x, k, bias, g = _case(5, mode, "vector", ci=2, co=5)
-    _, _, rdk, rdb = _jax_grads(x, k, bias, g, mode, "leaky_relu",
-                                input_grad=False)
-    xt = torch.from_numpy(x)
+    bias gradients of JAX's ``input_grad=False`` conv and no dx.  bfloat16
+    at the entry conv's widths (2 -> 16), against the s2d conv on
+    ``s2d_pack(x, bfloat16)``: both sides form g' in bfloat16 and sum in
+    float32, so dk and db agree to float32 reordering."""
+    co = 16 if dtype == "bfloat16" else 5
+    x, k, bias, g = _case(5, mode, "vector", ci=2, co=co)
+    if dtype == "bfloat16":
+        bf = jnp.bfloat16
+
+        def f(k, bias):
+            s = s2d_pack(jnp.asarray(x), dtype=bf)
+            return s2d_unpack(s2d_conv(s, k, bias, act="leaky_relu",
+                                       alpha=0.01, modes=(mode, "v", "v"),
+                                       input_grad=False))
+
+        _, vjp = jax.vjp(f, jnp.asarray(k), jnp.asarray(bias))
+        rdk, rdb = (np.asarray(a, np.float32)
+                    for a in vjp(jnp.asarray(g).astype(bf)))
+    else:
+        _, _, rdk, rdb = _jax_grads(x, k, bias, g, mode, "leaky_relu",
+                                    input_grad=False)
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(tdt)
     kt, bt = (torch.from_numpy(a).requires_grad_() for a in (k, bias))
     y = Conv3x3Fn.apply(xt, kt, bt, "leaky_relu", 0.01, mode)
-    y.backward(torch.from_numpy(g))
+    assert y.dtype == tdt
+    y.backward(torch.from_numpy(g).to(tdt))
     assert xt.grad is None
     _assert_close(kt.grad.numpy(), rdk, "dk")
     _assert_close(bt.grad.numpy(), rdb, "db")

@@ -16,8 +16,11 @@ from stroke_prediction_tpu.models.unet3d import (
     unet_output_spatial as jax_unet_output_spatial)
 from stroke_prediction_tpu.ops import pooling as jax_pooling
 from stroke_prediction_tpu.ops import resize as jax_resize
+from stroke_prediction_tpu.ops.pallas.s2d import (
+    s2d_conv1x1, s2d_pack, s2d_unpack)
 from stroke_prediction_tpu_torch.models.convert import (
     unet_state_from_jax, unet_state_to_jax)
+from stroke_prediction_tpu_torch.models.layers import Conv3d
 from stroke_prediction_tpu_torch.models.unet3d import (
     Unet3D, unet_output_spatial)
 from stroke_prediction_tpu_torch.ops import pooling, resize
@@ -119,6 +122,34 @@ def test_unet3d_seeded_init_is_reproducible():
     k = a.blocks[0].layers[0].conv.kernel.detach()
     bound = 1.0 / np.sqrt(27 * 2)
     assert float(k.abs().max()) <= bound and float(k.std()) > 0.2 * bound
+
+
+@pytest.mark.parametrize("act", ["leaky_relu", "none"])
+def test_conv1x1_head_bfloat16_matches_s2d(act):
+    """The bfloat16 1^3 head (both head layers' activations) against
+    ``s2d_conv1x1`` on ``s2d_pack(x, bfloat16)``: the product summed in
+    float32, bias and activation in float32, one rounding to bfloat16.
+    Outputs are equal, or in at most 0.1% of elements one bfloat16 step
+    (2^-7 of the value) apart: two float32 sums of 16 products in another
+    order may round to neighbouring bfloat16 values."""
+    rs = np.random.RandomState(0)
+    x = rs.standard_normal((2, 6, 8, 10, 16)).astype(np.float32)
+    k = (rs.standard_normal((1, 1, 1, 16, 32)) * 0.25).astype(np.float32)
+    b = (rs.standard_normal(32) * 0.5).astype(np.float32)
+    ref = np.asarray(s2d_unpack(s2d_conv1x1(
+        s2d_pack(jnp.asarray(x), dtype=jnp.bfloat16), jnp.asarray(k),
+        jnp.asarray(b), act=act, alpha=0.01)), np.float32)
+
+    head = Conv3d(16, 32, (1, 1, 1))
+    with torch.no_grad():
+        head.kernel.copy_(torch.from_numpy(k))
+        head.bias.copy_(torch.from_numpy(b))
+        y = head(torch.from_numpy(x).to(torch.bfloat16), act=act,
+                 alpha=0.01)
+    assert y.dtype == torch.bfloat16
+    off = np.abs(y.float().numpy() - ref)
+    assert (off > 0).mean() <= 1e-3, ("elements off", (off > 0).mean())
+    assert np.all(off <= 2.0 ** -7 * np.abs(ref)), off.max()
 
 
 def _x(shape, seed=0):
