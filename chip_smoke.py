@@ -15,17 +15,19 @@ non-zero without one.  Phases:
    library times (CUDA events) and the least time the card could take
    (bound);
 3. kernel phase, training shapes: at the ten convs of one training step
-   (batch 6, 68x104x104 patch), in float32 and in bfloat16, K1 and the
-   backward kernels K2 (fused dx + dW; bfloat16 on the tensor cores, at the
-   layers its channel bound takes: L2, L3, L10), K3 (dx) and K4 (dW + db;
-   both bfloat16 on the tensor cores) against their plain versions, each at
-   every layer whichever route the step takes there, K2 and K4 twice for
-   bit-identical dW and db and K3 twice for a bit-identical dx; K2 vs
-   K3 + K4 per fused layer; K3 vs cuDNN's dgrad and K4 vs cuDNN's wgrad,
-   each with its TFLOP/s and tile efficiency, per layer of its route; a
-   small 's' + ELU + plane-table backward case, an odd-channel (3 -> 4) one
-   and K3 and K4 at a wide 192 -> 64 layer (the Unet3D class default's
-   L7); times as above, with cuDNN's backward as the library yardstick;
+   (batch 6, 68x104x104 patch), in float32 and in bfloat16, K1 (bfloat16
+   on the tensor cores) and the backward kernels K2 (fused dx + dW;
+   bfloat16 on the tensor cores, at the layers its channel bound takes: L2,
+   L3, L10), K3 (dx) and K4 (dW + db; both bfloat16 on the tensor cores)
+   against their plain versions, each at every layer whichever route the
+   step takes there, K2 and K4 twice for bit-identical dW and db and K3
+   twice for a bit-identical dx; K2 vs K3 + K4 per fused layer; the
+   bfloat16 K1 vs cuDNN's forward at every layer, K3 vs cuDNN's dgrad and
+   K4 vs cuDNN's wgrad per layer of its route, each with its TFLOP/s and
+   tile efficiency; a small 's' + ELU + plane-table case and an
+   odd-channel (3 -> 4) one, forward (K1) and backward, and K1, K3 and K4
+   at a wide 192 -> 64 layer (the Unet3D class default's L7); times as
+   above, with cuDNN's forward and backward as the library yardsticks;
 4. tester phase: the port's full-volume U-Net tester CLI on three
    synthetic 256x256x28 cases (resampled to 128x128x28, padded by 20 to
    68x168x168), channels 2 16 32 64 32 16 32 2 with seeded random weights
@@ -63,6 +65,7 @@ TRAIN_BATCH = 6
 FOLD = (0, 1, 2)
 TRAIN_FOLD = tuple(range(8))         # 6 training + 2 validation cases
 TIMED_STEPS = 30                     # training steps timed back to back
+K1_TILE = (8, 16)                    # bfloat16 K1's tile (output plane)
 K3_TILE = (8, 16)                    # bfloat16 K3's tile: rows x columns
 K4_TILE = (9, 16)                    # bfloat16 K4's tile (output plane)
 K1_TOL = dict(atol=1e-4, rtol=1e-4)  # sums of up to 27 * 96 terms, reordered
@@ -93,6 +96,12 @@ def rel_err(got, ref):
     """max |got - ref| / max |ref|, in float32."""
     ref = ref.float()
     return float((got.float() - ref).abs().max() / ref.abs().max())
+
+
+def tile_efficiency(plane, tile):
+    """The real share of a (rows, columns) plane cut into ``tile``s."""
+    (ph, pw), (th, tw) = plane, tile
+    return ph * pw / (-(-ph // th) * th * -(-pw // tw) * tw)
 
 
 def all_wrappers():
@@ -376,17 +385,9 @@ def train_kernel_phase(torch):
                 "K4": nb * (nx + 2 * ny) + 4 * (nk + co)}
             bnd_ms = {key: bound_ms(ops[key], nbytes[key], dname)
                       for key in ops}
-            # share of the bfloat16 K3's tiled input plane and of K4's
-            # tiled output plane that is real
-            th, tw = K3_TILE
-            tile_eff = h * w / (-(-h // th) * th * -(-w // tw) * tw)
-            ho, wo = h - 2, w - 2
-            uh, uw = K4_TILE
-            tile_eff4 = ho * wo / (-(-ho // uh) * uh * -(-wo // uw) * uw)
             rows.append(dict(layer=i, route=route, shape=(d, h, w, ci, co),
                              err=err, ms=ms, plain=plain, lib=lib,
-                             bound=bnd_ms, ops=ops, bytes=nbytes,
-                             tile_eff=tile_eff, tile_eff4=tile_eff4))
+                             bound=bnd_ms, ops=ops, bytes=nbytes))
             print(f"  L{i:<2} in {d}x{h}x{w} {ci:>2}->{co:<2} route "
                   f"{route:5s} "
                   + "  ".join(f"{key} {ms[key]:.4f}/{plain[key]:.4f}/"
@@ -394,6 +395,20 @@ def train_kernel_phase(torch):
                               f"({bnd_ms[key][1][0]})" for key in ms)
                   + "  max|err| " + " ".join(f"{key} {v:.3e}"
                                              for key, v in err.items()))
+
+            def vs_library(key, call, tile, plane):
+                """A bfloat16 kernel against cuDNN at this layer; its tile
+                efficiency is the real share of the tiled plane (K1 and K4
+                tile the output plane, K3 the input plane)."""
+                print(f"      L{i} {key} {ms[key]:.4f} ms vs cuDNN {call} "
+                      f"{lib[key]:.4f} ms ({ms[key] / lib[key]:.2f}x); {key} "
+                      f"at {ops[key] / ms[key] / 1e9:.1f} TFLOP/s; tile "
+                      f"efficiency {tile_efficiency(plane, tile):.3f} "
+                      f"({tile[0]}x{tile[1]} tiles over "
+                      f"{plane[0]}x{plane[1]})")
+
+            if dtype == torch.bfloat16:
+                vs_library("K1", "forward", K1_TILE, (h - 2, w - 2))
             if route == "fused":
                 split = ms["K3"] + ms["K4"]
                 print(f"      L{i} K2 {ms['K2']:.4f} ms vs K3 + K4 "
@@ -401,23 +416,15 @@ def train_kernel_phase(torch):
                       f"dgrad + wgrad {lib['K2']:.4f} ms; K2 at "
                       f"{ops['K2'] / ms['K2'] / 1e9:.1f} TFLOP/s")
             if route == "split" and dtype == torch.bfloat16:
-                print(f"      L{i} K3 {ms['K3']:.4f} ms vs cuDNN dgrad "
-                      f"{lib['K3']:.4f} ms ({ms['K3'] / lib['K3']:.2f}x); K3 "
-                      f"at {ops['K3'] / ms['K3'] / 1e9:.1f} TFLOP/s; tile "
-                      f"efficiency {tile_eff:.3f} ({th}x{tw} tiles over "
-                      f"{h}x{w})")
+                vs_library("K3", "dgrad", K3_TILE, (h, w))
             if route in ("dw", "split") and dtype == torch.bfloat16:
-                print(f"      L{i} K4 {ms['K4']:.4f} ms vs cuDNN wgrad "
-                      f"{lib['K4']:.4f} ms ({ms['K4'] / lib['K4']:.2f}x); K4 "
-                      f"at {ops['K4'] / ms['K4'] / 1e9:.1f} TFLOP/s; tile "
-                      f"efficiency {tile_eff4:.3f} ({uh}x{uw} tiles over "
-                      f"{ho}x{wo})")
+                vs_library("K4", "wgrad", K4_TILE, (h - 2, w - 2))
             del x, k, b, y, g, gp, x_l, g_l, w_l
         results[dname] = rows
 
-    # z-SAME + ELU + per-plane bias table, backward (the CAE encoder's
-    # form), and an odd channel count (3 -> 4: padded channels, scalar
-    # staging) in 'v' + LeakyReLU
+    # z-SAME + ELU + per-plane bias table, forward and backward (the CAE
+    # encoder's form), and an odd channel count (3 -> 4: padded channels,
+    # scalar staging) in 'v' + LeakyReLU
     s_err = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
@@ -437,6 +444,7 @@ def train_kernel_phase(torch):
                 bias = bias[0].contiguous()
             k = k.to(dtype).contiguous()
             y = conv3x3(x, k, bias, act, alpha, mode)
+            ry = conv3x3_plain(x, k, bias, act, alpha, mode)
             g = uniform(y.shape, -1.0, 1.0, dtype)
             a = (g, y, act, alpha, mode)
             rdx = conv3x3_bwd_dx_plain(g, y, k, x.shape, act, alpha, mode)
@@ -453,24 +461,28 @@ def train_kernel_phase(torch):
                     raise AssertionError(f"{name} {case} {dname}: dW or db "
                                          f"differs between two runs")
             s_err[f"{case} {dname}"] = max(
+                check_out(f"K1 {case} y", y, ry, dtype),
                 check_out(f"K2 {case} dx", dx2, rdx, dtype),
                 check_out(f"K3 {case} dx", dx3, rdx, dtype),
                 *(check_sum(n, p, q, dtype) for n, p, q in (
                     (f"K2 {case} dk", dk2, rdk), (f"K2 {case} db", db2, rdb),
                     (f"K4 {case} dk", dk4, rdk),
                     (f"K4 {case} db", db4, rdb))))
-    print(f"K2-K4 's' + ELU + plane table (2, 12, 20, 22, 8->16) and 3 -> 4 "
+    print(f"K1-K4 's' + ELU + plane table (2, 12, 20, 22, 8->16) and 3 -> 4 "
           f"(2, 9, 23, 37): max|err| {s_err}")
 
-    # K3 and K4 at a wide layer: the Unet3D class default (2, 32, 64, 128,
-    # 64, 32, 32, 2) has a 192 -> 64 conv (L7), which the bfloat16 K3 takes
-    # as two N slices of 96 input channels and K4 as 12 x 2 slice pairs
+    # K1, K3 and K4 at a wide layer: the Unet3D class default (2, 32, 64,
+    # 128, 64, 32, 32, 2) has a 192 -> 64 conv (L7), which the bfloat16 K1
+    # takes as 12 chunks of 16 input channels, K3 as two N slices of 96
+    # input channels and K4 as 12 x 2 slice pairs
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         shape, co = (2, 10, 20, 22, 192), 64
         x = uniform(shape, -1.0, 1.0, dtype)
         k = uniform((3, 3, 3, 192, co), -192 ** -0.5, 192 ** -0.5, dtype)
-        y = conv3x3(x, k, uniform((co,), -0.1, 0.1), "leaky_relu", 0.01)
+        bias = uniform((co,), -0.1, 0.1)
+        y = conv3x3(x, k, bias, "leaky_relu", 0.01)
+        ry = conv3x3_plain(x, k, bias, "leaky_relu", 0.01)
         g = uniform(y.shape, -1.0, 1.0, dtype)
         a = (g, y, "leaky_relu", 0.01)
         dx3 = conv3x3_bwd_dx(g, y, k, shape, "leaky_relu", 0.01)
@@ -482,16 +494,17 @@ def train_kernel_phase(torch):
         if not (torch.equal(dk4, dk4b) and torch.equal(db4, db4b)):
             raise AssertionError(f"K4 192 -> 64 {dname}: dW or db differs "
                                  f"between two runs")
+        s_err[f"K1 192 -> 64 {dname}"] = check_out(
+            f"K1 192->64 y {dname}", y, ry, dtype)
         s_err[f"K3 192 -> 64 {dname}"] = check_out(
             f"K3 192->64 dx {dname}", dx3, rdx, dtype)
         s_err[f"K4 192 -> 64 {dname}"] = max(
             check_sum(f"K4 192->64 dk {dname}", dk4, rdk, dtype),
             check_sum(f"K4 192->64 db {dname}", db4, rdb, dtype))
-    print(f"K3, K4 192 -> 64 {shape}: max|err| float32 "
-          f"{s_err['K3 192 -> 64 float32']:.3e}, "
-          f"{s_err['K4 192 -> 64 float32']:.3e}; bfloat16 "
-          f"{s_err['K3 192 -> 64 bfloat16']:.3e}, "
-          f"{s_err['K4 192 -> 64 bfloat16']:.3e}")
+    print(f"K1, K3, K4 192 -> 64 {shape}: max|err| " + "; ".join(
+        f"{dname} " + ", ".join(f"{s_err[f'{kn} 192 -> 64 {dname}']:.3e}"
+                                for kn in ("K1", "K3", "K4"))
+        for dname in ("float32", "bfloat16")))
     print("largest max|err| / max|ref| over the layers (y, dx in the "
           "storage type; dW, db float32 in both): " + "; ".join(
               f"{k} {d} {v:.3e}" for (k, d), v in sorted(rel.items())))
@@ -948,8 +961,9 @@ def main():
                 f"68x104x104): the layers the route sends here")
     kernels = [
         dict({"name": "conv3x3_fwd", "route": "cuda",
-              "source": csrc + "conv3x3_fwd.cu", "replaces": s2d + "387",
+              "source": csrc + "conv3x3_fwd_tc.cu", "replaces": s2d + "387",
               "launches": launches["conv3x3"]}, **per_step("K1"),
+             source_float32=csrc + "conv3x3_fwd.cu",
              per=step_per + " (all 10)",
              tester={"launches": t_launches["conv3x3"], "ms": k1["ms"],
                      "plain_ms": k1["plain_ms"],
@@ -993,8 +1007,7 @@ def main():
     print(f"tester ms per case (card, after the first case): {case_ms:.2f}")
     print(f"training ms per step (card, bfloat16, mean of {TIMED_STEPS} "
           f"back to back, CUDA events): {step_ms:.3f}; card vs CPU float32 "
-          f"step {step}; 's' backward "
-          f"max|err| {s_err}")
+          f"step {step}; 's', 3 -> 4 and 192 -> 64 cases max|err| {s_err}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

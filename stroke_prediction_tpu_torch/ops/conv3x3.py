@@ -7,7 +7,9 @@ Counterpart of ``stroke_prediction_tpu/ops/pallas/s2d.py``: ``s2d_conv``
 ``fold_bn_zsame``.  The s2d cell layout is not ported; the ops take logical
 channels-last volumes, float32 or bfloat16 (float32 accumulation).
 
-* :func:`conv3x3` — the forward wrapper (K1, ``csrc/conv3x3_fwd.cu``).
+* :func:`conv3x3` — the forward wrapper (K1: ``csrc/conv3x3_fwd.cu`` for
+  float32, on the CUDA cores; ``csrc/conv3x3_fwd_tc.cu`` for bfloat16, on
+  the tensor cores).
 * :func:`conv3x3_bwd_fused` (K2), :func:`conv3x3_bwd_dx` (K3),
   :func:`conv3x3_bwd_dw` (K4) — the backward wrappers
   (``csrc/conv3x3_bwd.cu`` for float32; the bfloat16 K2, K3 and K4 are

@@ -1,9 +1,7 @@
-// Device helpers shared by the conv kernels: loads of float32 or bfloat16
-// storage into float32 registers, stores back, and the activations.
-//
-// bfloat16 is the upper half of a float32, so a load is a 16-bit shift and
-// exact; a store rounds to nearest even (__float2bfloat16_rn), as PyTorch's
-// .to(torch.bfloat16) does.
+// Device helpers shared by the conv kernels: read-only loads of float32
+// storage for the CUDA-core kernels, the activations and their gradients,
+// and g' formed in the storage type.  A bfloat16 value is rounded to
+// nearest even (__float2bfloat16_rn), as PyTorch's .to(torch.bfloat16) does.
 
 #pragma once
 
@@ -16,29 +14,12 @@ namespace stroke {
 
 __device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
 
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<unsigned>(u) << 16);
-}
-
 // Four consecutive values; p is aligned to 4 elements.
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // act: 0 none, 1 LeakyReLU(alpha), 2 ELU(alpha) with the exp of the clamped
 // value (s2d.py _act).

@@ -1,10 +1,10 @@
-// What the backward sources share (conv3x3_bwd.cu: float32 K2, K3 and K4
-// on the CUDA cores; conv3x3_bwd_tc.cu, conv3x3_bwd_dx_tc.cu and
-// conv3x3_bwd_dw_tc.cu: bfloat16 K2, K3 and K4 on the tensor cores): the
-// tile space over a volume, the persistent grid size, and the two
-// reductions that sum the blocks' (or chunks') dW partials and the tiles'
-// db partials in a fixed order (so dW and db are bit-identical from run to
-// run, with no float atomics).
+// What the conv sources share (conv3x3_bwd.cu: float32 K2, K3 and K4 on
+// the CUDA cores; conv3x3_fwd_tc.cu, conv3x3_bwd_tc.cu, conv3x3_bwd_dx_tc.cu
+// and conv3x3_bwd_dw_tc.cu: bfloat16 K1, K2, K3 and K4 on the tensor
+// cores): the tile space over a volume, the persistent grid size, and the
+// two reductions that sum the blocks' (or chunks') dW partials and the
+// tiles' db partials in a fixed order (so dW and db are bit-identical from
+// run to run, with no float atomics).
 
 #pragma once
 
@@ -23,7 +23,7 @@ struct Geo {
 };
 
 // input_space: tile the input (dx, or fused dx + dW) or the smaller output
-// (dW alone).
+// (the forward, or dW alone).
 inline Geo make_geo(int batch, int d_in, int h, int w, int c_in, int c_out,
                     int z_pad, bool input_space, int th, int tw) {
   Geo g;

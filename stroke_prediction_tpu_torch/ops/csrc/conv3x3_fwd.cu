@@ -1,4 +1,6 @@
-// Fused 3x3x3 stride-1 convolution forward: y = act(conv3d(x, k) + b).
+// Fused 3x3x3 stride-1 convolution forward, float32: y = act(conv3d(x, k)
+// + b) (kernel K1 of the port, float32 storage; the bfloat16 K1 is
+// conv3x3_fwd_tc.cu's, on the tensor cores).
 //
 // Replaces the TPU kernel stroke_prediction_tpu/ops/pallas/s2d.py
 // _conv_kernel (launched by _s2d_conv_p, API s2d_conv).  What it computes is
@@ -6,31 +8,27 @@
 // fill the MXU's 128 lanes, so this kernel runs a direct convolution over
 // channels-last NDHWC.
 //
-//   x      (B, D_in, H, W, C_in)    contiguous float32 or bfloat16
-//   kernel (3, 3, 3, C_in, C_out)   contiguous, x's type (BN already folded in)
-//   bias   (C_out,) or a per-output-plane (D_out, C_out) table (z-SAME fold),
-//          float32 for both storage types
-//   y      (B, D_out, H-2, W-2, C_out), x's type
+//   x      (B, D_in, H, W, C_in)    contiguous float32
+//   kernel (3, 3, 3, C_in, C_out)   contiguous float32 (BN already folded in)
+//   bias   (C_out,) or a per-output-plane (D_out, C_out) table (z-SAME fold)
+//   y      (B, D_out, H-2, W-2, C_out) float32
 //   H/W are valid; D is valid (z_pad 0, D_out = D_in - 2) or zero-padded by
 //   one plane on each side (z_pad 1, D_out = D_in).  act: 0 none,
 //   1 LeakyReLU(alpha), 2 ELU(alpha) with the exp of the clamped value.
-//   bfloat16 storage is read into float32, accumulated in float32 and
-//   rounded once on the store (s2d.py: f32 accumulation, out_dtype =
-//   cells.dtype).
+//   Sums, bias and activation in float32, as s2d.py's float32 path.
 //
 // Design: each thread owns one output voxel and a tile of kCoTile output
-// channels held in registers; it walks the 27 taps x C_in and accumulates in
-// float32.  The block stages one kz plane of its C_out tile's weights
-// (9 x C_in x kCoTile floats) in shared memory, where every warp reads it as
-// a broadcast.  Inputs are read through the read-only cache, four channels
-// per load when C_in % 4 == 0.
+// channels held in registers; it walks the 27 taps x C_in and accumulates
+// with float32 FMAs.  The block stages one kz plane of its C_out tile's
+// weights (9 x C_in x kCoTile floats) in shared memory, where every warp
+// reads it as a broadcast.  Inputs are read through the read-only cache,
+// four channels per load when C_in % 4 == 0.
 //
 // Bound on the H100: the multiply-adds at the float32 CUDA-core rate
-// (67 TFLOP/s), since this version does not use the tensor cores; the bytes
-// (each input and output once) are far below that.  A tensor-core implicit
-// GEMM (TF32 or bf16) is the later, faster design.
+// (67 TFLOP/s); the bytes (each input and output once) are far below that.
+// Kept on the CUDA cores so that the float32 tester path keeps full float32
+// products (card vs CPU within 1e-4); a TF32 tensor-core version would not.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -61,10 +59,10 @@ __device__ __forceinline__ void fma_row(float (&acc)[kCoTile], float xv,
   }
 }
 
-template <typename T, bool kVec4>
+template <bool kVec4>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const float* __restrict__ bias, T* __restrict__ y,
+conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ bias, float* __restrict__ y,
                    int batch, int d_in, int h, int w_in, int c_in, int c_out,
                    int d_out, int z_pad, int bias_table, int act,
                    float alpha) {
@@ -107,7 +105,7 @@ conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
     if (!active || iz < 0 || iz >= d_in) continue;  // padded plane: zeros
     for (int ky = 0; ky < 3; ++ky) {
       for (int kx = 0; kx < 3; ++kx) {
-        const T* xp =
+        const float* xp =
             x + ((((long long)ob * d_in + iz) * h + oy + ky) * w_in + ox + kx) *
                     c_in;
         const float* wp = w_s + (ky * 3 + kx) * c_in * kCoTile;
@@ -129,7 +127,7 @@ conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
   if (!active) return;
 
-  T* yp = y + v * c_out;
+  float* yp = y + v * c_out;
   const float* bp = bias + (bias_table ? (long long)oz * c_out : 0);
 #pragma unroll
   for (int c = 0; c < kCoTile; ++c) {
@@ -138,42 +136,25 @@ conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T, bool kVec4>
-cudaError_t launch(const T* x, const T* w, const float* bias, T* y,
-                   int batch, int d_in, int h, int w_in, int c_in, int c_out,
-                   int d_out, int z_pad, int bias_table, int act, float alpha,
-                   cudaStream_t stream) {
+template <bool kVec4>
+cudaError_t launch(const float* x, const float* w, const float* bias,
+                   float* y, int batch, int d_in, int h, int w_in, int c_in,
+                   int c_out, int d_out, int z_pad, int bias_table, int act,
+                   float alpha, cudaStream_t stream) {
   const long long n_vox = (long long)batch * d_out * (h - 2) * (w_in - 2);
   const dim3 grid((unsigned)((n_vox + kThreads - 1) / kThreads),
                   (unsigned)((c_out + kCoTile - 1) / kCoTile));
   const size_t smem = sizeof(float) * 9 * (size_t)c_in * kCoTile;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        conv3x3_fwd_kernel<T, kVec4>,
+        conv3x3_fwd_kernel<kVec4>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  conv3x3_fwd_kernel<T, kVec4><<<grid, kThreads, smem, stream>>>(
+  conv3x3_fwd_kernel<kVec4><<<grid, kThreads, smem, stream>>>(
       x, w, bias, y, batch, d_in, h, w_in, c_in, c_out, d_out, z_pad,
       bias_table, act, alpha);
   return cudaGetLastError();
-}
-
-template <typename T>
-int conv3x3_fwd(const T* x, const T* w, const float* bias, T* y, int batch,
-                int d_in, int h, int w_in, int c_in, int c_out, int z_pad,
-                int bias_table, int act, float alpha, void* stream) {
-  const int d_out = d_in - 2 + 2 * z_pad;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec4 =
-      c_in % 4 == 0 &&
-      reinterpret_cast<std::uintptr_t>(x) % (4 * sizeof(T)) == 0;
-  if (vec4) {
-    return launch<T, true>(x, w, bias, y, batch, d_in, h, w_in, c_in, c_out,
-                           d_out, z_pad, bias_table, act, alpha, s);
-  }
-  return launch<T, false>(x, w, bias, y, batch, d_in, h, w_in, c_in, c_out,
-                          d_out, z_pad, bias_table, act, alpha, s);
 }
 
 }  // namespace
@@ -185,17 +166,14 @@ extern "C" int conv3x3_fwd_f32(const float* x, const float* w,
                                int d_in, int h, int w_in, int c_in, int c_out,
                                int z_pad, int bias_table, int act, float alpha,
                                void* stream) {
-  return conv3x3_fwd<float>(x, w, bias, y, batch, d_in, h, w_in, c_in, c_out,
-                            z_pad, bias_table, act, alpha, stream);
-}
-
-extern "C" int conv3x3_fwd_bf16(const __nv_bfloat16* x,
-                                const __nv_bfloat16* w, const float* bias,
-                                __nv_bfloat16* y, int batch, int d_in, int h,
-                                int w_in, int c_in, int c_out, int z_pad,
-                                int bias_table, int act, float alpha,
-                                void* stream) {
-  return conv3x3_fwd<__nv_bfloat16>(x, w, bias, y, batch, d_in, h, w_in, c_in,
-                                    c_out, z_pad, bias_table, act, alpha,
-                                    stream);
+  const int d_out = d_in - 2 + 2 * z_pad;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec4 =
+      c_in % 4 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+  if (vec4) {
+    return launch<true>(x, w, bias, y, batch, d_in, h, w_in, c_in, c_out,
+                        d_out, z_pad, bias_table, act, alpha, s);
+  }
+  return launch<false>(x, w, bias, y, batch, d_in, h, w_in, c_in, c_out,
+                       d_out, z_pad, bias_table, act, alpha, s);
 }

@@ -1,5 +1,6 @@
-// PTX helpers of the bfloat16 tensor-core kernels (conv3x3_bwd_tc.cu: K2;
-// conv3x3_bwd_dx_tc.cu: K3): ldmatrix fragment loads from shared memory,
+// PTX helpers of the bfloat16 tensor-core kernels (conv3x3_fwd_tc.cu: K1;
+// conv3x3_bwd_tc.cu: K2; conv3x3_bwd_dx_tc.cu: K3; conv3x3_bwd_dw_tc.cu:
+// K4): ldmatrix fragment loads from shared memory,
 // the mma.sync.m16n8k16 bf16 product with float32 sums, cp.async copies,
 // and g' formed from packed bfloat16 pairs while staging.
 
@@ -57,9 +58,31 @@ __device__ __forceinline__ void cp_async16(__nv_bfloat16* dst,
                : "memory");
 }
 
+// 4 bytes (a bf16 pair) from global to shared memory; zeros when !valid.
+__device__ __forceinline__ void cp_async4(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 // Waits for every cp.async this thread has issued.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Closes the group of this thread's cp.async copies issued since the last
+// commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float lo_bf16(unsigned u) {

@@ -1,8 +1,10 @@
 """Port parity: the fused 3x3x3 conv (K1, ops/conv3x3.py) and the BN folds
 against the JAX package's s2d conv engine (Pallas kernel in interpret mode).
 
-Tolerance 1e-5 (atol and rtol): both sides accumulate in float32; the two
-differ only in summation order over at most 27 * C_in terms."""
+Float32 tolerance 1e-5 (atol and rtol): both sides accumulate in float32;
+the two differ only in summation order over at most 27 * C_in terms.  The
+bfloat16 forward is held to one bfloat16 step in at most 0.1% of elements
+(see its test)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -53,6 +55,40 @@ def test_conv3x3_matches_s2d_conv(mode, act, bias_kind):
     assert conv_mod.conv3x3.launches == before   # CPU: plain path
     assert tuple(got.shape) == ref.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("width", ["narrow", "wide"])
+@pytest.mark.parametrize("bias_kind", ["vector", "plane_table"])
+@pytest.mark.parametrize("act", ["none", "leaky_relu", "elu"])
+@pytest.mark.parametrize("mode", ["v", "s"])
+def test_conv3x3_bfloat16_matches_s2d_conv(mode, act, bias_kind, width):
+    """The bfloat16 forward (the kernel cast to bfloat16 after the BN fold,
+    float32 sums, bias and activation in float32, one rounding) against
+    ``s2d_conv`` on ``s2d_pack(x, bfloat16)``.  Outputs are equal, or in at
+    most 0.1% of elements one bfloat16 step (2^-7 of the value) apart: two
+    float32 sums of up to 27 * C_in products in another order may round to
+    neighbouring bfloat16 values."""
+    b, d, h, w, ci, co = ((1, 6, 9, 10, 2, 16) if width == "narrow"
+                          else (1, 5, 8, 9, 24, 8))
+    x, k, bias, scale, shift = _case(13, b, d, h, w, ci, co)
+    if bias_kind == "plane_table":
+        d_out = d if mode == "s" else d - 2
+        k, bias = (np.array(a) for a in jax_fold_bn_zsame(
+            jnp.asarray(k), jnp.asarray(bias), jnp.asarray(scale),
+            jnp.asarray(shift), d_out))
+    ref = np.asarray(s2d_unpack(s2d_conv(
+        s2d_pack(jnp.asarray(x), dtype=jnp.bfloat16), jnp.asarray(k),
+        jnp.asarray(bias), act=act, alpha=ALPHA[act],
+        modes=(mode, "v", "v"))), np.float32)
+    before = conv_mod.conv3x3.launches
+    got = conv3x3(torch.from_numpy(x).to(torch.bfloat16),
+                  torch.from_numpy(k).to(torch.bfloat16),
+                  torch.from_numpy(bias), act, ALPHA[act], mode)
+    assert conv_mod.conv3x3.launches == before   # CPU: plain path
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape
+    off = np.abs(got.float().numpy() - ref)
+    assert (off > 0).mean() <= 1e-3, ("elements off", (off > 0).mean())
+    assert np.all(off <= 2.0 ** -7 * np.abs(ref)), off.max()
 
 
 def test_fold_bn_matches_jax():
