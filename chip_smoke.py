@@ -8,23 +8,26 @@ non-zero without one.  Phases:
 
 1. card name and power limit (nvidia-smi), torch / CUDA versions, kernel
    build (nvcc, from ops/csrc in this checkout) and its seconds;
-2. kernel phase, tester shapes: K1 (conv forward) against its plain
-   PyTorch version at the ten U-Net 3^3 convs on a 68x168x168 volume plus
-   one z-SAME / ELU / plane-table case; K5 (EDT parabola pass) at the
-   tester's and the validation step's line shapes; kernel, plain and
-   library times (CUDA events) and the least time the card could take
-   (bound);
+2. kernel phase, tester shapes: the float32 K1 (conv forward, 3xTF32 on
+   the tensor cores) against its plain PyTorch version and against a
+   float64 conv at the ten U-Net 3^3 convs on a 68x168x168 volume plus one
+   z-SAME / ELU / plane-table case, with its TFLOP/s, tile efficiency and
+   the replaced CUDA-core kernel's recorded time per layer; K5 (EDT
+   parabola pass) at the tester's and the validation step's line shapes;
+   kernel, plain and library times (CUDA events) and the least time the
+   card could take (bound; for K1 both on the CUDA cores and in 3xTF32);
 3. kernel phase, training shapes: at the ten convs of one training step
-   (batch 6, 68x104x104 patch), in float32 and in bfloat16, K1 (bfloat16
-   on the tensor cores) and the backward kernels K2 (fused dx + dW;
+   (batch 6, 68x104x104 patch), in float32 and in bfloat16, K1 (on the
+   tensor cores: bfloat16, and float32 in 3xTF32) and the backward
+   kernels K2 (fused dx + dW;
    bfloat16 on the tensor cores, at the layers its channel bound takes: L2,
    L3, L10), K3 (dx) and K4 (dW + db; both bfloat16 on the tensor cores)
    against their plain versions, each at every layer whichever route the
    step takes there, K2 and K4 twice for bit-identical dW and db and K3
-   twice for a bit-identical dx; K2 vs K3 + K4 per fused layer; the
-   bfloat16 K1 vs cuDNN's forward at every layer, K3 vs cuDNN's dgrad and
-   K4 vs cuDNN's wgrad per layer of its route, each with its TFLOP/s and
-   tile efficiency; a small 's' + ELU + plane-table case and an
+   twice for a bit-identical dx; K2 vs K3 + K4 per fused layer; K1 (both
+   types) vs cuDNN's forward at every layer, the bfloat16 K3 vs cuDNN's
+   dgrad and K4 vs cuDNN's wgrad per layer of their route, each with its
+   TFLOP/s and tile efficiency; a small 's' + ELU + plane-table case and an
    odd-channel (3 -> 4) one, forward (K1) and backward, and K1, K3 and K4
    at a wide 192 -> 64 layer (the Unet3D class default's L7); times as
    above, with cuDNN's forward and backward as the library yardsticks;
@@ -65,7 +68,7 @@ TRAIN_BATCH = 6
 FOLD = (0, 1, 2)
 TRAIN_FOLD = tuple(range(8))         # 6 training + 2 validation cases
 TIMED_STEPS = 30                     # training steps timed back to back
-K1_TILE = (8, 16)                    # bfloat16 K1's tile (output plane)
+K1_TILE = (8, 16)                    # K1's tile (output plane), both types
 K3_TILE = (8, 16)                    # bfloat16 K3's tile: rows x columns
 K4_TILE = (9, 16)                    # bfloat16 K4's tile (output plane)
 K1_TOL = dict(atol=1e-4, rtol=1e-4)  # sums of up to 27 * 96 terms, reordered
@@ -80,10 +83,20 @@ BF16_REL = 1e-2
 # one float32 step, card vs CPU
 STEP_LOSS_REL, STEP_GRAD_REL, STEP_STATS_ATOL = 1e-5, 1e-3, 1e-5
 
+# the float32 K1 vs a float64 conv on the card, relative to max|ref|
+F64_REL = 1e-5
+
 # H100 SXM data-sheet peaks (dense): float32 outside the tensor cores, bf16
-# on the tensor cores (the peak for bfloat16 inputs), HBM3
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# on the tensor cores (the peak for bfloat16 inputs), float32 products as
+# 3xTF32 on the tensor cores (three TF32 products each: a third of the 495
+# TFLOP/s TF32 rate), HBM3
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
+
+# the replaced CUDA-core float32 K1 (conv3x3_fwd.cu) per tester layer, ms on
+# an NVIDIA H100 80GB HBM3 at 700 W, as PERF.md records it
+CUDA_CORE_K1_MS = (0.2999, 1.2408, 0.3213, 0.6674, 0.1473, 0.2092, 1.2190,
+                   0.3116, 1.4042, 0.3530)
 
 
 def bound_ms(ops, nbytes, dtype="float32"):
@@ -168,8 +181,11 @@ def kernel_phase(torch):
         return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
 
     k1 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-              max_abs_err=0.0, ops=0.0, bytes=0.0)
-    print("K1 conv3x3_fwd per layer (batch 1, float32, 'v', LeakyReLU 0.01):")
+              bound_ms_cuda_cores=0.0, max_abs_err=0.0, max_rel_err_f64=0.0,
+              ops=0.0, bytes=0.0)
+    print("K1 conv3x3_fwd per layer (batch 1, float32, 'v', LeakyReLU 0.01; "
+          "3xTF32 on the tensor cores; err vs plain max|y - plain|, vs f64 "
+          "max|y - ref64| / max|ref64|; bound CUDA cores / 3xTF32):")
     for i, (d, h, w, ci, co) in enumerate(
             unet_conv_shapes(VOLUME_DHW, CHANNELS), 1):
         x = uniform((1, d, h, w, ci), -1.0, 1.0)
@@ -178,9 +194,17 @@ def kernel_phase(torch):
         b = uniform((co,), -bnd, bnd)
         y = conv3x3(x, k, b, "leaky_relu", 0.01)
         ref = conv3x3_plain(x, k, b, "leaky_relu", 0.01)
+        ref64 = conv3x3_plain(x.double(), k.double(), b.double(),
+                              "leaky_relu", 0.01)
         torch.cuda.synchronize()
         err = float((y - ref).abs().max())
         torch.testing.assert_close(y, ref, **K1_TOL)
+        f64 = rel_err(y.double(), ref64)
+        plain_f64 = rel_err(ref.double(), ref64)
+        if f64 > F64_REL:
+            raise AssertionError(f"K1 L{i} float32: {f64:.3e} of max|ref| "
+                                 f"off the float64 conv")
+        del ref64
         w_lib = k.permute(4, 3, 0, 1, 2).contiguous()
         x_lib = x.permute(0, 4, 1, 2, 3)                 # channels-last view
         iters = 10
@@ -191,20 +215,31 @@ def kernel_phase(torch):
         lib = cuda_ms(torch, lambda: F.conv3d(x_lib, w_lib, b), iters)
         ops = 2.0 * 27 * ci * co * (d - 2) * (h - 2) * (w - 2)
         nbytes = 4.0 * (x.numel() + k.numel() + b.numel() + y.numel())
-        bms, by = bound_ms(ops, nbytes)
+        b_cc, by_cc = bound_ms(ops, nbytes)
+        bms, by = bound_ms(ops, nbytes, "tf32x3")
         print(f"  L{i:<2} in {d}x{h}x{w} {ci:>2}->{co:<2} {ops / 1e9:6.2f} "
-              f"GFLOP  kernel {ms:.4f} ms  plain {plain:.4f} ms  cuDNN "
-              f"{lib:.4f} ms  bound {bms:.4f} ms ({by})  "
-              f"max|err| {err:.3e}")
+              f"GFLOP  kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s, "
+              f"tile eff. {tile_efficiency((h - 2, w - 2), K1_TILE):.3f})  "
+              f"CUDA-core K1 {CUDA_CORE_K1_MS[i - 1]:.4f} ms (recorded)  "
+              f"plain {plain:.4f} ms  cuDNN {lib:.4f} ms  bound "
+              f"{b_cc:.4f} ({by_cc[0]}) / {bms:.4f} ({by[0]}) ms  err vs "
+              f"plain {err:.3e}, vs f64 {f64:.3e} (plain f32 vs f64 "
+              f"{plain_f64:.3e})")
         for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                       ("bound_ms", bms), ("ops", ops), ("bytes", nbytes)):
+                       ("bound_ms", bms), ("bound_ms_cuda_cores", b_cc),
+                       ("ops", ops), ("bytes", nbytes)):
             k1[key] += v
         k1["max_abs_err"] = max(k1["max_abs_err"], err)
+        k1["max_rel_err_f64"] = max(k1["max_rel_err_f64"], f64)
         del x, k, b, y, ref, x_lib, w_lib
-    k1["bound_by"] = bound_ms(k1["ops"], k1["bytes"])[1]
+    k1["bound_by"] = bound_ms(k1["ops"], k1["bytes"], "tf32x3")[1]
     print(f"  sum of the 10 layers: {k1['ops'] / 1e9:.2f} GFLOP  kernel "
-          f"{k1['ms']:.4f} ms  plain {k1['plain_ms']:.4f} ms  cuDNN "
-          f"{k1['library_ms']:.4f} ms  bound {k1['bound_ms']:.4f} ms")
+          f"{k1['ms']:.4f} ms ({k1['ops'] / k1['ms'] / 1e9:.1f} TFLOP/s)  "
+          f"CUDA-core K1 {sum(CUDA_CORE_K1_MS):.4f} ms (recorded)  plain "
+          f"{k1['plain_ms']:.4f} ms  cuDNN {k1['library_ms']:.4f} ms  bound "
+          f"CUDA cores {k1['bound_ms_cuda_cores']:.4f} ms / 3xTF32 "
+          f"{k1['bound_ms']:.4f} ms  max err vs f64 "
+          f"{k1['max_rel_err_f64']:.3e} of max|ref|")
 
     # z-SAME + ELU + per-plane bias table (the CAE encoder's form)
     x = uniform((1, 12, 20, 22, 8), -1.0, 1.0)
@@ -397,7 +432,7 @@ def train_kernel_phase(torch):
                                              for key, v in err.items()))
 
             def vs_library(key, call, tile, plane):
-                """A bfloat16 kernel against cuDNN at this layer; its tile
+                """A kernel against cuDNN at this layer; its tile
                 efficiency is the real share of the tiled plane (K1 and K4
                 tile the output plane, K3 the input plane)."""
                 print(f"      L{i} {key} {ms[key]:.4f} ms vs cuDNN {call} "
@@ -407,8 +442,7 @@ def train_kernel_phase(torch):
                       f"({tile[0]}x{tile[1]} tiles over "
                       f"{plane[0]}x{plane[1]})")
 
-            if dtype == torch.bfloat16:
-                vs_library("K1", "forward", K1_TILE, (h - 2, w - 2))
+            vs_library("K1", "forward", K1_TILE, (h - 2, w - 2))
             if route == "fused":
                 split = ms["K3"] + ms["K4"]
                 print(f"      L{i} K2 {ms['K2']:.4f} ms vs K3 + K4 "
@@ -955,6 +989,9 @@ def main():
                         f"L{v['layers']})"
                         for key, v in ((key, per_step(key, dtype))
                                        for key in ("K1", "K2", "K3", "K4"))))
+    k1_f32 = [(r["ops"]["K1"], r["bytes"]["K1"]) for r in train_k["float32"]]
+    print(f"per training step, float32: K1 bound in 3xTF32 "
+          f"{sum(bound_ms(o, b, 'tf32x3')[0] for o, b in k1_f32):.4f} ms")
     csrc = "stroke_prediction_tpu_torch/ops/csrc/"
     s2d = "stroke_prediction_tpu/ops/pallas/s2d.py:"
     step_per = (f"one training step (bfloat16, batch {TRAIN_BATCH}, patch "
@@ -963,13 +1000,17 @@ def main():
         dict({"name": "conv3x3_fwd", "route": "cuda",
               "source": csrc + "conv3x3_fwd_tc.cu", "replaces": s2d + "387",
               "launches": launches["conv3x3"]}, **per_step("K1"),
-             source_float32=csrc + "conv3x3_fwd.cu",
+             source_float32=csrc + "conv3x3_fwd_f32_tc.cu",
              per=step_per + " (all 10)",
              tester={"launches": t_launches["conv3x3"], "ms": k1["ms"],
                      "plain_ms": k1["plain_ms"],
                      "library_ms": k1["library_ms"],
-                     "bound_ms": k1["bound_ms"],
-                     "per": "one tester case (float32, batch 1)"}),
+                     "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+                     "bound_ms_cuda_cores": k1["bound_ms_cuda_cores"],
+                     "max_abs_err": k1["max_abs_err"],
+                     "max_rel_err_f64": k1["max_rel_err_f64"],
+                     "per": "one tester case (float32, batch 1; bound_ms "
+                            "in 3xTF32)"}),
         dict({"name": "conv3x3_bwd_fused", "route": "cuda",
               "source": csrc + "conv3x3_bwd_tc.cu", "replaces": s2d + "491",
               "launches": launches["conv3x3_bwd_fused"]}, **per_step("K2"),

@@ -7,9 +7,9 @@ Counterpart of ``stroke_prediction_tpu/ops/pallas/s2d.py``: ``s2d_conv``
 ``fold_bn_zsame``.  The s2d cell layout is not ported; the ops take logical
 channels-last volumes, float32 or bfloat16 (float32 accumulation).
 
-* :func:`conv3x3` — the forward wrapper (K1: ``csrc/conv3x3_fwd.cu`` for
-  float32, on the CUDA cores; ``csrc/conv3x3_fwd_tc.cu`` for bfloat16, on
-  the tensor cores).
+* :func:`conv3x3` — the forward wrapper (K1, on the tensor cores:
+  ``csrc/conv3x3_fwd_f32_tc.cu`` for float32, in 3xTF32, which keeps
+  float32 accuracy; ``csrc/conv3x3_fwd_tc.cu`` for bfloat16).
 * :func:`conv3x3_bwd_fused` (K2), :func:`conv3x3_bwd_dx` (K3),
   :func:`conv3x3_bwd_dw` (K4) — the backward wrappers
   (``csrc/conv3x3_bwd.cu`` for float32; the bfloat16 K2, K3 and K4 are
@@ -195,7 +195,8 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     x: (B, D, H, W, C_in) float32 or bfloat16; kernel: (3, 3, 3, C_in,
     C_out) in x's type; bias: float32 (C_out,) or a per-output-plane
     (D_out, C_out) table (:func:`fold_bn_zsame`).  Returns (B, D_out, H-2,
-    W-2, C_out) in x's type, accumulated in float32.
+    W-2, C_out) in x's type, accumulated in float32 (on the card, float32
+    products in 3xTF32 on the tensor cores).
     """
     _check(x, kernel, bias, act, mode)
     if not _on_card("conv3x3", x.device):

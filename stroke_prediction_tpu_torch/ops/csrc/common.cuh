@@ -1,7 +1,8 @@
-// Device helpers shared by the conv kernels: read-only loads of float32
-// storage for the CUDA-core kernels, the activations and their gradients,
-// and g' formed in the storage type.  A bfloat16 value is rounded to
-// nearest even (__float2bfloat16_rn), as PyTorch's .to(torch.bfloat16) does.
+// Device helpers shared by the conv kernels: loads and stores of float32
+// storage for the CUDA-core kernels (conv3x3_bwd.cu), the activations and
+// their gradients, and g' formed in the storage type.  A bfloat16 value is
+// rounded to nearest even (__float2bfloat16_rn), as PyTorch's
+// .to(torch.bfloat16) does.
 
 #pragma once
 
@@ -13,11 +14,6 @@
 namespace stroke {
 
 __device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
-
-// Four consecutive values; p is aligned to 4 elements.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 

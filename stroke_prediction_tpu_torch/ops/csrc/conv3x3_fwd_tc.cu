@@ -1,7 +1,7 @@
 // bfloat16 fused 3x3x3 stride-1 convolution forward
 // y = bf16(act(conv3d(x, k) + b)) on Hopper's tensor cores (kernel K1 of the
-// port, bfloat16 storage; the float32 K1 is conv3x3_fwd.cu's, on the CUDA
-// cores).
+// port, bfloat16 storage; the float32 K1 is conv3x3_fwd_f32_tc.cu's, in
+// 3xTF32 on the same structure).
 //
 // Replaces stroke_prediction_tpu/ops/pallas/s2d.py _conv_kernel (launched by
 // _s2d_conv_p, API s2d_conv):

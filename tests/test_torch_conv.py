@@ -4,7 +4,8 @@ against the JAX package's s2d conv engine (Pallas kernel in interpret mode).
 Float32 tolerance 1e-5 (atol and rtol): both sides accumulate in float32;
 the two differ only in summation order over at most 27 * C_in terms.  The
 bfloat16 forward is held to one bfloat16 step in at most 0.1% of elements
-(see its test)."""
+(see its test).  The 3xTF32 arithmetic of the card's float32 forward is
+emulated here and held to the card's float32 limit (see its test)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +23,9 @@ from stroke_prediction_tpu_torch.ops.conv3x3 import (
 torch.set_num_threads(1)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+# the card's float32 K1 against its plain version (chip_smoke.py K1_TOL):
+# float32 sums of up to 27 * 96 terms in another order
+K1_TOL = dict(atol=1e-4, rtol=1e-4)
 ALPHA = {"none": 0.01, "leaky_relu": 0.01, "elu": 0.7}
 
 
@@ -89,6 +93,58 @@ def test_conv3x3_bfloat16_matches_s2d_conv(mode, act, bias_kind, width):
     off = np.abs(got.float().numpy() - ref)
     assert (off > 0).mean() <= 1e-3, ("elements off", (off > 0).mean())
     assert np.all(off <= 2.0 ** -7 * np.abs(ref)), off.max()
+
+
+def _tf32(a):
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest, ties away from zero, to a 10-bit mantissa (on the int32 view,
+    ``(i + 0x1000) & ~0x1FFF``)."""
+    i = np.ascontiguousarray(a, np.float32).view(np.int32)
+    return ((i + 0x1000) & ~0x1FFF).astype(np.int32).view(np.float32)
+
+
+@pytest.mark.parametrize("ci, co, lo, hi, dhw", [
+    (96, 32, -1.0, 1.0, (5, 6, 6)),
+    (2, 16, 0.0, 40.0, (6, 8, 8)),     # the entry conv on raw image values
+    (64, 64, -1.0, 1.0, (5, 6, 6)),
+], ids=["96-32", "2-16-image", "64-64"])
+def test_conv3x3_3xtf32_split_matches_s2d_conv(ci, co, lo, hi, dhw):
+    """The arithmetic of the card's float32 K1
+    (``csrc/conv3x3_fwd_f32_tc.cu``): each operand v split into big =
+    tf32(v) and small = tf32(v - big), and x * k taken as small_x * big_k +
+    big_x * small_k + big_x * big_k (the products exact, summed in float64
+    here).  That conv holds to the JAX package's float32 ``s2d_conv`` within
+    the card's float32 limit ``K1_TOL``; one TF32 product (big_x * big_k)
+    does not, so the limit tells the two designs apart."""
+    rs = np.random.RandomState(17)
+    x = rs.uniform(lo, hi, (1, *dhw, ci)).astype(np.float32)
+    bnd = (27 * ci) ** -0.5
+    k = rs.uniform(-bnd, bnd, (3, 3, 3, ci, co)).astype(np.float32)
+    bias = rs.uniform(-bnd, bnd, co).astype(np.float32)
+    ref = np.asarray(s2d_unpack(s2d_conv(
+        s2d_pack(jnp.asarray(x), dtype=jnp.float32), jnp.asarray(k),
+        jnp.asarray(bias), act="leaky_relu", alpha=0.01,
+        modes=("v", "v", "v"))))
+
+    x_big, k_big = _tf32(x), _tf32(k)
+    x_small, k_small = _tf32(x - x_big), _tf32(k - k_big)
+    for v, big, small in ((x, x_big, x_small), (k, k_big, k_small)):
+        assert np.all(np.abs(v - big - small) <= 2.0 ** -22 * np.abs(v))
+    zero = torch.zeros(co, dtype=torch.float64)
+
+    def conv(*pairs):
+        """act(sum of the float64 convs of the (x, k) pairs + bias)."""
+        pre = sum(conv3x3_plain(torch.from_numpy(a).double(),
+                                torch.from_numpy(b).double(), zero)
+                  for a, b in pairs)
+        return conv_mod.activation(pre + torch.from_numpy(bias).double(),
+                                   "leaky_relu", 0.01).numpy()
+
+    three = conv((x_small, k_big), (x_big, k_small), (x_big, k_big))
+    one = conv((x_big, k_big))
+    assert three.shape == ref.shape
+    np.testing.assert_allclose(three, ref, **K1_TOL)
+    assert not np.allclose(one, ref, **K1_TOL), np.abs(one - ref).max()
 
 
 def test_fold_bn_matches_jax():
