@@ -21,16 +21,20 @@ non-zero without one.  Phases:
    tensor cores: bfloat16, and float32 in 3xTF32) and the backward
    kernels K2 (fused dx + dW;
    bfloat16 on the tensor cores, at the layers its channel bound takes: L2,
-   L3, L10), K3 (dx) and K4 (dW + db; both bfloat16 on the tensor cores)
+   L3, L10), K3 (dx; on the tensor cores, float32 in 3xTF32) and K4 (dW +
+   db; bfloat16 on the tensor cores)
    against their plain versions, each at every layer whichever route the
    step takes there, K2 and K4 twice for bit-identical dW and db and K3
-   twice for a bit-identical dx; K2 vs K3 + K4 per fused layer; K1 (both
-   types) vs cuDNN's forward at every layer, the bfloat16 K3 vs cuDNN's
-   dgrad and K4 vs cuDNN's wgrad per layer of their route, each with its
-   TFLOP/s and tile efficiency; a small 's' + ELU + plane-table case and an
-   odd-channel (3 -> 4) one, forward (K1) and backward, and K1, K3 and K4
-   at a wide 192 -> 64 layer (the Unet3D class default's L7); times as
-   above, with cuDNN's forward and backward as the library yardsticks;
+   twice for a bit-identical dx, the float32 K3 also against a float64
+   dgrad; K2 vs K3 + K4 per fused layer; K1 (both
+   types) vs cuDNN's forward at every layer, K3 (both types) vs cuDNN's
+   dgrad and the bfloat16 K4 vs cuDNN's wgrad per layer of their route,
+   each with its TFLOP/s and tile efficiency; a small 's' + ELU +
+   plane-table case and an odd-channel (3 -> 4) one, forward (K1) and
+   backward, and K1, K3 and K4 at a wide 192 -> 64 layer (the Unet3D class
+   default's L7), K3 there too twice and, in float32, against float64;
+   times as above, with cuDNN's forward and backward as the library
+   yardsticks;
 4. tester phase: the port's full-volume U-Net tester CLI on three
    synthetic 256x256x28 cases (resampled to 128x128x28, padded by 20 to
    68x168x168), channels 2 16 32 64 32 16 32 2 with seeded random weights
@@ -69,7 +73,7 @@ FOLD = (0, 1, 2)
 TRAIN_FOLD = tuple(range(8))         # 6 training + 2 validation cases
 TIMED_STEPS = 30                     # training steps timed back to back
 K1_TILE = (8, 16)                    # K1's tile (output plane), both types
-K3_TILE = (8, 16)                    # bfloat16 K3's tile: rows x columns
+K3_TILE = (8, 16)                    # K3's tile (input plane), both types
 K4_TILE = (9, 16)                    # bfloat16 K4's tile (output plane)
 K1_TOL = dict(atol=1e-4, rtol=1e-4)  # sums of up to 27 * 96 terms, reordered
 SLICE_ATOL = 1e-4                    # card vs CPU probabilities
@@ -83,7 +87,8 @@ BF16_REL = 1e-2
 # one float32 step, card vs CPU
 STEP_LOSS_REL, STEP_GRAD_REL, STEP_STATS_ATOL = 1e-5, 1e-3, 1e-5
 
-# the float32 K1 vs a float64 conv on the card, relative to max|ref|
+# the float32 K1 and K3 vs a float64 conv / dgrad on the card, relative to
+# max|ref|
 F64_REL = 1e-5
 
 # H100 SXM data-sheet peaks (dense): float32 outside the tensor cores, bf16
@@ -92,6 +97,9 @@ F64_REL = 1e-5
 # TFLOP/s TF32 rate), HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
+# the float32 kernels on the tensor cores in 3xTF32 (K2 and K4 run on the
+# CUDA cores)
+TF32X3_KERNELS = ("K1", "K3")
 
 # the replaced CUDA-core float32 K1 (conv3x3_fwd.cu) per tester layer, ms on
 # an NVIDIA H100 80GB HBM3 at 700 W, as PERF.md records it
@@ -103,6 +111,11 @@ def bound_ms(ops, nbytes, dtype="float32"):
     t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def peak_key(key, dname):
+    """The PEAK_FLOPS entry of kernel ``key`` in storage type ``dname``."""
+    return "tf32x3" if dname == "float32" and key in TF32X3_KERNELS else dname
 
 
 def rel_err(got, ref):
@@ -322,6 +335,16 @@ def train_kernel_phase(torch):
             raise AssertionError(f"{name}: rel err {rel_err(got, ref)}")
         return note((name.split()[0] + " dW/db", str(dtype)[6:]), got, ref)
 
+    def check_f64(name, dx, g, y, k, x_shape, act, alpha, mode):
+        """The float32 K3's dx vs a float64 dgrad on the card."""
+        ref64 = conv3x3_bwd_dx_plain(g.double(), y.double(), k.double(),
+                                     x_shape, act, alpha, mode)
+        err = rel_err(dx.double(), ref64)
+        if err > F64_REL:
+            raise AssertionError(f"{name}: {err:.3e} of max|ref| off the "
+                                 f"float64 dgrad")
+        return err
+
     shapes = unet_conv_shapes(PATCH_DHW, CHANNELS)
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -367,6 +390,10 @@ def train_kernel_phase(torch):
                     raise AssertionError(f"{name} L{i} {dname}: dW or db "
                                          f"differs between two runs")
             tag = f"L{i} {dname}"
+            f64 = {}
+            if dtype == torch.float32:
+                f64["K3"] = check_f64(f"K3 dx {tag}", dx3, g, y, k, x.shape,
+                                      "leaky_relu", 0.01, "v")
             if k2:
                 err["K2"] = max(check_out(f"K2 dx {tag}", dx2, rdx, dtype),
                                 check_sum(f"K2 dk {tag}", dk2, rdk, dtype),
@@ -418,10 +445,11 @@ def train_kernel_phase(torch):
                 "K2": nb * (nx + 2 * ny + nk + nx) + 4 * (nk + co),
                 "K3": nb * (2 * ny + nk + nx),
                 "K4": nb * (nx + 2 * ny) + 4 * (nk + co)}
-            bnd_ms = {key: bound_ms(ops[key], nbytes[key], dname)
+            bnd_ms = {key: bound_ms(ops[key], nbytes[key],
+                                    peak_key(key, dname))
                       for key in ops}
             rows.append(dict(layer=i, route=route, shape=(d, h, w, ci, co),
-                             err=err, ms=ms, plain=plain, lib=lib,
+                             err=err, f64=f64, ms=ms, plain=plain, lib=lib,
                              bound=bnd_ms, ops=ops, bytes=nbytes))
             print(f"  L{i:<2} in {d}x{h}x{w} {ci:>2}->{co:<2} route "
                   f"{route:5s} "
@@ -429,7 +457,9 @@ def train_kernel_phase(torch):
                               f"{lib[key]:.4f}/{bnd_ms[key][0]:.4f}"
                               f"({bnd_ms[key][1][0]})" for key in ms)
                   + "  max|err| " + " ".join(f"{key} {v:.3e}"
-                                             for key, v in err.items()))
+                                             for key, v in err.items())
+                  + "".join(f"  {key} vs f64 {v:.3e} of max|ref|"
+                            for key, v in f64.items()))
 
             def vs_library(key, call, tile, plane):
                 """A kernel against cuDNN at this layer; its tile
@@ -440,7 +470,8 @@ def train_kernel_phase(torch):
                       f"at {ops[key] / ms[key] / 1e9:.1f} TFLOP/s; tile "
                       f"efficiency {tile_efficiency(plane, tile):.3f} "
                       f"({tile[0]}x{tile[1]} tiles over "
-                      f"{plane[0]}x{plane[1]})")
+                      f"{plane[0]}x{plane[1]}); bound "
+                      f"{bnd_ms[key][0]:.4f} ms ({peak_key(key, dname)})")
 
             vs_library("K1", "forward", K1_TILE, (h - 2, w - 2))
             if route == "fused":
@@ -449,7 +480,7 @@ def train_kernel_phase(torch):
                       f"{split:.4f} ms ({split / ms['K2']:.2f}x); cuDNN "
                       f"dgrad + wgrad {lib['K2']:.4f} ms; K2 at "
                       f"{ops['K2'] / ms['K2'] / 1e9:.1f} TFLOP/s")
-            if route == "split" and dtype == torch.bfloat16:
+            if route == "split":
                 vs_library("K3", "dgrad", K3_TILE, (h, w))
             if route in ("dw", "split") and dtype == torch.bfloat16:
                 vs_library("K4", "wgrad", K4_TILE, (h - 2, w - 2))
@@ -486,6 +517,7 @@ def train_kernel_phase(torch):
             dx2, dk2, db2 = conv3x3_bwd_fused(x, *a[:2], k, *a[2:], table)
             dk2b, db2b = conv3x3_bwd_fused(x, *a[:2], k, *a[2:], table)[1:]
             dx3 = conv3x3_bwd_dx(g, y, k, x.shape, act, alpha, mode)
+            dx3b = conv3x3_bwd_dx(g, y, k, x.shape, act, alpha, mode)
             dk4, db4 = conv3x3_bwd_dw(x, *a, table)
             dk4b, db4b = conv3x3_bwd_dw(x, *a, table)
             torch.cuda.synchronize()
@@ -494,6 +526,12 @@ def train_kernel_phase(torch):
                 if not (torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])):
                     raise AssertionError(f"{name} {case} {dname}: dW or db "
                                          f"differs between two runs")
+            if not torch.equal(dx3, dx3b):
+                raise AssertionError(f"K3 {case} {dname}: dx differs "
+                                     f"between two runs")
+            if dtype == torch.float32:
+                s_err[f"K3 {case} float32 vs f64"] = check_f64(
+                    f"K3 {case} dx", dx3, g, y, k, x.shape, act, alpha, mode)
             s_err[f"{case} {dname}"] = max(
                 check_out(f"K1 {case} y", y, ry, dtype),
                 check_out(f"K2 {case} dx", dx2, rdx, dtype),
@@ -520,6 +558,7 @@ def train_kernel_phase(torch):
         g = uniform(y.shape, -1.0, 1.0, dtype)
         a = (g, y, "leaky_relu", 0.01)
         dx3 = conv3x3_bwd_dx(g, y, k, shape, "leaky_relu", 0.01)
+        dx3b = conv3x3_bwd_dx(g, y, k, shape, "leaky_relu", 0.01)
         rdx = conv3x3_bwd_dx_plain(g, y, k, shape, "leaky_relu", 0.01)
         dk4, db4 = conv3x3_bwd_dw(x, *a)
         dk4b, db4b = conv3x3_bwd_dw(x, *a)
@@ -528,6 +567,13 @@ def train_kernel_phase(torch):
         if not (torch.equal(dk4, dk4b) and torch.equal(db4, db4b)):
             raise AssertionError(f"K4 192 -> 64 {dname}: dW or db differs "
                                  f"between two runs")
+        if not torch.equal(dx3, dx3b):
+            raise AssertionError(f"K3 192 -> 64 {dname}: dx differs between "
+                                 f"two runs")
+        if dtype == torch.float32:
+            s_err["K3 192 -> 64 float32 vs f64"] = check_f64(
+                "K3 192->64 dx", dx3, g, y, k, shape, "leaky_relu", 0.01,
+                "v")
         s_err[f"K1 192 -> 64 {dname}"] = check_out(
             f"K1 192->64 y {dname}", y, ry, dtype)
         s_err[f"K3 192 -> 64 {dname}"] = check_out(
@@ -811,9 +857,9 @@ def profile_step(torch, learner):
              ("conv3x3_bwd_dx_tc_kernel", "K3 dx"),
              ("conv3x3_bwd_dw_tc_kernel", "K4 dW"),
              ("conv3x3_bwd_tc_kernel", "K2 fused"),
-             ("bwd_tile_kernel<float, true, true>", "K2 fused"),
-             ("float, true, false>", "K3 dx (float32)"),
-             ("false, true>", "K4 dW (float32)"),
+             ("conv3x3_bwd_dx_f32_tc_kernel", "K3 dx (float32)"),
+             ("bwd_tile_kernel<true>", "K2 fused (float32)"),
+             ("bwd_tile_kernel<false>", "K4 dW (float32)"),
              ("finalize", "K2/K4 dW, db reductions"),
              ("MeanOps", "BN moments (means)"), ("MaxOps", "max reductions"),
              ("multi_tensor_apply", "Adam (foreach)"),
@@ -967,9 +1013,12 @@ def main():
         runs = {"K1": ("dw", "fused", "split"), "K2": ("fused",),
                 "K3": ("split",), "K4": ("dw", "split")}[key]
         rows = [r for r in train_k[dtype] if r["route"] in runs]
-        t_ops = sum(r["ops"][key] for r in rows) / PEAK_FLOPS[dtype]
+        t_ops = sum(r["ops"][key] for r in rows) / PEAK_FLOPS[
+            peak_key(key, dtype)]
         t_bytes = sum(r["bytes"][key] for r in rows) / PEAK_BYTES
+        f64 = [r["f64"][key] for r in rows if key in r["f64"]]
         return dict(
+            {"max_rel_err_f64": max(f64)} if f64 else {},
             max_abs_err=max(r["err"][key] for r in rows),
             max_abs_err_f32=max(r["err"][key] for r in train_k["float32"]),
             ms=sum(r["ms"][key] for r in rows),
@@ -982,16 +1031,14 @@ def main():
 
     for dtype in ("float32", "bfloat16"):
         print(f"per training step, {dtype}, summed over the layers each "
-              f"kernel runs on (ms kernel / plain / cuDNN / bound): " +
+              f"kernel runs on (ms kernel / plain / cuDNN / bound; float32 "
+              f"K1 and K3 bound in 3xTF32): " +
               "; ".join(f"{key} {v['ms']:.4f} / {v['plain_ms']:.4f} / "
                         f"{v['library_ms']:.4f} / {v['bound_ms']:.4f} "
                         f"({v['bound_by']}, {v['gflop']:.2f} GFLOP, "
                         f"L{v['layers']})"
                         for key, v in ((key, per_step(key, dtype))
                                        for key in ("K1", "K2", "K3", "K4"))))
-    k1_f32 = [(r["ops"]["K1"], r["bytes"]["K1"]) for r in train_k["float32"]]
-    print(f"per training step, float32: K1 bound in 3xTF32 "
-          f"{sum(bound_ms(o, b, 'tf32x3')[0] for o, b in k1_f32):.4f} ms")
     csrc = "stroke_prediction_tpu_torch/ops/csrc/"
     s2d = "stroke_prediction_tpu/ops/pallas/s2d.py:"
     step_per = (f"one training step (bfloat16, batch {TRAIN_BATCH}, patch "
@@ -1019,7 +1066,12 @@ def main():
               "source": csrc + "conv3x3_bwd_dx_tc.cu",
               "replaces": s2d + "589",
               "launches": launches["conv3x3_bwd_dx"]}, **per_step("K3"),
-             source_float32=csrc + "conv3x3_bwd.cu", per=step_per),
+             source_float32=csrc + "conv3x3_bwd_dx_f32_tc.cu", per=step_per,
+             float32=dict(per_step("K3", "float32"),
+                          per=f"one float32 training step (batch "
+                              f"{TRAIN_BATCH}, patch 68x104x104): the "
+                              f"layers the route sends here; bound_ms in "
+                              f"3xTF32")),
         dict({"name": "conv3x3_bwd_dw", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dw_tc.cu",
               "replaces": s2d + "623",

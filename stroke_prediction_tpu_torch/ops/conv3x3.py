@@ -11,10 +11,12 @@ channels-last volumes, float32 or bfloat16 (float32 accumulation).
   ``csrc/conv3x3_fwd_f32_tc.cu`` for float32, in 3xTF32, which keeps
   float32 accuracy; ``csrc/conv3x3_fwd_tc.cu`` for bfloat16).
 * :func:`conv3x3_bwd_fused` (K2), :func:`conv3x3_bwd_dx` (K3),
-  :func:`conv3x3_bwd_dw` (K4) — the backward wrappers
-  (``csrc/conv3x3_bwd.cu`` for float32; the bfloat16 K2, K3 and K4 are
-  ``csrc/conv3x3_bwd_tc.cu``, ``csrc/conv3x3_bwd_dx_tc.cu`` and
-  ``csrc/conv3x3_bwd_dw_tc.cu``, on the tensor cores).
+  :func:`conv3x3_bwd_dw` (K4) — the backward wrappers.  The float32 K2 and
+  K4 are ``csrc/conv3x3_bwd.cu``, on the CUDA cores; the float32 K3 is
+  ``csrc/conv3x3_bwd_dx_f32_tc.cu``, on the tensor cores in 3xTF32; the
+  bfloat16 K2, K3 and K4 are ``csrc/conv3x3_bwd_tc.cu``,
+  ``csrc/conv3x3_bwd_dx_tc.cu`` and ``csrc/conv3x3_bwd_dw_tc.cu``, on the
+  tensor cores.
 * :class:`Conv3x3Fn` — the autograd function: K1 forward; K2, or K3 + K4,
   backward (:func:`bwd_route`); K4 alone when the input needs no gradient
   (the entry conv on data, s2d.py ``input_grad=False``).
@@ -336,7 +338,9 @@ def conv3x3_bwd_dx(g: torch.Tensor, y: torch.Tensor, kernel: torch.Tensor,
     """dx of :func:`conv3x3` (K3): the input gradient alone, in y's type.
 
     g, y: (B, D_out, H-2, W-2, C_out) cotangent and saved output; kernel:
-    the (3, 3, 3, C_in, C_out) kernel of the forward, in y's type."""
+    the (3, 3, 3, C_in, C_out) kernel of the forward, in y's type.  Sums
+    are float32 (on the card, float32 products in 3xTF32 on the tensor
+    cores)."""
     _check_bwd(x_shape, g, y, act, mode, kernel=kernel)
     if not _on_card("conv3x3_bwd_dx", y.device):
         return conv3x3_bwd_dx_plain(g, y, kernel, x_shape, act, alpha, mode)

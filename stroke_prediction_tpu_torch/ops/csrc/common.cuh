@@ -1,6 +1,5 @@
-// Device helpers shared by the conv kernels: loads and stores of float32
-// storage for the CUDA-core kernels (conv3x3_bwd.cu), the activations and
-// their gradients, and g' formed in the storage type.  A bfloat16 value is
+// Device helpers shared by the conv kernels: the activations and their
+// gradients, and g' formed in the storage type.  A bfloat16 value is
 // rounded to nearest even (__float2bfloat16_rn), as PyTorch's
 // .to(torch.bfloat16) does.
 
@@ -12,10 +11,6 @@
 #include <type_traits>
 
 namespace stroke {
-
-__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 
 // act: 0 none, 1 LeakyReLU(alpha), 2 ELU(alpha) with the exp of the clamped
 // value (s2d.py _act).

@@ -1,51 +1,48 @@
-// Backward of the fused 3x3x3 stride-1 convolution y = act(conv3d(x, k) + b)
-// (kernels K2, K3 and K4 of the port).
+// float32 backward of the fused 3x3x3 stride-1 convolution
+// y = act(conv3d(x, k) + b) on the CUDA cores (kernels K2 and K4 of the
+// port, float32 storage).
 //
 // Replaces the TPU kernels of stroke_prediction_tpu/ops/pallas/s2d.py:
 //   K2  conv3x3_bwd_fused_f32 <- _bwd_kernel  (fused dx + dW in one pass;
 //                               the bfloat16 K2 is conv3x3_bwd_tc.cu, on
 //                               the tensor cores)
-//   K3  conv3x3_bwd_dx_f32   <- _dx_kernel    (dx alone; the bfloat16 K3
-//                               is conv3x3_bwd_dx_tc.cu, on the tensor
-//                               cores)
 //   K4  conv3x3_bwd_dw_f32   <- _dw_kernel + _dw_taps (dW alone; also the
 //                               entry conv, whose input is data: no dx;
 //                               the bfloat16 K4 is conv3x3_bwd_dw_tc.cu,
 //                               on the tensor cores)
-// and the db reduction that _s2d_conv_bwd did in XLA.  The math is carried
-// over, not the s2d cell layout, superpatch weights or tap-table fold-back:
+// and the db reduction that _s2d_conv_bwd did in XLA.  (K3, dx alone, is
+// conv3x3_bwd_dx_f32_tc.cu for float32 and conv3x3_bwd_dx_tc.cu for
+// bfloat16, both on the tensor cores.)  The math is carried over, not the
+// s2d cell layout, superpatch weights or tap-table fold-back:
 //
 //   g'           = g * act'(y)   (from the saved OUTPUT: LeakyReLU 1 / alpha,
-//                                 ELU 1 / y + alpha, none 1; for bfloat16
-//                                 storage rounded as s2d.py:879-889 does)
+//                                 ELU 1 / y + alpha, none 1)
 //   dx[z,h,w,i]  = sum_{t,o} g'[z - tz + p, h - ty, w - tx, o] * k[t, i, o]
 //   dk[t, i, o]  = sum_{b,z,h,w} x[z + tz - p, h + ty, w + tx, i] * g'[.., o]
 //   db[o]        = sum g'[.., o]   (or db[z, o] per output plane for the
 //                                   z-SAME plane table)
-// over NDHWC tensors, p = z_pad (0 'v', 1 's'), out-of-range terms zero.
-// Every operand is float32 here, as the bfloat16 K2, K3 and K4 have
-// tensor-core sources of their own; g' and every sum are float32; dk and db
-// are float32 (s2d.py:943-944).
+// over NDHWC float32 tensors, p = z_pad (0 'v', 1 's'), out-of-range terms
+// zero; g' and every sum are float32; dk and db are float32
+// (s2d.py:943-944).
 //
-// Design (one templated tile kernel, three instantiations: K2, K3 and K4,
-// all float32):
+// Design (one tile kernel, two instantiations: K2 with dx, K4 without):
 //   * A block of 128 threads owns a tile of 4 rows x 32 columns of one depth
-//     plane of one sample, in INPUT coordinates for dx and OUTPUT
-//     coordinates for dW (the two tilings coincide).  Per channel tile of
+//     plane of one sample, in INPUT coordinates for K2 and OUTPUT
+//     coordinates for K4 (the two tilings coincide).  Per channel tile of
 //     16 it stages in shared memory, as float32 with a padded channel
 //     stride of 20 (conflict-free float4 reads):
 //       - the g' halo region, 3 planes x 6 x 34 voxels (dx needs every
 //         output voxel that reads the tile's inputs; dW needs the tile's own
-//         output plane, which is part of that region).  g' is formed here
-//         from g and y: no separate pass writes it;
-//       - for dW, the x region, 3 planes x 6 x 34 voxels (every input voxel
-//         that the tile's outputs read);
+//         output plane, which is part of that region; K4 stages that plane
+//         alone).  g' is formed here from g and y: no separate pass writes
+//         it;
+//       - the x region, 3 planes x 6 x 34 voxels (every input voxel that
+//         the tile's outputs read);
 //       - for dx, one kz plane of the weights (9 x 16 x 16).
 //     K2 stages g' once per channel-tile pair and uses it for both halves,
 //     the counterpart of _bwd_kernel sharing the cotangent DMA.
 //   * dx: one thread per input voxel with 16 input channels in registers,
-//     looping over the 27 taps and the output channels (as K1 does for the
-//     forward).
+//     looping over the 27 taps and the output channels.
 //   * dW: the 27 x C_in x C_out block is cut into micro-tiles of one tap x
 //     4 input x 4 output channels; each thread owns micro-tiles, sums one
 //     over the tile's 128 voxels in registers and adds it to the block's
@@ -53,18 +50,17 @@
 //     many as fit on the card) and walk the tiles in a fixed order; a second
 //     launch sums the per-block partials in block order.  No float atomics:
 //     dW is bit-identical from run to run on the same card.
-//   * db: each dW tile writes its per-channel sums of g'; a last launch sums
+//   * db: each tile writes its per-channel sums of g'; a last launch sums
 //     them in tile order (per output plane for the table).
 //
 // Which of K2 or K3 + K4 a layer takes is the caller's rule
-// (ops/conv3x3.py bwd_route); every instantiation here takes every shape.
+// (ops/conv3x3.py bwd_route); both instantiations take every shape.
 //
 // Bound on the H100: dx and dW are each 2 * 27 * C_in * C_out FLOPs per
 // output voxel at the float32 CUDA-core rate (67 TFLOP/s), since this
 // version does not use the tensor cores; the bytes (x, y, g read once, dx
 // written once) are far below that at the U-Net's widths.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -74,8 +70,6 @@ namespace {
 
 using stroke::cotangent;
 using stroke::Geo;
-using stroke::load1;
-using stroke::store1;
 
 constexpr int kTH = 4;                 // tile rows
 constexpr int kTW = 32;                // tile columns
@@ -92,10 +86,10 @@ Geo make_geo(int batch, int d_in, int h, int w, int c_in, int c_out,
                           kTH, kTW);
 }
 
-template <bool kDx, bool kDw>
+template <bool kDx>
 constexpr size_t smem_floats() {
   return (size_t)(kDx ? 3 : 1) * kPlane * kCS      // g' region
-         + (kDw ? (size_t)3 * kPlane * kCS : 0)    // x region
+         + (size_t)3 * kPlane * kCS                // x region
          + (kDx ? (size_t)9 * kCT * kCT : 0);      // one kz weight plane
 }
 
@@ -113,17 +107,20 @@ __device__ __forceinline__ void fma_row(float (&acc)[kCT], float gv,
   }
 }
 
-template <typename T, bool kDx, bool kDw>
+// kDx: K2 (dx and dW of an input-space tile) or K4 (dW of an output-space
+// tile).
+template <bool kDx>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ k,
-                        const T* __restrict__ y, const T* __restrict__ g,
-                        T* __restrict__ dx, float* __restrict__ part,
-                        float* __restrict__ dbp, Geo geo, int act,
-                        float alpha) {
+conv3x3_bwd_tile_kernel(const float* __restrict__ x,
+                        const float* __restrict__ k,
+                        const float* __restrict__ y,
+                        const float* __restrict__ g, float* __restrict__ dx,
+                        float* __restrict__ part, float* __restrict__ dbp,
+                        Geo geo, int act, float alpha) {
   extern __shared__ float4 smem4[];
   float* gs = reinterpret_cast<float*>(smem4);          // g' region
   float* xs = gs + (kDx ? 3 : 1) * kPlane * kCS;        // x region
-  float* ws = xs + (kDw ? 3 * kPlane * kCS : 0);        // weight plane
+  float* ws = xs + 3 * kPlane * kCS;                    // weight plane
   // the tile's own output plane inside the g' region
   float* gc = gs + (kDx ? 2 - geo.z_pad : 0) * kPlane * kCS;
 
@@ -132,11 +129,9 @@ conv3x3_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ k,
   const int c_in = geo.c_in, c_out = geo.c_out, p = geo.z_pad;
   const int n_cit = (c_in + kCT - 1) / kCT, n_cot = (c_out + kCT - 1) / kCT;
   const long long dw_size = 27LL * c_in * c_out;
-  float* my_part = part + (kDw ? blockIdx.x * dw_size : 0);
-  if (kDw) {
-    for (long long i = tid; i < dw_size; i += kThreads) my_part[i] = 0.f;
-    __syncthreads();  // zeros visible before the owners add to them
-  }
+  float* my_part = part + blockIdx.x * dw_size;
+  for (long long i = tid; i < dw_size; i += kThreads) my_part[i] = 0.f;
+  __syncthreads();  // zeros visible before the owners add to them
 
   for (long long tile = blockIdx.x; tile < geo.n_tiles; tile += gridDim.x) {
     long long r = tile;
@@ -173,13 +168,14 @@ conv3x3_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ k,
             const long long idx =
                 ((((long long)b * geo.d_out + oz) * geo.h_out + oh) *
                      geo.w_out + ow) * c_out + co0 + c;
-            v = cotangent<T>(load1(g + idx), load1(y + idx), act, alpha);
+            v = cotangent<float>(__ldg(g + idx), __ldg(y + idx), act,
+                                 alpha);
           }
           gs[vox * kCS + c] = v;
         }
         // x region: planes iz = z - p + rz, rows ih = h0 + rh, columns
         // iw = w0 + rw (once per input-channel tile)
-        if (kDw && cot == 0) {
+        if (cot == 0) {
           for (int e = tid; e < 3 * kPlane * kCT; e += kThreads) {
             const int c = e % kCT, vox = e / kCT;
             const int rw = vox % kRW, rh = (vox / kRW) % kRH;
@@ -188,7 +184,7 @@ conv3x3_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ k,
             float v = 0.f;
             if (c < ci_n && iz >= 0 && iz < geo.d_in && ih < geo.h &&
                 iw < geo.w) {
-              v = load1(x + ((((long long)b * geo.d_in + iz) * geo.h + ih) *
+              v = __ldg(x + ((((long long)b * geo.d_in + iz) * geo.h + ih) *
                                  geo.w + iw) * c_in + ci0 + c);
             }
             xs[vox * kCS + c] = v;
@@ -196,54 +192,52 @@ conv3x3_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ k,
         }
         __syncthreads();
 
-        if (kDw) {
-          // db: this tile's per-channel sums of g' (once per tile)
-          if (cit == 0 && tid < co_n) {
-            float s = 0.f;
-            for (int v = 0; v < kThreads; ++v) {
-              s += gc[((v / kTW + 2) * kRW + v % kTW + 2) * kCS + tid];
-            }
-            dbp[tile * c_out + co0 + tid] = s;
+        // db: this tile's per-channel sums of g' (once per tile)
+        if (cit == 0 && tid < co_n) {
+          float s = 0.f;
+          for (int v = 0; v < kThreads; ++v) {
+            s += gc[((v / kTW + 2) * kRW + v % kTW + 2) * kCS + tid];
           }
-          // dW micro-tiles: one tap x 4 input x 4 output channels
-          const int niq = (ci_n + 3) / 4, noq = (co_n + 3) / 4;
-          const int n_mt = 27 * niq * noq;
-          for (int mt = tid; mt < n_mt; mt += kThreads) {
-            const int oq = mt % noq, iq = (mt / noq) % niq;
-            const int t = mt / (noq * niq);
-            const int tz = t / 9, ty = (t / 3) % 3, tx = t % 3;
-            float a[4][4];
+          dbp[tile * c_out + co0 + tid] = s;
+        }
+        // dW micro-tiles: one tap x 4 input x 4 output channels
+        const int niq = (ci_n + 3) / 4, noq = (co_n + 3) / 4;
+        const int n_mt = 27 * niq * noq;
+        for (int mt = tid; mt < n_mt; mt += kThreads) {
+          const int oq = mt % noq, iq = (mt / noq) % niq;
+          const int t = mt / (noq * niq);
+          const int tz = t / 9, ty = (t / 3) % 3, tx = t % 3;
+          float a[4][4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-              for (int o = 0; o < 4; ++o) a[i][o] = 0.f;
-            const float* xb = xs + (tz * kRH + ty) * kRW * kCS + tx * kCS +
-                              4 * iq;
-            const float* gb = gc + (2 * kRW + 2) * kCS + 4 * oq;
-            for (int vy = 0; vy < kTH; ++vy) {
-              for (int vx = 0; vx < kTW; ++vx) {
-                const float4 xv = *reinterpret_cast<const float4*>(
-                    xb + (vy * kRW + vx) * kCS);
-                const float4 gv = *reinterpret_cast<const float4*>(
-                    gb + (vy * kRW + vx) * kCS);
-                const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-                const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+            for (int o = 0; o < 4; ++o) a[i][o] = 0.f;
+          const float* xb = xs + (tz * kRH + ty) * kRW * kCS + tx * kCS +
+                            4 * iq;
+          const float* gb = gc + (2 * kRW + 2) * kCS + 4 * oq;
+          for (int vy = 0; vy < kTH; ++vy) {
+            for (int vx = 0; vx < kTW; ++vx) {
+              const float4 xv = *reinterpret_cast<const float4*>(
+                  xb + (vy * kRW + vx) * kCS);
+              const float4 gv = *reinterpret_cast<const float4*>(
+                  gb + (vy * kRW + vx) * kCS);
+              const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+              const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
 #pragma unroll
-                for (int i = 0; i < 4; ++i)
+              for (int i = 0; i < 4; ++i)
 #pragma unroll
-                  for (int o = 0; o < 4; ++o)
-                    a[i][o] = fmaf(xa[i], ga[o], a[i][o]);
-              }
+                for (int o = 0; o < 4; ++o)
+                  a[i][o] = fmaf(xa[i], ga[o], a[i][o]);
             }
+          }
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int ci = ci0 + 4 * iq + i;
+          for (int i = 0; i < 4; ++i) {
+            const int ci = ci0 + 4 * iq + i;
 #pragma unroll
-              for (int o = 0; o < 4; ++o) {
-                const int co = co0 + 4 * oq + o;
-                if (ci < c_in && co < c_out) {
-                  my_part[((long long)t * c_in + ci) * c_out + co] += a[i][o];
-                }
+            for (int o = 0; o < 4; ++o) {
+              const int co = co0 + 4 * oq + o;
+              if (ci < c_in && co < c_out) {
+                my_part[((long long)t * c_in + ci) * c_out + co] += a[i][o];
               }
             }
           }
@@ -256,7 +250,7 @@ conv3x3_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ k,
             for (int e = tid; e < 9 * kCT * kCT; e += kThreads) {
               const int c = e % kCT, o = (e / kCT) % kCT, t9 = e / (kCT * kCT);
               ws[e] = (c < ci_n && o < co_n)
-                          ? load1(k + ((long long)(tz * 9 + t9) * c_in + ci0 +
+                          ? __ldg(k + ((long long)(tz * 9 + t9) * c_in + ci0 +
                                        c) * c_out + co0 + o)
                           : 0.f;
             }
@@ -284,11 +278,11 @@ conv3x3_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ k,
       if (kDx) {
         const int ih = h0 + ly, iw = w0 + lx;
         if (ih < geo.h && iw < geo.w) {
-          T* dp = dx + ((((long long)b * geo.d_in + z) * geo.h + ih) * geo.w +
-                        iw) * c_in + ci0;
+          float* dp = dx + ((((long long)b * geo.d_in + z) * geo.h + ih) *
+                                geo.w + iw) * c_in + ci0;
 #pragma unroll
           for (int c = 0; c < kCT; ++c) {
-            if (c < ci_n) store1(dp + c, acc[c]);
+            if (c < ci_n) dp[c] = acc[c];
           }
         }
       }
@@ -296,36 +290,23 @@ conv3x3_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ k,
   }
 }
 
-template <typename T, bool kDx, bool kDw>
-cudaError_t set_smem() {
-  return cudaFuncSetAttribute(conv3x3_bwd_tile_kernel<T, kDx, kDw>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)(sizeof(float) * smem_floats<kDx, kDw>()));
-}
-
-template <typename T, bool kDx, bool kDw>
-cudaError_t launch_tiles(const T* x, const T* k, const T* y, const T* g,
-                         T* dx, float* part, float* dbp, const Geo& geo,
-                         int act, float alpha, int n_blocks,
-                         cudaStream_t stream) {
-  cudaError_t err = set_smem<T, kDx, kDw>();
-  if (err != cudaSuccess) return err;
-  conv3x3_bwd_tile_kernel<T, kDx, kDw>
-      <<<n_blocks, kThreads, sizeof(float) * smem_floats<kDx, kDw>(),
-         stream>>>(x, k, y, g, dx, part, dbp, geo, act, alpha);
-  return cudaGetLastError();
-}
-
-template <typename T>
-int bwd_fused(const T* x, const T* k, const T* y, const T* g, T* dx,
-              float* dk, float* db, float* part, float* dbp, int batch,
-              int d_in, int h, int w, int c_in, int c_out, int z_pad,
-              int bias_table, int act, float alpha, int n_blocks,
-              void* stream) {
-  const Geo geo = make_geo(batch, d_in, h, w, c_in, c_out, z_pad, true);
+// Launches the tile kernel (K2 with kDx, K4 without) and the two
+// reductions that sum its dW and db partials.
+template <bool kDx>
+cudaError_t launch_pass(const float* x, const float* k, const float* y,
+                        const float* g, float* dx, float* dk, float* db,
+                        float* part, float* dbp, const Geo& geo,
+                        int bias_table, int act, float alpha, int n_blocks,
+                        void* stream) {
+  constexpr size_t smem = sizeof(float) * smem_floats<kDx>();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_tiles<T, true, true>(
-      x, k, y, g, dx, part, dbp, geo, act, alpha, n_blocks, s);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_bwd_tile_kernel<kDx>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  conv3x3_bwd_tile_kernel<kDx><<<n_blocks, kThreads, smem, s>>>(
+      x, k, y, g, dx, part, dbp, geo, act, alpha);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return stroke::launch_finalize(part, dbp, dk, db, geo, bias_table, n_blocks,
                                  s);
@@ -354,13 +335,13 @@ extern "C" int conv3x3_bwd_plan(int with_dx, int bf16, int batch, int d_in,
                            with_dx != 0);
   *n_tiles = geo.n_tiles;
   return with_dx ? stroke::persistent_blocks(
-                       conv3x3_bwd_tile_kernel<float, true, true>, kThreads,
-                       sizeof(float) * smem_floats<true, true>(),
-                       geo.n_tiles, n_blocks)
+                       conv3x3_bwd_tile_kernel<true>, kThreads,
+                       sizeof(float) * smem_floats<true>(), geo.n_tiles,
+                       n_blocks)
                  : stroke::persistent_blocks(
-                       conv3x3_bwd_tile_kernel<float, false, true>, kThreads,
-                       sizeof(float) * smem_floats<false, true>(),
-                       geo.n_tiles, n_blocks);
+                       conv3x3_bwd_tile_kernel<false>, kThreads,
+                       sizeof(float) * smem_floats<false>(), geo.n_tiles,
+                       n_blocks);
 }
 
 // Each entry point returns the first failing launch's cudaError_t (0 on
@@ -371,20 +352,9 @@ extern "C" int conv3x3_bwd_fused_f32(
     float* dk, float* db, float* part, float* dbp, int batch, int d_in, int h,
     int w, int c_in, int c_out, int z_pad, int bias_table, int act,
     float alpha, int n_blocks, void* stream) {
-  return bwd_fused<float>(x, k, y, g, dx, dk, db, part, dbp, batch, d_in, h,
-                          w, c_in, c_out, z_pad, bias_table, act, alpha,
-                          n_blocks, stream);
-}
-
-extern "C" int conv3x3_bwd_dx_f32(const float* k, const float* y,
-                                  const float* g, float* dx, int batch,
-                                  int d_in, int h, int w, int c_in, int c_out,
-                                  int z_pad, int act, float alpha,
-                                  void* stream) {
   const Geo geo = make_geo(batch, d_in, h, w, c_in, c_out, z_pad, true);
-  return launch_tiles<float, true, false>(
-      nullptr, k, y, g, dx, nullptr, nullptr, geo, act, alpha,
-      (int)geo.n_tiles, static_cast<cudaStream_t>(stream));
+  return launch_pass<true>(x, k, y, g, dx, dk, db, part, dbp, geo,
+                           bias_table, act, alpha, n_blocks, stream);
 }
 
 extern "C" int conv3x3_bwd_dw_f32(const float* x, const float* y,
@@ -394,10 +364,6 @@ extern "C" int conv3x3_bwd_dw_f32(const float* x, const float* y,
                                   int z_pad, int bias_table, int act,
                                   float alpha, int n_blocks, void* stream) {
   const Geo geo = make_geo(batch, d_in, h, w, c_in, c_out, z_pad, false);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_tiles<float, false, true>(
-      x, nullptr, y, g, nullptr, part, dbp, geo, act, alpha, n_blocks, s);
-  if (err != cudaSuccess) return err;
-  return stroke::launch_finalize(part, dbp, dk, db, geo, bias_table, n_blocks,
-                                 s);
+  return launch_pass<false>(x, nullptr, y, g, nullptr, dk, db, part, dbp,
+                            geo, bias_table, act, alpha, n_blocks, stream);
 }

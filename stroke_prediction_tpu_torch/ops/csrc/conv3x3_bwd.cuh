@@ -1,10 +1,12 @@
-// What the conv sources share (conv3x3_bwd.cu: float32 K2, K3 and K4 on
-// the CUDA cores; conv3x3_fwd_tc.cu, conv3x3_bwd_tc.cu, conv3x3_bwd_dx_tc.cu
-// and conv3x3_bwd_dw_tc.cu: bfloat16 K1, K2, K3 and K4 on the tensor
-// cores): the tile space over a volume, the persistent grid size, and the
-// two reductions that sum the blocks' (or chunks') dW partials and the
-// tiles' db partials in a fixed order (so dW and db are bit-identical from
-// run to run, with no float atomics).
+// What the conv sources share (conv3x3_bwd.cu: float32 K2 and K4 on the
+// CUDA cores; conv3x3_fwd_f32_tc.cu and conv3x3_bwd_dx_f32_tc.cu: float32
+// K1 and K3 on the tensor cores in 3xTF32; conv3x3_fwd_tc.cu,
+// conv3x3_bwd_tc.cu, conv3x3_bwd_dx_tc.cu and conv3x3_bwd_dw_tc.cu:
+// bfloat16 K1, K2, K3 and K4 on the tensor cores): the tile space over a
+// volume, the persistent grid size, and the two reductions that sum the
+// blocks' (or chunks') dW partials and the tiles' db partials in a fixed
+// order (so dW and db are bit-identical from run to run, with no float
+// atomics).
 
 #pragma once
 

@@ -1,6 +1,7 @@
 // bfloat16 input gradient of the 3x3x3 stride-1 convolution
 // y = act(conv3d(x, k) + b) on Hopper's tensor cores (kernel K3 of the port,
-// bfloat16 storage; the float32 K3 is conv3x3_bwd.cu's, on the CUDA cores).
+// bfloat16 storage; the float32 K3 is conv3x3_bwd_dx_f32_tc.cu's, in
+// 3xTF32).
 //
 // Replaces stroke_prediction_tpu/ops/pallas/s2d.py _dx_kernel (dx alone, the
 // split form of the backward that layers too wide for the fused K2 take):

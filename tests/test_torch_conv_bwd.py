@@ -5,7 +5,9 @@ conv, whose backward is the Pallas ``_bwd_kernel`` / ``_dx_kernel`` /
 
 Tolerance: max |diff| <= 1e-5 * max |ref| per tensor.  Both sides are
 float32 sums of the same terms in another order (dx over 27 * C_out terms,
-dW and db over the batch's voxels)."""
+dW and db over the batch's voxels).  The 3xTF32 arithmetic of the card's
+float32 dx (K3) is emulated here and held to the card's float32 limit (see
+its test)."""
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +26,9 @@ from stroke_prediction_tpu_torch.ops.conv3x3 import (
 torch.set_num_threads(1)
 
 REL = 1e-5
+# the card's float32 dx against its plain version (chip_smoke.py K1_TOL):
+# float32 sums of up to 27 * 96 terms in another order
+K1_TOL = dict(atol=1e-4, rtol=1e-4)
 ALPHA = {"none": 0.01, "leaky_relu": 0.01, "elu": 0.7}
 
 
@@ -163,6 +168,65 @@ def test_conv3x3_backward_bfloat16_split_widths_match_s2d_vjp(
         _check_bfloat16_backward(mode, act, bias_kind, ci, co, dx_floor=REL)
     finally:
         jax.clear_caches()
+
+
+def _tf32(a):
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest, ties away from zero, to a 10-bit mantissa (on the int32 view,
+    ``(i + 0x1000) & ~0x1FFF``)."""
+    i = np.ascontiguousarray(a, np.float32).view(np.int32)
+    return ((i + 0x1000) & ~0x1FFF).astype(np.int32).view(np.float32)
+
+
+@pytest.mark.parametrize("ci, co", [(96, 32), (32, 64), (48, 16), (64, 64)],
+                         ids=["96-32", "32-64", "48-16", "64-64"])
+def test_conv3x3_bwd_dx_3xtf32_split_matches_s2d_vjp(ci, co, monkeypatch):
+    """The arithmetic of the card's float32 K3
+    (``csrc/conv3x3_bwd_dx_f32_tc.cu``): g' = g * act'(y) formed in float32,
+    g' and k each split into big = tf32(v) and small = tf32(v - big), and
+    g' * k taken as small_g * big_k + big_g * small_k + big_g * big_k (the
+    products exact, summed in float64 here).  That dx holds to dx of
+    ``jax.vjp`` of the JAX package's float32 ``s2d_conv``, forced onto its
+    split ``_dx_kernel`` (interpret mode), within the card's float32 limit
+    ``K1_TOL``; one TF32 product (big_g * big_k) does not, so the limit
+    tells the two designs apart."""
+    assert bwd_route(ci, co) == "split"
+    rs = np.random.RandomState(19)
+    x = rs.uniform(-1.0, 1.0, (1, 5, 6, 6, ci)).astype(np.float32)
+    # k at the scale of dx's fan-in (27 * C_out), so that dx is of order
+    # one, where K1_TOL's atol is small against one TF32 product's error
+    bnd = 2.0 * (27 * co) ** -0.5
+    k = rs.uniform(-bnd, bnd, (3, 3, 3, ci, co)).astype(np.float32)
+    bias = rs.uniform(-0.1, 0.1, co).astype(np.float32)
+    g = rs.uniform(-1.0, 1.0, (1, 3, 4, 4, co)).astype(np.float32)
+    monkeypatch.setattr(s2d, "_BWD_FUSED_VMEM_BUDGET", 0)
+    jax.clear_caches()
+    try:
+        y, rdx, _, _ = _jax_grads(x, k, bias, g, "v", "leaky_relu")
+    finally:
+        jax.clear_caches()
+
+    gp = conv_mod._masked_cotangent(torch.from_numpy(g), torch.tensor(y),
+                                    "leaky_relu", 0.01).numpy()
+    g_big, k_big = _tf32(gp), _tf32(k)
+    g_small, k_small = _tf32(gp - g_big), _tf32(k - k_big)
+    for v, big, small in ((gp, g_big, g_small), (k, k_big, k_small)):
+        assert np.all(np.abs(v - big - small) <= 2.0 ** -22 * np.abs(v))
+
+    def dx(*pairs):
+        """The sum of the float64 input gradients of the (g', k) pairs
+        (act 'none': the first factor is g' itself, and y only sets the
+        type)."""
+        return sum(conv_mod.conv3x3_bwd_dx_plain(
+            torch.from_numpy(a).double(), torch.from_numpy(a).double(),
+            torch.from_numpy(b).double(), x.shape, "none")
+            for a, b in pairs).numpy()
+
+    three = dx((g_small, k_big), (g_big, k_small), (g_big, k_big))
+    one = dx((g_big, k_big))
+    assert three.shape == rdx.shape
+    np.testing.assert_allclose(three, rdx, **K1_TOL)
+    assert not np.allclose(one, rdx, **K1_TOL), np.abs(one - rdx).max()
 
 
 @pytest.mark.parametrize("mode, dtype", [
