@@ -19,22 +19,24 @@ non-zero without one.  Phases:
 3. kernel phase, training shapes: at the ten convs of one training step
    (batch 6, 68x104x104 patch), in float32 and in bfloat16, K1 (on the
    tensor cores: bfloat16, and float32 in 3xTF32) and the backward
-   kernels K2 (fused dx + dW;
-   bfloat16 on the tensor cores, at the layers its channel bound takes: L2,
-   L3, L10), K3 (dx; on the tensor cores, float32 in 3xTF32) and K4 (dW +
-   db; bfloat16 on the tensor cores)
+   kernels K2 (fused dx + dW; on the tensor cores, float32 in 3xTF32, at
+   the layers its channel bound takes: L1, L2, L3, L10), K3 (dx; on the
+   tensor cores, float32 in 3xTF32) and K4 (dW + db; bfloat16 on the
+   tensor cores)
    against their plain versions, each at every layer whichever route the
    step takes there, K2 and K4 twice for bit-identical dW and db and K3
-   twice for a bit-identical dx, the float32 K3 also against a float64
-   dgrad; K2 vs K3 + K4 per fused layer; K1 (both
-   types) vs cuDNN's forward at every layer, K3 (both types) vs cuDNN's
+   twice for a bit-identical dx, the float32 K2 and K3 also against a
+   float64 dgrad (and the float32 K2's dW and db against a float64
+   wgrad); K2 vs K3 + K4 per fused layer; K1 (both
+   types) vs cuDNN's forward at every layer, K2 (both types) vs cuDNN's
+   dgrad + wgrad per fused layer, K3 (both types) vs cuDNN's
    dgrad and the bfloat16 K4 vs cuDNN's wgrad per layer of their route,
    each with its TFLOP/s and tile efficiency; a small 's' + ELU +
    plane-table case and an odd-channel (3 -> 4) one, forward (K1) and
-   backward, and K1, K3 and K4 at a wide 192 -> 64 layer (the Unet3D class
-   default's L7), K3 there too twice and, in float32, against float64;
-   times as above, with cuDNN's forward and backward as the library
-   yardsticks;
+   backward (the float32 K2 and K3 against float64 there too), and K1,
+   K3 and K4 at a wide 192 -> 64 layer (the Unet3D class default's L7), K3
+   there too twice and, in float32, against float64; times as above,
+   with cuDNN's forward and backward as the library yardsticks;
 4. tester phase: the port's full-volume U-Net tester CLI on three
    synthetic 256x256x28 cases (resampled to 128x128x28, padded by 20 to
    68x168x168), channels 2 16 32 64 32 16 32 2 with seeded random weights
@@ -73,6 +75,7 @@ FOLD = (0, 1, 2)
 TRAIN_FOLD = tuple(range(8))         # 6 training + 2 validation cases
 TIMED_STEPS = 30                     # training steps timed back to back
 K1_TILE = (8, 16)                    # K1's tile (output plane), both types
+K2_TILE = (9, 16)                    # K2's tile (input plane), both types
 K3_TILE = (8, 16)                    # K3's tile (input plane), both types
 K4_TILE = (9, 16)                    # bfloat16 K4's tile (output plane)
 K1_TOL = dict(atol=1e-4, rtol=1e-4)  # sums of up to 27 * 96 terms, reordered
@@ -87,8 +90,8 @@ BF16_REL = 1e-2
 # one float32 step, card vs CPU
 STEP_LOSS_REL, STEP_GRAD_REL, STEP_STATS_ATOL = 1e-5, 1e-3, 1e-5
 
-# the float32 K1 and K3 vs a float64 conv / dgrad on the card, relative to
-# max|ref|
+# the float32 K1, K2 and K3 vs a float64 conv / dgrad on the card, relative
+# to max|ref|
 F64_REL = 1e-5
 
 # H100 SXM data-sheet peaks (dense): float32 outside the tensor cores, bf16
@@ -97,9 +100,9 @@ F64_REL = 1e-5
 # TFLOP/s TF32 rate), HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
-# the float32 kernels on the tensor cores in 3xTF32 (K2 and K4 run on the
-# CUDA cores)
-TF32X3_KERNELS = ("K1", "K3")
+# the float32 kernels on the tensor cores in 3xTF32 (K4 runs on the CUDA
+# cores)
+TF32X3_KERNELS = ("K1", "K2", "K3")
 
 # the replaced CUDA-core float32 K1 (conv3x3_fwd.cu) per tester layer, ms on
 # an NVIDIA H100 80GB HBM3 at 700 W, as PERF.md records it
@@ -336,13 +339,25 @@ def train_kernel_phase(torch):
         return note((name.split()[0] + " dW/db", str(dtype)[6:]), got, ref)
 
     def check_f64(name, dx, g, y, k, x_shape, act, alpha, mode):
-        """The float32 K3's dx vs a float64 dgrad on the card."""
+        """A float32 dx (K2, K3) vs a float64 dgrad on the card."""
         ref64 = conv3x3_bwd_dx_plain(g.double(), y.double(), k.double(),
                                      x_shape, act, alpha, mode)
         err = rel_err(dx.double(), ref64)
         if err > F64_REL:
             raise AssertionError(f"{name}: {err:.3e} of max|ref| off the "
                                  f"float64 dgrad")
+        return err
+
+    def check_f64_dw(name, dk, db, x, g, y, act, alpha, mode, table=False):
+        """The float32 K2's dW and db vs a float64 wgrad on the card, held
+        to the float32 dW limit."""
+        rdk64, rdb64 = conv3x3_bwd_dw_plain(x.double(), g.double(),
+                                            y.double(), act, alpha, mode,
+                                            table)
+        err = max(rel_err(dk.double(), rdk64), rel_err(db.double(), rdb64))
+        if err > DW_REL:
+            raise AssertionError(f"{name}: {err:.3e} of max|ref| off the "
+                                 f"float64 wgrad")
         return err
 
     shapes = unet_conv_shapes(PATCH_DHW, CHANNELS)
@@ -356,8 +371,8 @@ def train_kernel_phase(torch):
               f"bound):")
         for i, (d, h, w, ci, co) in enumerate(shapes, 1):
             route = bwd_route(ci, co, i > 1)
-            # the bfloat16 K2 takes only the channels its route allows
-            k2 = dtype == torch.float32 or bwd_route(ci, co) == "fused"
+            # K2 takes only the channels its route allows (both types)
+            k2 = bwd_route(ci, co) == "fused"
             x = uniform((TRAIN_BATCH, d, h, w, ci), -1.0, 1.0, dtype)
             bnd = (27 * ci) ** -0.5
             k = uniform((3, 3, 3, ci, co), -bnd, bnd, dtype)
@@ -394,6 +409,11 @@ def train_kernel_phase(torch):
             if dtype == torch.float32:
                 f64["K3"] = check_f64(f"K3 dx {tag}", dx3, g, y, k, x.shape,
                                       "leaky_relu", 0.01, "v")
+                if k2:
+                    f64["K2"] = check_f64(f"K2 dx {tag}", dx2, g, y, k,
+                                          x.shape, "leaky_relu", 0.01, "v")
+                    f64["K2 dW"] = check_f64_dw(f"K2 dk, db {tag}", dk2,
+                                                db2, x, *a, "v")
             if k2:
                 err["K2"] = max(check_out(f"K2 dx {tag}", dx2, rdx, dtype),
                                 check_sum(f"K2 dk {tag}", dk2, rdk, dtype),
@@ -464,7 +484,7 @@ def train_kernel_phase(torch):
             def vs_library(key, call, tile, plane):
                 """A kernel against cuDNN at this layer; its tile
                 efficiency is the real share of the tiled plane (K1 and K4
-                tile the output plane, K3 the input plane)."""
+                tile the output plane, K2 and K3 the input plane)."""
                 print(f"      L{i} {key} {ms[key]:.4f} ms vs cuDNN {call} "
                       f"{lib[key]:.4f} ms ({ms[key] / lib[key]:.2f}x); {key} "
                       f"at {ops[key] / ms[key] / 1e9:.1f} TFLOP/s; tile "
@@ -477,9 +497,8 @@ def train_kernel_phase(torch):
             if route == "fused":
                 split = ms["K3"] + ms["K4"]
                 print(f"      L{i} K2 {ms['K2']:.4f} ms vs K3 + K4 "
-                      f"{split:.4f} ms ({split / ms['K2']:.2f}x); cuDNN "
-                      f"dgrad + wgrad {lib['K2']:.4f} ms; K2 at "
-                      f"{ops['K2'] / ms['K2'] / 1e9:.1f} TFLOP/s")
+                      f"{split:.4f} ms ({split / ms['K2']:.2f}x)")
+                vs_library("K2", "dgrad + wgrad", K2_TILE, (h, w))
             if route == "split":
                 vs_library("K3", "dgrad", K3_TILE, (h, w))
             if route in ("dw", "split") and dtype == torch.bfloat16:
@@ -532,6 +551,10 @@ def train_kernel_phase(torch):
             if dtype == torch.float32:
                 s_err[f"K3 {case} float32 vs f64"] = check_f64(
                     f"K3 {case} dx", dx3, g, y, k, x.shape, act, alpha, mode)
+                s_err[f"K2 {case} float32 vs f64"] = check_f64(
+                    f"K2 {case} dx", dx2, g, y, k, x.shape, act, alpha, mode)
+                s_err[f"K2 {case} float32 dW, db vs f64"] = check_f64_dw(
+                    f"K2 {case} dk, db", dk2, db2, x, *a, table)
             s_err[f"{case} {dname}"] = max(
                 check_out(f"K1 {case} y", y, ry, dtype),
                 check_out(f"K2 {case} dx", dx2, rdx, dtype),
@@ -858,8 +881,8 @@ def profile_step(torch, learner):
              ("conv3x3_bwd_dw_tc_kernel", "K4 dW"),
              ("conv3x3_bwd_tc_kernel", "K2 fused"),
              ("conv3x3_bwd_dx_f32_tc_kernel", "K3 dx (float32)"),
-             ("bwd_tile_kernel<true>", "K2 fused (float32)"),
-             ("bwd_tile_kernel<false>", "K4 dW (float32)"),
+             ("conv3x3_bwd_f32_tc_kernel", "K2 fused (float32)"),
+             ("conv3x3_bwd_dw_f32_kernel", "K4 dW (float32)"),
              ("finalize", "K2/K4 dW, db reductions"),
              ("MeanOps", "BN moments (means)"), ("MaxOps", "max reductions"),
              ("multi_tensor_apply", "Adam (foreach)"),
@@ -1017,10 +1040,14 @@ def main():
             peak_key(key, dtype)]
         t_bytes = sum(r["bytes"][key] for r in rows) / PEAK_BYTES
         f64 = [r["f64"][key] for r in rows if key in r["f64"]]
+        f64_dw = [r["f64"][key + " dW"] for r in rows
+                  if key + " dW" in r["f64"]]
         return dict(
             {"max_rel_err_f64": max(f64)} if f64 else {},
+            **({"max_rel_err_f64_dw": max(f64_dw)} if f64_dw else {}),
             max_abs_err=max(r["err"][key] for r in rows),
-            max_abs_err_f32=max(r["err"][key] for r in train_k["float32"]),
+            max_abs_err_f32=max(r["err"][key] for r in train_k["float32"]
+                                if key in r["err"]),
             ms=sum(r["ms"][key] for r in rows),
             plain_ms=sum(r["plain"][key] for r in rows),
             library_ms=sum(r["lib"][key] for r in rows),
@@ -1032,7 +1059,7 @@ def main():
     for dtype in ("float32", "bfloat16"):
         print(f"per training step, {dtype}, summed over the layers each "
               f"kernel runs on (ms kernel / plain / cuDNN / bound; float32 "
-              f"K1 and K3 bound in 3xTF32): " +
+              f"K1, K2 and K3 bound in 3xTF32): " +
               "; ".join(f"{key} {v['ms']:.4f} / {v['plain_ms']:.4f} / "
                         f"{v['library_ms']:.4f} / {v['bound_ms']:.4f} "
                         f"({v['bound_by']}, {v['gflop']:.2f} GFLOP, "
@@ -1043,6 +1070,9 @@ def main():
     s2d = "stroke_prediction_tpu/ops/pallas/s2d.py:"
     step_per = (f"one training step (bfloat16, batch {TRAIN_BATCH}, patch "
                 f"68x104x104): the layers the route sends here")
+    f32_step_per = (f"one float32 training step (batch {TRAIN_BATCH}, patch "
+                    f"68x104x104): the layers the route sends here; "
+                    f"bound_ms in 3xTF32")
     kernels = [
         dict({"name": "conv3x3_fwd", "route": "cuda",
               "source": csrc + "conv3x3_fwd_tc.cu", "replaces": s2d + "387",
@@ -1061,17 +1091,14 @@ def main():
         dict({"name": "conv3x3_bwd_fused", "route": "cuda",
               "source": csrc + "conv3x3_bwd_tc.cu", "replaces": s2d + "491",
               "launches": launches["conv3x3_bwd_fused"]}, **per_step("K2"),
-             source_float32=csrc + "conv3x3_bwd.cu", per=step_per),
+             source_float32=csrc + "conv3x3_bwd_f32_tc.cu", per=step_per,
+             float32=dict(per_step("K2", "float32"), per=f32_step_per)),
         dict({"name": "conv3x3_bwd_dx", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dx_tc.cu",
               "replaces": s2d + "589",
               "launches": launches["conv3x3_bwd_dx"]}, **per_step("K3"),
              source_float32=csrc + "conv3x3_bwd_dx_f32_tc.cu", per=step_per,
-             float32=dict(per_step("K3", "float32"),
-                          per=f"one float32 training step (batch "
-                              f"{TRAIN_BATCH}, patch 68x104x104): the "
-                              f"layers the route sends here; bound_ms in "
-                              f"3xTF32")),
+             float32=dict(per_step("K3", "float32"), per=f32_step_per)),
         dict({"name": "conv3x3_bwd_dw", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dw_tc.cu",
               "replaces": s2d + "623",
@@ -1100,7 +1127,8 @@ def main():
     print(f"tester ms per case (card, after the first case): {case_ms:.2f}")
     print(f"training ms per step (card, bfloat16, mean of {TIMED_STEPS} "
           f"back to back, CUDA events): {step_ms:.3f}; card vs CPU float32 "
-          f"step {step}; 's', 3 -> 4 and 192 -> 64 cases max|err| {s_err}")
+          f"step {step}; 's', 3 -> 4 and 192 -> 64 cases max|err| (and the "
+          f"float32 K2 and K3 vs f64, of max|ref|) {s_err}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

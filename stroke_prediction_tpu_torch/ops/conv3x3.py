@@ -12,11 +12,13 @@ channels-last volumes, float32 or bfloat16 (float32 accumulation).
   float32 accuracy; ``csrc/conv3x3_fwd_tc.cu`` for bfloat16).
 * :func:`conv3x3_bwd_fused` (K2), :func:`conv3x3_bwd_dx` (K3),
   :func:`conv3x3_bwd_dw` (K4) — the backward wrappers.  The float32 K2 and
-  K4 are ``csrc/conv3x3_bwd.cu``, on the CUDA cores; the float32 K3 is
+  K3 are ``csrc/conv3x3_bwd_f32_tc.cu`` and
   ``csrc/conv3x3_bwd_dx_f32_tc.cu``, on the tensor cores in 3xTF32; the
-  bfloat16 K2, K3 and K4 are ``csrc/conv3x3_bwd_tc.cu``,
+  float32 K4 is ``csrc/conv3x3_bwd.cu``, on the CUDA cores; the bfloat16
+  K2, K3 and K4 are ``csrc/conv3x3_bwd_tc.cu``,
   ``csrc/conv3x3_bwd_dx_tc.cu`` and ``csrc/conv3x3_bwd_dw_tc.cu``, on the
-  tensor cores.
+  tensor cores.  On the card K2 takes only the channel counts that
+  :func:`bwd_route` sends to it, in both types.
 * :class:`Conv3x3Fn` — the autograd function: K1 forward; K2, or K3 + K4,
   backward (:func:`bwd_route`); K4 alone when the input needs no gradient
   (the entry conv on data, s2d.py ``input_grad=False``).
@@ -43,10 +45,10 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 # Route rule for the backward (the counterpart of _BWD_FUSED_VMEM_BUDGET,
 # s2d.py:676-681): the fused K2 pass when the layer's float32 dW block, with
-# channels padded to 16 as the bfloat16 K2 keeps it in registers,
+# channels padded to 16 as both K2 kernels keep it in registers,
 # 27 * C_in' * C_out' * 4 bytes, is at most 64 KB, else K3 + K4.  On the
 # U-Net at the reference width that fuses L2, L3 and L10.  The threshold
-# stands in for the TPU's VMEM budget and is the bfloat16 K2's bound; it is
+# stands in for the TPU's VMEM budget and is the K2 kernels' bound; it is
 # not set from H100 times.
 FUSED_DW_BYTES = 64 * 1024
 
@@ -392,9 +394,10 @@ def conv3x3_bwd_fused(x: torch.Tensor, g: torch.Tensor, y: torch.Tensor,
                       alpha: float = 0.01, mode: str = "v",
                       bias_table: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dx, dk, db) of :func:`conv3x3` in one pass (K2).  On the card,
-    bfloat16 takes only the channel counts that :func:`bwd_route` sends
-    here (the tensor-core kernel keeps the padded dW block in registers)."""
+    """(dx, dk, db) of :func:`conv3x3` in one pass (K2).  On the card, both
+    types take only the channel counts that :func:`bwd_route` sends here
+    (the tensor-core kernels keep the padded dW block in registers; float32
+    products in 3xTF32)."""
     _check_bwd(x.shape, g, y, act, mode, kernel=kernel, x=x)
     if not _on_card("conv3x3_bwd_fused", y.device):
         return conv3x3_bwd_fused_plain(x, g, y, kernel, act, alpha, mode,
@@ -403,9 +406,9 @@ def conv3x3_bwd_fused(x: torch.Tensor, g: torch.Tensor, y: torch.Tensor,
                        [("x", x), ("g", g), ("y", y), ("kernel", kernel)])
     b, d, h, w, ci = x.shape
     co = kernel.shape[-1]
-    if sfx == "bf16" and not _fused_fits(ci, co):
-        raise ValueError(f"conv3x3_bwd_fused: bfloat16 {ci} -> {co} channels "
-                         f"is outside the fused kernel's bound; bwd_route "
+    if not _fused_fits(ci, co):
+        raise ValueError(f"conv3x3_bwd_fused: {ci} -> {co} channels is "
+                         f"outside the fused kernel's bound; bwd_route "
                          f"sends it to K3 + K4")
     dx = torch.empty_like(x)
     dk, db, part, dbp, n_blocks = _dw_buffers(True, sfx, x.shape, co, mode,

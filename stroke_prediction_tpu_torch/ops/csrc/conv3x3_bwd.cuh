@@ -1,12 +1,12 @@
-// What the conv sources share (conv3x3_bwd.cu: float32 K2 and K4 on the
-// CUDA cores; conv3x3_fwd_f32_tc.cu and conv3x3_bwd_dx_f32_tc.cu: float32
-// K1 and K3 on the tensor cores in 3xTF32; conv3x3_fwd_tc.cu,
-// conv3x3_bwd_tc.cu, conv3x3_bwd_dx_tc.cu and conv3x3_bwd_dw_tc.cu:
-// bfloat16 K1, K2, K3 and K4 on the tensor cores): the tile space over a
-// volume, the persistent grid size, and the two reductions that sum the
-// blocks' (or chunks') dW partials and the tiles' db partials in a fixed
-// order (so dW and db are bit-identical from run to run, with no float
-// atomics).
+// What the conv sources share (conv3x3_bwd.cu: float32 K4 on the CUDA
+// cores; conv3x3_fwd_f32_tc.cu, conv3x3_bwd_f32_tc.cu and
+// conv3x3_bwd_dx_f32_tc.cu: float32 K1, K2 and K3 on the tensor cores in
+// 3xTF32; conv3x3_fwd_tc.cu, conv3x3_bwd_tc.cu, conv3x3_bwd_dx_tc.cu and
+// conv3x3_bwd_dw_tc.cu: bfloat16 K1, K2, K3 and K4 on the tensor cores):
+// the tile space over a volume, the persistent grid size, the channel
+// domain of the fused K2, and the two reductions that sum the blocks' (or
+// chunks') dW partials and the tiles' db partials in a fixed order (so dW
+// and db are bit-identical from run to run, with no float atomics).
 
 #pragma once
 
@@ -122,12 +122,26 @@ cudaError_t persistent_blocks(Kernel kernel, int threads, size_t smem,
 
 }  // namespace
 
-// The bfloat16 fused pass of conv3x3_bwd_tc.cu: its tile count and grid
-// for channel counts its bound takes (returns cudaErrorInvalidValue for
-// others).
+// The fused K2's domain (ops/conv3x3.py bwd_route): 0 for (16, 16), 1 for
+// (16, 32), 2 for (32, 16) channels after padding to 16; -1 outside it.
+inline int fused_config(int c_in, int c_out) {
+  const int ci = (c_in + 15) / 16 * 16, co = (c_out + 15) / 16 * 16;
+  if (c_in < 1 || c_out < 1) return -1;
+  if (ci == 16 && co == 16) return 0;
+  if (ci == 16 && co == 32) return 1;
+  if (ci == 32 && co == 16) return 2;
+  return -1;
+}
+
+// The fused passes of conv3x3_bwd_tc.cu (bfloat16) and
+// conv3x3_bwd_f32_tc.cu (float32): the tile count and grid for channel
+// counts in the domain above (cudaErrorInvalidValue for others).
 int conv3x3_bwd_tc_plan(int batch, int d_in, int h, int w, int c_in,
                         int c_out, int z_pad, long long* n_tiles,
                         int* n_blocks);
+int conv3x3_bwd_f32_tc_plan(int batch, int d_in, int h, int w, int c_in,
+                            int c_out, int z_pad, long long* n_tiles,
+                            int* n_blocks);
 
 // The bfloat16 dW-only pass of conv3x3_bwd_dw_tc.cu: its tile count and
 // its number of tile chunks (rows of dW partials), for any C_in, C_out >= 1.

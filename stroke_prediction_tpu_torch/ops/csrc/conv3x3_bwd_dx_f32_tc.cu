@@ -95,7 +95,7 @@ using stroke::cp_async_wait_all;
 using stroke::Geo;
 using stroke::ldsm_x4;
 using stroke::mma_tf32;
-using stroke::split_tf32;
+using stroke::split4;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -127,23 +127,6 @@ struct Slot {
 template <int NI>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * (size_t)Slot<NI>::kFloats + Slot<NI>::kW);
-}
-
-// v split in place into its big halves, the small halves into s.
-__device__ __forceinline__ void split4(float4& v, float4& s) {
-  unsigned hi, lo;
-  split_tf32(v.x, hi, lo);
-  v.x = __uint_as_float(hi);
-  s.x = __uint_as_float(lo);
-  split_tf32(v.y, hi, lo);
-  v.y = __uint_as_float(hi);
-  s.y = __uint_as_float(lo);
-  split_tf32(v.z, hi, lo);
-  v.z = __uint_as_float(hi);
-  s.z = __uint_as_float(lo);
-  split_tf32(v.w, hi, lo);
-  v.w = __uint_as_float(hi);
-  s.w = __uint_as_float(lo);
 }
 
 // NI: 16-channel groups of the N slice (C_in) per work item.

@@ -1,6 +1,6 @@
 // bfloat16 fused backward of the 3x3x3 stride-1 convolution
 // y = act(conv3d(x, k) + b) on Hopper's tensor cores (kernel K2 of the port,
-// bfloat16 storage; the float32 K2 is conv3x3_bwd.cu's, on the CUDA cores).
+// bfloat16 storage; the float32 K2 is conv3x3_bwd_f32_tc.cu's, in 3xTF32).
 //
 // Replaces stroke_prediction_tpu/ops/pallas/s2d.py _bwd_kernel (dx + dW in
 // one pass over the cotangent) and the db reduction of _s2d_conv_bwd:
@@ -389,17 +389,6 @@ struct Config {
   }
 };
 
-// 0: (16, 16), 1: (16, 32), 2: (32, 16) channels after padding to 16;
-// -1 outside the bound.
-int config_of(int c_in, int c_out) {
-  const int ci = (c_in + 15) / 16 * 16, co = (c_out + 15) / 16 * 16;
-  if (c_in < 1 || c_out < 1) return -1;
-  if (ci == 16 && co == 16) return 0;
-  if (ci == 16 && co == 32) return 1;
-  if (ci == 32 && co == 16) return 2;
-  return -1;
-}
-
 bool aligned(const void* p, uintptr_t n) {
   return reinterpret_cast<uintptr_t>(p) % n == 0;
 }
@@ -414,7 +403,7 @@ int conv3x3_bwd_tc_plan(int batch, int d_in, int h, int w, int c_in,
   const Geo geo =
       make_geo(batch, d_in, h, w, c_in, c_out, z_pad, true, kTH, kTW);
   *n_tiles = geo.n_tiles;
-  switch (config_of(c_in, c_out)) {
+  switch (fused_config(c_in, c_out)) {
     case 0: return Config<16, 16>::blocks(geo.n_tiles, n_blocks);
     case 1: return Config<16, 32>::blocks(geo.n_tiles, n_blocks);
     case 2: return Config<32, 16>::blocks(geo.n_tiles, n_blocks);
@@ -441,7 +430,7 @@ extern "C" int conv3x3_bwd_fused_bf16(
                          ? kVecG : 0) |
                     (c_in % 2 == 0 && aligned(dx, 4) ? kVecDx : 0);
   cudaError_t err;
-  switch (config_of(c_in, c_out)) {
+  switch (stroke::fused_config(c_in, c_out)) {
     case 0:
       err = Config<16, 16>::launch(x, k, y, g, dx, part, dbp, geo, act,
                                    alpha, flags, n_blocks, s);

@@ -1,10 +1,11 @@
 // PTX helpers of the tensor-core kernels (bfloat16: conv3x3_fwd_tc.cu K1,
 // conv3x3_bwd_tc.cu K2, conv3x3_bwd_dx_tc.cu K3, conv3x3_bwd_dw_tc.cu K4;
-// float32: conv3x3_fwd_f32_tc.cu K1, conv3x3_bwd_dx_f32_tc.cu K3):
-// ldmatrix fragment loads from shared memory, the mma.sync.m16n8k16 bf16
-// product with float32 sums, the mma.sync.m16n8k8 tf32 product and the
-// big / small split of a float32 value into two tf32 values (3xTF32),
-// cp.async copies, and g' formed from packed bfloat16 pairs while staging.
+// float32: conv3x3_fwd_f32_tc.cu K1, conv3x3_bwd_f32_tc.cu K2,
+// conv3x3_bwd_dx_f32_tc.cu K3): ldmatrix fragment loads from shared
+// memory, the mma.sync.m16n8k16 bf16 product with float32 sums, the
+// mma.sync.m16n8k8 tf32 product and the big / small split of a float32
+// value into two tf32 values (3xTF32), cp.async copies, and g' formed from
+// packed bfloat16 pairs while staging.
 
 #pragma once
 
@@ -65,6 +66,24 @@ __device__ __forceinline__ void split_tf32(float v, unsigned& big,
                                            unsigned& small) {
   big = tf32_rna(v);
   small = tf32_rna(v - __uint_as_float(big));
+}
+
+// The split of four floats: v in place into its big halves, the small
+// halves into s.
+__device__ __forceinline__ void split4(float4& v, float4& s) {
+  unsigned hi, lo;
+  split_tf32(v.x, hi, lo);
+  v.x = __uint_as_float(hi);
+  s.x = __uint_as_float(lo);
+  split_tf32(v.y, hi, lo);
+  v.y = __uint_as_float(hi);
+  s.y = __uint_as_float(lo);
+  split_tf32(v.z, hi, lo);
+  v.z = __uint_as_float(hi);
+  s.z = __uint_as_float(lo);
+  split_tf32(v.w, hi, lo);
+  v.w = __uint_as_float(hi);
+  s.w = __uint_as_float(lo);
 }
 
 // d += a * b for one 16x8x8 product: a row-major 16x8, b column-major 8x8

@@ -6,8 +6,8 @@ conv, whose backward is the Pallas ``_bwd_kernel`` / ``_dx_kernel`` /
 Tolerance: max |diff| <= 1e-5 * max |ref| per tensor.  Both sides are
 float32 sums of the same terms in another order (dx over 27 * C_out terms,
 dW and db over the batch's voxels).  The 3xTF32 arithmetic of the card's
-float32 dx (K3) is emulated here and held to the card's float32 limit (see
-its test)."""
+float32 dx (K3) and fused backward (K2) is emulated here and held to the
+card's float32 limits (see their tests)."""
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +29,9 @@ REL = 1e-5
 # the card's float32 dx against its plain version (chip_smoke.py K1_TOL):
 # float32 sums of up to 27 * 96 terms in another order
 K1_TOL = dict(atol=1e-4, rtol=1e-4)
+# the card's float32 dW and db against their plain version (chip_smoke.py
+# DW_REL): float32 sums over the batch's voxels, relative to max|ref|
+DW_REL = 1e-4
 ALPHA = {"none": 0.01, "leaky_relu": 0.01, "elu": 0.7}
 
 
@@ -227,6 +230,82 @@ def test_conv3x3_bwd_dx_3xtf32_split_matches_s2d_vjp(ci, co, monkeypatch):
     assert three.shape == rdx.shape
     np.testing.assert_allclose(three, rdx, **K1_TOL)
     assert not np.allclose(one, rdx, **K1_TOL), np.abs(one - rdx).max()
+
+
+@pytest.mark.parametrize("ci, co, mode, act, bias_kind", [
+    (16, 16, "v", "leaky_relu", "vector"),       # L2's and L10's widths
+    (16, 32, "v", "leaky_relu", "vector"),       # L3's
+    (32, 16, "v", "leaky_relu", "vector"),
+    (8, 16, "s", "elu", "plane_table")],
+    ids=["16-16", "16-32", "32-16", "8-16-s"])
+def test_conv3x3_bwd_fused_3xtf32_matches_s2d_vjp(ci, co, mode, act,
+                                                  bias_kind):
+    """The arithmetic of the card's float32 K2
+    (``csrc/conv3x3_bwd_f32_tc.cu``): g' = g * act'(y) formed in float32;
+    g', k and x each split into big = tf32(v) and small = tf32(v - big);
+    dx as g' * k and dk as x * g', each product taken as small_a * big_b +
+    big_a * small_b + big_a * big_b (the products exact, summed in float64
+    here); db the sum of big + small of g' (the CUDA cores' sum, no
+    product).  That holds to ``jax.vjp`` of the JAX package's float32
+    ``s2d_conv``, whose default budget runs the fused ``_bwd_kernel`` at
+    these widths (interpret mode): dx within the card's float32 limit
+    ``K1_TOL``, dk and db within ``DW_REL`` of max|ref|.  One TF32 product
+    (big_a * big_b) fails both limits at every case (dx by 2-4e-4 past
+    ``K1_TOL``, dk 2.6-3.3e-4 of max|ref|), so they tell the two designs
+    apart; db has no product, so no such contrast."""
+    assert bwd_route(ci, co) == "fused"
+    table = bias_kind == "plane_table"
+    rs = np.random.RandomState(23)
+    x = rs.uniform(-1.0, 1.0, (1, 5, 6, 6, ci)).astype(np.float32)
+    # k at the scale of dx's fan-in, so that dx is of order one (as in the
+    # K3 test)
+    bnd = 2.0 * (27 * co) ** -0.5
+    k = rs.uniform(-bnd, bnd, (3, 3, 3, ci, co)).astype(np.float32)
+    bias = rs.uniform(-0.1, 0.1, co).astype(np.float32)
+    d_out = 5 if mode == "s" else 3
+    if table:
+        scale = rs.uniform(0.5, 1.5, ci).astype(np.float32)
+        shift = rs.uniform(-0.5, 0.5, ci).astype(np.float32)
+        k, bias = (np.array(a) for a in jax_fold_bn_zsame(
+            jnp.asarray(k), jnp.asarray(bias), jnp.asarray(scale),
+            jnp.asarray(shift), d_out))
+    g = rs.uniform(-1.0, 1.0, (1, d_out, 4, 4, co)).astype(np.float32)
+    y, rdx, rdk, rdb = _jax_grads(x, k, bias, g, mode, act)
+
+    gp = conv_mod._masked_cotangent(torch.from_numpy(g), torch.tensor(y),
+                                    act, ALPHA[act]).numpy()
+    (g_big, g_small), (k_big, k_small), (x_big, x_small) = (
+        (_tf32(v), _tf32(v - _tf32(v))) for v in (gp, k, x))
+
+    def t64(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).double()
+
+    def dx(*pairs):
+        """The sum of the float64 input gradients of the (g', k) pairs
+        (act 'none': the first factor is g' itself)."""
+        return sum(conv_mod.conv3x3_bwd_dx_plain(
+            t64(a), t64(a), t64(b), x.shape, "none", mode=mode)
+            for a, b in pairs).numpy()
+
+    def dk(*pairs):
+        """The sum of the float64 kernel gradients of the (x, g') pairs."""
+        return sum(conv_mod.conv3x3_bwd_dw_plain(
+            t64(a), t64(b), t64(b), "none", mode=mode, bias_table=table)[0]
+            for a, b in pairs).numpy()
+
+    gsum = t64(g_big) + t64(g_small)
+    db = (gsum.sum(dim=(0, 2, 3)) if table
+          else gsum.sum(dim=(0, 1, 2, 3))).numpy()
+    three_dx = dx((g_small, k_big), (g_big, k_small), (g_big, k_big))
+    three_dk = dk((x_small, g_big), (x_big, g_small), (x_big, g_big))
+    assert three_dx.shape == rdx.shape and three_dk.shape == rdk.shape
+    assert db.shape == rdb.shape
+    np.testing.assert_allclose(three_dx, rdx, **K1_TOL)
+    for got, ref in ((three_dk, rdk), (db, rdb)):
+        assert np.abs(got - ref).max() <= DW_REL * np.abs(ref).max()
+    one_dx, one_dk = dx((g_big, k_big)), dk((x_big, g_big))
+    assert not np.allclose(one_dx, rdx, **K1_TOL), np.abs(one_dx - rdx).max()
+    assert np.abs(one_dk - rdk).max() > DW_REL * np.abs(rdk).max()
 
 
 @pytest.mark.parametrize("mode, dtype", [
