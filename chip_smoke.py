@@ -20,23 +20,24 @@ non-zero without one.  Phases:
    (batch 6, 68x104x104 patch), in float32 and in bfloat16, K1 (on the
    tensor cores: bfloat16, and float32 in 3xTF32) and the backward
    kernels K2 (fused dx + dW; on the tensor cores, float32 in 3xTF32, at
-   the layers its channel bound takes: L1, L2, L3, L10), K3 (dx; on the
-   tensor cores, float32 in 3xTF32) and K4 (dW + db; bfloat16 on the
-   tensor cores)
+   the layers its channel bound takes: L1, L2, L3, L10), K3 (dx) and K4
+   (dW + db), both on the tensor cores, float32 in 3xTF32,
    against their plain versions, each at every layer whichever route the
    step takes there, K2 and K4 twice for bit-identical dW and db and K3
    twice for a bit-identical dx, the float32 K2 and K3 also against a
-   float64 dgrad (and the float32 K2's dW and db against a float64
-   wgrad); K2 vs K3 + K4 per fused layer; K1 (both
+   float64 dgrad (and the float32 K2's dW and db, and the float32 K4's at
+   the layers of its route, L1 and L4-L9, against a float64 wgrad); K2
+   vs K3 + K4 per fused layer; K1 (both
    types) vs cuDNN's forward at every layer, K2 (both types) vs cuDNN's
    dgrad + wgrad per fused layer, K3 (both types) vs cuDNN's
-   dgrad and the bfloat16 K4 vs cuDNN's wgrad per layer of their route,
+   dgrad and K4 (both types) vs cuDNN's wgrad per layer of their route,
    each with its TFLOP/s and tile efficiency; a small 's' + ELU +
    plane-table case and an odd-channel (3 -> 4) one, forward (K1) and
-   backward (the float32 K2 and K3 against float64 there too), and K1,
-   K3 and K4 at a wide 192 -> 64 layer (the Unet3D class default's L7), K3
-   there too twice and, in float32, against float64; times as above,
-   with cuDNN's forward and backward as the library yardsticks;
+   backward (the float32 K2, K3 and K4 against float64 there too), and
+   K1, K3 and K4 at a wide 192 -> 64 layer (the Unet3D class default's
+   L7), K3 there too twice and, in float32, K3 and K4 against float64;
+   times as above, with cuDNN's forward and backward as the library
+   yardsticks;
 4. tester phase: the port's full-volume U-Net tester CLI on three
    synthetic 256x256x28 cases (resampled to 128x128x28, padded by 20 to
    68x168x168), channels 2 16 32 64 32 16 32 2 with seeded random weights
@@ -77,7 +78,7 @@ TIMED_STEPS = 30                     # training steps timed back to back
 K1_TILE = (8, 16)                    # K1's tile (output plane), both types
 K2_TILE = (9, 16)                    # K2's tile (input plane), both types
 K3_TILE = (8, 16)                    # K3's tile (input plane), both types
-K4_TILE = (9, 16)                    # bfloat16 K4's tile (output plane)
+K4_TILE = (9, 16)                    # K4's tile (output plane), both types
 K1_TOL = dict(atol=1e-4, rtol=1e-4)  # sums of up to 27 * 96 terms, reordered
 SLICE_ATOL = 1e-4                    # card vs CPU probabilities
 # backward vs plain: float32 dx as K1; float32 dW / db sum up to 6 * 64 *
@@ -100,9 +101,8 @@ F64_REL = 1e-5
 # TFLOP/s TF32 rate), HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
-# the float32 kernels on the tensor cores in 3xTF32 (K4 runs on the CUDA
-# cores)
-TF32X3_KERNELS = ("K1", "K2", "K3")
+# the float32 kernels on the tensor cores in 3xTF32
+TF32X3_KERNELS = ("K1", "K2", "K3", "K4")
 
 # the replaced CUDA-core float32 K1 (conv3x3_fwd.cu) per tester layer, ms on
 # an NVIDIA H100 80GB HBM3 at 700 W, as PERF.md records it
@@ -349,8 +349,8 @@ def train_kernel_phase(torch):
         return err
 
     def check_f64_dw(name, dk, db, x, g, y, act, alpha, mode, table=False):
-        """The float32 K2's dW and db vs a float64 wgrad on the card, held
-        to the float32 dW limit."""
+        """A float32 dW and db (K2, K4) vs a float64 wgrad on the card,
+        held to the float32 dW limit."""
         rdk64, rdb64 = conv3x3_bwd_dw_plain(x.double(), g.double(),
                                             y.double(), act, alpha, mode,
                                             table)
@@ -414,6 +414,9 @@ def train_kernel_phase(torch):
                                           x.shape, "leaky_relu", 0.01, "v")
                     f64["K2 dW"] = check_f64_dw(f"K2 dk, db {tag}", dk2,
                                                 db2, x, *a, "v")
+                if route in ("dw", "split"):
+                    f64["K4 dW"] = check_f64_dw(f"K4 dk, db {tag}", dk4,
+                                                db4, x, *a, "v")
             if k2:
                 err["K2"] = max(check_out(f"K2 dx {tag}", dx2, rdx, dtype),
                                 check_sum(f"K2 dk {tag}", dk2, rdk, dtype),
@@ -501,7 +504,7 @@ def train_kernel_phase(torch):
                 vs_library("K2", "dgrad + wgrad", K2_TILE, (h, w))
             if route == "split":
                 vs_library("K3", "dgrad", K3_TILE, (h, w))
-            if route in ("dw", "split") and dtype == torch.bfloat16:
+            if route in ("dw", "split"):
                 vs_library("K4", "wgrad", K4_TILE, (h - 2, w - 2))
             del x, k, b, y, g, gp, x_l, g_l, w_l
         results[dname] = rows
@@ -555,6 +558,8 @@ def train_kernel_phase(torch):
                     f"K2 {case} dx", dx2, g, y, k, x.shape, act, alpha, mode)
                 s_err[f"K2 {case} float32 dW, db vs f64"] = check_f64_dw(
                     f"K2 {case} dk, db", dk2, db2, x, *a, table)
+                s_err[f"K4 {case} float32 dW, db vs f64"] = check_f64_dw(
+                    f"K4 {case} dk, db", dk4, db4, x, *a, table)
             s_err[f"{case} {dname}"] = max(
                 check_out(f"K1 {case} y", y, ry, dtype),
                 check_out(f"K2 {case} dx", dx2, rdx, dtype),
@@ -569,7 +574,8 @@ def train_kernel_phase(torch):
     # K1, K3 and K4 at a wide layer: the Unet3D class default (2, 32, 64,
     # 128, 64, 32, 32, 2) has a 192 -> 64 conv (L7), which the bfloat16 K1
     # takes as 12 chunks of 16 input channels, K3 as two N slices of 96
-    # input channels and K4 as 12 x 2 slice pairs
+    # input channels and K4 as 12 x 4 slice pairs (12 x 2 of 16 x 32
+    # channels in float32)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         shape, co = (2, 10, 20, 22, 192), 64
@@ -597,6 +603,8 @@ def train_kernel_phase(torch):
             s_err["K3 192 -> 64 float32 vs f64"] = check_f64(
                 "K3 192->64 dx", dx3, g, y, k, shape, "leaky_relu", 0.01,
                 "v")
+            s_err["K4 192 -> 64 float32 dW, db vs f64"] = check_f64_dw(
+                "K4 192->64 dk, db", dk4, db4, x, *a, "v")
         s_err[f"K1 192 -> 64 {dname}"] = check_out(
             f"K1 192->64 y {dname}", y, ry, dtype)
         s_err[f"K3 192 -> 64 {dname}"] = check_out(
@@ -882,7 +890,7 @@ def profile_step(torch, learner):
              ("conv3x3_bwd_tc_kernel", "K2 fused"),
              ("conv3x3_bwd_dx_f32_tc_kernel", "K3 dx (float32)"),
              ("conv3x3_bwd_f32_tc_kernel", "K2 fused (float32)"),
-             ("conv3x3_bwd_dw_f32_kernel", "K4 dW (float32)"),
+             ("conv3x3_bwd_dw_f32_tc_kernel", "K4 dW (float32)"),
              ("finalize", "K2/K4 dW, db reductions"),
              ("MeanOps", "BN moments (means)"), ("MaxOps", "max reductions"),
              ("multi_tensor_apply", "Adam (foreach)"),
@@ -1059,7 +1067,7 @@ def main():
     for dtype in ("float32", "bfloat16"):
         print(f"per training step, {dtype}, summed over the layers each "
               f"kernel runs on (ms kernel / plain / cuDNN / bound; float32 "
-              f"K1, K2 and K3 bound in 3xTF32): " +
+              f"K1-K4 bound in 3xTF32): " +
               "; ".join(f"{key} {v['ms']:.4f} / {v['plain_ms']:.4f} / "
                         f"{v['library_ms']:.4f} / {v['bound_ms']:.4f} "
                         f"({v['bound_by']}, {v['gflop']:.2f} GFLOP, "
@@ -1103,7 +1111,8 @@ def main():
               "source": csrc + "conv3x3_bwd_dw_tc.cu",
               "replaces": s2d + "623",
               "launches": launches["conv3x3_bwd_dw"]}, **per_step("K4"),
-             source_float32=csrc + "conv3x3_bwd.cu", per=step_per),
+             source_float32=csrc + "conv3x3_bwd_dw_f32_tc.cu", per=step_per,
+             float32=dict(per_step("K4", "float32"), per=f32_step_per)),
         {"name": "edt_parabola", "route": "cuda",
          "source": csrc + "edt_parabola.cu",
          "replaces": "stroke_prediction_tpu/ops/edt.py:80",
@@ -1128,7 +1137,7 @@ def main():
     print(f"training ms per step (card, bfloat16, mean of {TIMED_STEPS} "
           f"back to back, CUDA events): {step_ms:.3f}; card vs CPU float32 "
           f"step {step}; 's', 3 -> 4 and 192 -> 64 cases max|err| (and the "
-          f"float32 K2 and K3 vs f64, of max|ref|) {s_err}")
+          f"float32 K2, K3 and K4 vs f64, of max|ref|) {s_err}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,14 +11,13 @@ channels-last volumes, float32 or bfloat16 (float32 accumulation).
   ``csrc/conv3x3_fwd_f32_tc.cu`` for float32, in 3xTF32, which keeps
   float32 accuracy; ``csrc/conv3x3_fwd_tc.cu`` for bfloat16).
 * :func:`conv3x3_bwd_fused` (K2), :func:`conv3x3_bwd_dx` (K3),
-  :func:`conv3x3_bwd_dw` (K4) — the backward wrappers.  The float32 K2 and
-  K3 are ``csrc/conv3x3_bwd_f32_tc.cu`` and
-  ``csrc/conv3x3_bwd_dx_f32_tc.cu``, on the tensor cores in 3xTF32; the
-  float32 K4 is ``csrc/conv3x3_bwd.cu``, on the CUDA cores; the bfloat16
-  K2, K3 and K4 are ``csrc/conv3x3_bwd_tc.cu``,
-  ``csrc/conv3x3_bwd_dx_tc.cu`` and ``csrc/conv3x3_bwd_dw_tc.cu``, on the
-  tensor cores.  On the card K2 takes only the channel counts that
-  :func:`bwd_route` sends to it, in both types.
+  :func:`conv3x3_bwd_dw` (K4) — the backward wrappers, all on the tensor
+  cores.  The float32 K2, K3 and K4 are ``csrc/conv3x3_bwd_f32_tc.cu``,
+  ``csrc/conv3x3_bwd_dx_f32_tc.cu`` and ``csrc/conv3x3_bwd_dw_f32_tc.cu``,
+  in 3xTF32; the bfloat16 K2, K3 and K4 are ``csrc/conv3x3_bwd_tc.cu``,
+  ``csrc/conv3x3_bwd_dx_tc.cu`` and ``csrc/conv3x3_bwd_dw_tc.cu``.  On the
+  card K2 takes only the channel counts that :func:`bwd_route` sends to
+  it, in both types.
 * :class:`Conv3x3Fn` — the autograd function: K1 forward; K2, or K3 + K4,
   backward (:func:`bwd_route`); K4 alone when the input needs no gradient
   (the entry conv on data, s2d.py ``input_grad=False``).
@@ -309,8 +308,8 @@ def _check_bwd(x_shape, g, y, act, mode, kernel=None, x=None):
 def _plan(with_dx: bool, sfx: str, x_shape, co: int,
           mode: str) -> Tuple[int, int]:
     """(n_tiles, n_part) of a fused or dW-only pass on this card: its db
-    partial rows and its dW partial rows (one per persistent block, or per
-    chunk of tiles in the bfloat16 dW-only pass)."""
+    partial rows and its dW partial rows (one per persistent block of a
+    fused pass, or per chunk of tiles of a dW-only pass)."""
     b, d, h, w, ci = x_shape
     n_tiles, n_blocks = ctypes.c_longlong(0), ctypes.c_int(0)
     err = _build.library().conv3x3_bwd_plan(
@@ -366,8 +365,9 @@ def conv3x3_bwd_dw(x: torch.Tensor, g: torch.Tensor, y: torch.Tensor,
                    bias_table: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, db) of :func:`conv3x3` (K4): the weight and bias gradients
-    alone, float32 and deterministic.  db is (C_out,), or (D_out, C_out)
-    for a plane-table bias."""
+    alone, float32 and deterministic (on the card, float32 products in
+    3xTF32 on the tensor cores).  db is (C_out,), or (D_out, C_out) for a
+    plane-table bias."""
     _check_bwd(x.shape, g, y, act, mode, x=x)
     if not _on_card("conv3x3_bwd_dw", y.device):
         return conv3x3_bwd_dw_plain(x, g, y, act, alpha, mode, bias_table)

@@ -1,12 +1,13 @@
-// What the conv sources share (conv3x3_bwd.cu: float32 K4 on the CUDA
-// cores; conv3x3_fwd_f32_tc.cu, conv3x3_bwd_f32_tc.cu and
-// conv3x3_bwd_dx_f32_tc.cu: float32 K1, K2 and K3 on the tensor cores in
-// 3xTF32; conv3x3_fwd_tc.cu, conv3x3_bwd_tc.cu, conv3x3_bwd_dx_tc.cu and
-// conv3x3_bwd_dw_tc.cu: bfloat16 K1, K2, K3 and K4 on the tensor cores):
-// the tile space over a volume, the persistent grid size, the channel
-// domain of the fused K2, and the two reductions that sum the blocks' (or
-// chunks') dW partials and the tiles' db partials in a fixed order (so dW
-// and db are bit-identical from run to run, with no float atomics).
+// What the conv sources share (conv3x3_fwd_f32_tc.cu,
+// conv3x3_bwd_f32_tc.cu, conv3x3_bwd_dx_f32_tc.cu and
+// conv3x3_bwd_dw_f32_tc.cu: float32 K1, K2, K3 and K4 on the tensor cores
+// in 3xTF32; conv3x3_fwd_tc.cu, conv3x3_bwd_tc.cu, conv3x3_bwd_dx_tc.cu and
+// conv3x3_bwd_dw_tc.cu: bfloat16 K1, K2, K3 and K4 on the tensor cores;
+// conv3x3_bwd.cu: the plan of every fused or dW-only pass): the tile space
+// over a volume, the persistent grid size, the channel domain of the fused
+// K2, and the two reductions that sum the blocks' (or chunks') dW partials
+// and the tiles' db partials in a fixed order (so dW and db are
+// bit-identical from run to run, with no float atomics).
 
 #pragma once
 
@@ -143,10 +144,14 @@ int conv3x3_bwd_f32_tc_plan(int batch, int d_in, int h, int w, int c_in,
                             int c_out, int z_pad, long long* n_tiles,
                             int* n_blocks);
 
-// The bfloat16 dW-only pass of conv3x3_bwd_dw_tc.cu: its tile count and
-// its number of tile chunks (rows of dW partials), for any C_in, C_out >= 1.
+// The dW-only passes of conv3x3_bwd_dw_tc.cu (bfloat16) and
+// conv3x3_bwd_dw_f32_tc.cu (float32): the tile count and the number of
+// tile chunks (rows of dW partials), for any C_in, C_out >= 1.
 int conv3x3_bwd_dw_tc_plan(int batch, int d_in, int h, int w, int c_in,
                            int c_out, int z_pad, long long* n_tiles,
                            int* n_chunks);
+int conv3x3_bwd_dw_f32_tc_plan(int batch, int d_in, int h, int w, int c_in,
+                               int c_out, int z_pad, long long* n_tiles,
+                               int* n_chunks);
 
 }  // namespace stroke

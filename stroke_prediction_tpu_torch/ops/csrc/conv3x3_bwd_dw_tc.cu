@@ -1,6 +1,7 @@
 // bfloat16 weight and bias gradients of the 3x3x3 stride-1 convolution
 // y = act(conv3d(x, k) + b) on Hopper's tensor cores (kernel K4 of the port,
-// bfloat16 storage; the float32 K4 is conv3x3_bwd.cu's, on the CUDA cores).
+// bfloat16 storage; the float32 K4 is conv3x3_bwd_dw_f32_tc.cu's, in
+// 3xTF32).
 //
 // Replaces stroke_prediction_tpu/ops/pallas/s2d.py _dw_kernel + _dw_taps
 // (dW alone: the weight half of the split backward, and the entry conv,

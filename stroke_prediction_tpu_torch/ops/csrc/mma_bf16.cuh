@@ -1,11 +1,11 @@
 // PTX helpers of the tensor-core kernels (bfloat16: conv3x3_fwd_tc.cu K1,
 // conv3x3_bwd_tc.cu K2, conv3x3_bwd_dx_tc.cu K3, conv3x3_bwd_dw_tc.cu K4;
 // float32: conv3x3_fwd_f32_tc.cu K1, conv3x3_bwd_f32_tc.cu K2,
-// conv3x3_bwd_dx_f32_tc.cu K3): ldmatrix fragment loads from shared
-// memory, the mma.sync.m16n8k16 bf16 product with float32 sums, the
-// mma.sync.m16n8k8 tf32 product and the big / small split of a float32
-// value into two tf32 values (3xTF32), cp.async copies, and g' formed from
-// packed bfloat16 pairs while staging.
+// conv3x3_bwd_dx_f32_tc.cu K3, conv3x3_bwd_dw_f32_tc.cu K4): ldmatrix
+// fragment loads from shared memory, the mma.sync.m16n8k16 bf16 product
+// with float32 sums, the mma.sync.m16n8k8 tf32 product and the big / small
+// split of a float32 value into two tf32 values (3xTF32), cp.async copies,
+// and g' formed from packed bfloat16 pairs while staging.
 
 #pragma once
 

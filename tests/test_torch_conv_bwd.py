@@ -308,6 +308,86 @@ def test_conv3x3_bwd_fused_3xtf32_matches_s2d_vjp(ci, co, mode, act,
     assert np.abs(one_dk - rdk).max() > DW_REL * np.abs(rdk).max()
 
 
+def _dw_gemm(x, gp, mode):
+    """dk as the card's float32 K4 forms it, in float64: per tap (tz, ty)
+    one GEMM of M rows (tx, C_in) in the packed row order m = tx * C_in + i
+    (x[z + tz - p, h + ty, w + tx, i]) by N = C_out columns of g' over
+    K = the output voxels."""
+    p = conv_mod.MODES[mode]
+    d_out, h_out, w_out, co = gp.shape[1:]
+    ci = x.shape[-1]
+    xz = np.pad(np.asarray(x, np.float64),
+                ((0, 0), (p, p), (0, 0), (0, 0), (0, 0)))
+    b_mat = np.asarray(gp, np.float64).reshape(-1, co)
+    dk = np.zeros((3, 3, 3, ci, co))
+    for tz in range(3):
+        for ty in range(3):
+            a_mat = np.stack([xz[:, tz:tz + d_out, ty:ty + h_out,
+                                 tx:tx + w_out] for tx in range(3)], axis=-2)
+            dk[tz, ty] = (a_mat.reshape(-1, 3 * ci).T @ b_mat).reshape(
+                3, ci, co)
+    return dk
+
+
+
+@pytest.mark.parametrize("ci, co, mode, act, bias_kind, input_grad", [
+    (2, 16, "v", "leaky_relu", "vector", False),  # L1: the entry conv
+    (32, 32, "v", "leaky_relu", "vector", True),  # L4's and L8's widths
+    (48, 16, "v", "leaky_relu", "vector", True),  # L9's
+    (32, 64, "s", "elu", "plane_table", True),
+    (3, 4, "v", "leaky_relu", "vector", True)],
+    ids=["2-16-dw-only", "32-32", "48-16", "32-64-s", "3-4"])
+def test_conv3x3_bwd_dw_3xtf32_matches_s2d_vjp(ci, co, mode, act, bias_kind,
+                                               input_grad, monkeypatch):
+    """The arithmetic of the card's float32 K4
+    (``csrc/conv3x3_bwd_dw_f32_tc.cu``): g' = g * act'(y) formed in float32;
+    x and g' each split into big = tf32(v) and small = tf32(v - big); dk
+    as x * g' taken as small_x * big_g + big_x * small_g + big_x * big_g
+    (the products exact, summed in float64 here), by the kernel's GEMM (M
+    rows (tx, C_in), as the kernel packs them for C_in <= 5); db the sum of
+    big + small of g'.  That holds to ``jax.vjp`` of the JAX package's
+    float32 ``s2d_conv`` on its split ``_dw_kernel`` (the budget forced to
+    0) or, for the entry conv, its dW-only path (``input_grad=False``), in
+    interpret mode: dk and db within ``DW_REL`` of max|ref|.  One TF32
+    product (big_x * big_g) fails dk's limit at every case, so the limit
+    tells the two designs apart; db has no product, so no such contrast."""
+    table = bias_kind == "plane_table"
+    rs = np.random.RandomState(29)
+    x = rs.uniform(-1.0, 1.0, (1, 5, 6, 6, ci)).astype(np.float32)
+    bnd = (27 * ci) ** -0.5
+    k = rs.uniform(-bnd, bnd, (3, 3, 3, ci, co)).astype(np.float32)
+    bias = rs.uniform(-0.1, 0.1, co).astype(np.float32)
+    d_out = 5 if mode == "s" else 3
+    if table:
+        scale = rs.uniform(0.5, 1.5, ci).astype(np.float32)
+        shift = rs.uniform(-0.5, 0.5, ci).astype(np.float32)
+        k, bias = (np.array(a) for a in jax_fold_bn_zsame(
+            jnp.asarray(k), jnp.asarray(bias), jnp.asarray(scale),
+            jnp.asarray(shift), d_out))
+    g = rs.uniform(-1.0, 1.0, (1, d_out, 4, 4, co)).astype(np.float32)
+    monkeypatch.setattr(s2d, "_BWD_FUSED_VMEM_BUDGET", 0)
+    jax.clear_caches()
+    try:
+        y, _, rdk, rdb = _jax_grads(x, k, bias, g, mode, act,
+                                    input_grad=input_grad)
+    finally:
+        jax.clear_caches()
+
+    gp = conv_mod._masked_cotangent(torch.from_numpy(g), torch.tensor(y),
+                                    act, ALPHA[act]).numpy()
+    (g_big, g_small), (x_big, x_small) = (
+        (_tf32(v), _tf32(v - _tf32(v))) for v in (gp, x))
+    three = (_dw_gemm(x_small, g_big, mode) + _dw_gemm(x_big, g_small, mode)
+             + _dw_gemm(x_big, g_big, mode))
+    gsum = g_big.astype(np.float64) + g_small
+    db = gsum.sum(axis=(0, 2, 3)) if table else gsum.sum(axis=(0, 1, 2, 3))
+    assert three.shape == rdk.shape and db.shape == rdb.shape
+    for got, ref in ((three, rdk), (db, rdb)):
+        assert np.abs(got - ref).max() <= DW_REL * np.abs(ref).max()
+    one = _dw_gemm(x_big, g_big, mode)
+    assert np.abs(one - rdk).max() > DW_REL * np.abs(rdk).max()
+
+
 @pytest.mark.parametrize("mode, dtype", [
     ("v", "float32"), ("s", "float32"), ("v", "bfloat16"), ("s", "bfloat16")],
     ids=["v", "s", "v-bfloat16", "s-bfloat16"])
