@@ -12,10 +12,15 @@ non-zero without one.  Phases:
    the tensor cores) against its plain PyTorch version and against a
    float64 conv at the ten U-Net 3^3 convs on a 68x168x168 volume plus one
    z-SAME / ELU / plane-table case, with its TFLOP/s, tile efficiency and
-   the replaced CUDA-core kernel's recorded time per layer; K5 (EDT
-   parabola pass) at the tester's and the validation step's line shapes;
-   kernel, plain and library times (CUDA events) and the least time the
-   card could take (bound; for K1 both on the CUDA cores and in 3xTF32);
+   the replaced CUDA-core kernel's recorded time per layer; kernel, plain
+   and library times (CUDA events) and the least time the card could take
+   (bound; for K1 both on the CUDA cores and in 3xTF32); K5, the whole EDT
+   in two kernels (``edt_sites``), bit for bit against its plain version
+   at the validation step's, the tester's and two larger masks and at edge
+   cases, its device time per call (torch.profiler) beside the parent
+   composition (the parent's scan, copies and sqrt around today's single
+   pass) and the plain version, kernel A's time without its scan along D,
+   and the single pass (``edt_parabola``) at the line shapes;
 3. kernel phase, training shapes: at the ten convs of one training step
    (batch 6, 68x104x104 patch), in float32 and in bfloat16, K1 (on the
    tensor cores: bfloat16, and float32 in 3xTF32) and the backward
@@ -42,8 +47,12 @@ non-zero without one.  Phases:
    synthetic 256x256x28 cases (resampled to 128x128x28, padded by 20 to
    68x168x168), channels 2 16 32 64 32 16 32 2 with seeded random weights
    and BN statistics; the launch counts of K1 and K5 in that run; finite
-   outputs; one case re-run on the CPU (plain versions) and compared; a
-   torch.profiler trace of three more cases;
+   outputs; one case re-run on the CPU (plain versions) and compared; its
+   HD / ASSD on the card with the EDT's kernels and with its plain version;
+   a torch.profiler trace of three more cases (device time by kernel), and
+   the EDT's device time per case inside those cases, with its kernels and
+   with the parent composition, beside the same masks' EDTs back to back,
+   after an L2 flush and after an idle gap;
 5. training phase: the port's training CLI at the reference width and
    patch in its default bfloat16 on eight full-size synthetic cases (six
    train, two validate, batch 6, three epochs); the launch counts of K1-K5
@@ -135,8 +144,8 @@ def tile_efficiency(plane, tile):
 
 def all_wrappers():
     from stroke_prediction_tpu_torch.ops.conv3x3 import KERNEL_WRAPPERS
-    from stroke_prediction_tpu_torch.ops.edt import edt_parabola
-    return KERNEL_WRAPPERS + (edt_parabola,)
+    from stroke_prediction_tpu_torch.ops.edt import edt_parabola, edt_sites
+    return KERNEL_WRAPPERS + (edt_sites, edt_parabola)
 
 
 def reset_launches():
@@ -187,8 +196,6 @@ def kernel_phase(torch):
 
     from stroke_prediction_tpu_torch.ops.conv3x3 import (
         conv3x3, conv3x3_plain, fold_bn_zsame)
-    from stroke_prediction_tpu_torch.ops.edt import (
-        _BIG, edt_parabola, edt_parabola_plain)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -272,35 +279,216 @@ def kernel_phase(torch):
           f"{err_s:.3e}")
     k1["max_abs_err"] = max(k1["max_abs_err"], err_s)
 
-    # K5: exact against the plain version; some lines without a site.
-    # (3584, 128): a tester case's pass; (11424, 168): one at n = 168;
-    # (3584, 64): a validation step's pass (2 x 28 x 64 lines of a 64^2
-    # plane)
-    k5 = {}
+    return k1
+
+
+# K5, the whole EDT per call: the validation step's (2, 28, 64, 64) and
+# the tester's (1, 28, 128, 128) surface masks, a 168^2 plane at the
+# tester's padded depth, and a 256^2 plane (the reference's volumes before
+# the 0.5 in-plane resample)
+EDT_SHAPES = ((2, 28, 64, 64), (1, 28, 128, 128), (1, 68, 168, 168),
+              (1, 28, 256, 256))
+EDT_VALID, EDT_TESTER = EDT_SHAPES[:2]
+EDT_PER_STEP = 4       # EDTs per validation step and per tester case
+EDT_KERNELS = ("edt_scan_d_pass_h_kernel", "edt_pass_w_kernel")
+EDT_STRIP = 32         # kernel A's w columns a block (kStrip)
+
+
+# Operations of an exact O(n) lower envelope, counted at the float32 rate:
+# one parabola pass pushes each element once and pops it at most once, so
+# at most two intersection tests of 6 operations each (every f is an
+# integer square or 1e12: the tests compare exactly by integer
+# cross-multiplication), two fill compares and f + (i - v)^2 in 3, 17 an
+# element; the whole EDT adds the two-sided scan along D (a select each
+# way, the nearer side, its square, the clamp: 6) and the sqrt, 41 a voxel.
+ENVELOPE_PASS_OPS = 17
+EDT_OPS_PER_VOXEL = 6 + 2 * ENVELOPE_PASS_OPS + 1
+
+
+def edt_bound(shape):
+    """Least ms of one EDT: the larger of its bytes, 5 a voxel (the mask
+    in, the distance out), and an exact O(n) envelope's operations
+    (EDT_OPS_PER_VOXEL).  The (H + W) candidates a voxel of the kernels'
+    brute-force min-plus are their choice, not the function's need."""
+    n, d, h, w = shape
+    voxels = n * d * h * w
+    return bound_ms(EDT_OPS_PER_VOXEL * voxels, 5.0 * voxels)
+
+
+def device_ms(torch, fn, reps):
+    """Device time per call and kernels per call, from the kernels' self
+    device time in a torch.profiler trace of ``reps`` calls after a warm-up
+    call, and {kernel name: device ms per call}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels)
+    if not total:
+        raise AssertionError("no device time in the profiler's trace")
+    return (total / 1e3 / reps, sum(e.count for e in kernels) / reps,
+            {e.key: e.self_device_time_total / 1e3 / reps for e in kernels})
+
+
+def edt_edge_masks(torch, gen, dev):
+    """The CPU test's edge cases on the card (odd sizes, an axis of length
+    1, lines and planes without a site, a volume without any), the largest
+    extents the kernels take, and a permuted view (copied to contiguous
+    before the kernels)."""
+    def rand(shape, p=0.1):
+        return torch.rand(shape, generator=gen, device=dev) < p
+
+    cases = {"odd 2x5x7x33": rand((2, 5, 7, 33)),
+             "D = 1": rand((2, 1, 9, 12), 0.2),
+             "H = 1": rand((1, 6, 1, 11), 0.2),
+             "W = 1": rand((1, 6, 9, 1), 0.2),
+             "D = 1024": rand((1, 1024, 3, 40), 0.002),
+             "H = 1024": rand((1, 3, 1024, 40), 0.002),
+             "W = 1024": rand((1, 3, 5, 1024), 0.002),
+             "permuted view": rand((28, 64, 64, 2), 0.02).permute(3, 0, 1, 2)}
+    s = rand((1, 9, 8, 10))
+    s[:, :, rand((8, 10), 0.5)] = False
+    cases["columns without a site"] = s
+    s = rand((1, 7, 10, 9))
+    s[:, 3] = False
+    s[:, :, 4] = False
+    cases["planes without a site"] = s
+    s = rand((2, 5, 6, 7))
+    s[0] = False
+    cases["a volume without any site"] = s
+    return cases
+
+
+def edt_phase(torch):
+    """K5: the whole EDT (``edt_sites``, two kernels a call) bit for bit
+    against its plain version at EDT_SHAPES and the edge cases, through
+    ``distance_transform_edt`` and ``signed_edt`` too; device time per call
+    beside the parent composition (its cummax scan, movedim copies and
+    sqrt around today's ``edt_parabola``, one launch a pass; run from the
+    same module) and the plain version; host ms per call; kernel A's scan
+    along D, as kernel A's time less its time on the same planes laid out
+    as N * D volumes of depth 1 (the same blocks and H pass, one z to
+    scan).  Then the single pass (``edt_parabola``) at the line shapes, as
+    before."""
+    from stroke_prediction_tpu_torch.ops import edt
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    k5 = {"max_abs_err": 0.0}
+
+    def hold(name, sites):
+        out = edt.edt_sites(sites)
+        ref = edt.edt_sites_plain(sites)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if not torch.equal(out, ref):
+            raise AssertionError(f"K5 edt_sites differs from its plain "
+                                 f"version at {name}: max|err| {err}")
+        k5["max_abs_err"] = max(k5["max_abs_err"], err)
+
+    cases = edt_edge_masks(torch, gen, dev)
+    for name, sites in cases.items():
+        hold(name, sites)
+    print(f"K5 edt_sites equals its plain version at the edge cases: "
+          f"{', '.join(cases)}")
+
+    vol = torch.rand((28, 64, 64), generator=gen, device=dev) < 0.9
+    before = edt.edt_sites.launches
+    dist = edt.distance_transform_edt(vol)
+    sdm = edt.signed_edt(vol.float())
+    torch.cuda.synchronize()
+    if edt.edt_sites.launches - before != 3:
+        raise AssertionError("distance_transform_edt + signed_edt made "
+                             f"{edt.edt_sites.launches - before} edt_sites "
+                             f"calls, expected 3")
+    if not (torch.equal(dist.cpu(), edt.distance_transform_edt(vol.cpu()))
+            and torch.equal(sdm.cpu(), edt.signed_edt(vol.float().cpu()))):
+        raise AssertionError("distance_transform_edt / signed_edt on the "
+                             "card differ from the CPU's")
+
+    print("K5 whole EDT per call (device ms from torch.profiler; host ms "
+          "= CUDA events around 20 Python calls; parent composition = the "
+          "parent's scan + 2 x (copy + today's edt_parabola) + sqrt):")
+    for shape in EDT_SHAPES:
+        sites = torch.rand(shape, generator=gen, device=dev) < 0.02
+        sites[:, :, :, ::7] = False            # columns without a site
+        sites[:, shape[1] // 2] = False        # a plane without a site
+        hold(shape, sites)
+        ms, n_k, per = device_ms(torch, lambda: edt.edt_sites(sites), 20)
+        split = [sum(v for nm, v in per.items() if k in nm)
+                 for k in EDT_KERNELS]
+        if n_k != 2 or any(not any(k in nm for k in EDT_KERNELS)
+                           for nm in per):
+            raise AssertionError(f"edt_sites ran {n_k} kernels a call: "
+                                 f"{list(per)}")
+
+        def parent():
+            return edt.separable_edt(sites, (1, 2, 3), edt.edt_parabola)
+
+        if not torch.equal(parent(), edt.edt_sites(sites)):
+            raise AssertionError(f"the parent composition differs at "
+                                 f"{shape}")
+        p_ms, p_k, _ = device_ms(torch, parent, 20)
+        planes = sites.reshape((-1, 1) + shape[2:])
+        _, _, per1 = device_ms(torch, lambda: edt.edt_sites(planes), 20)
+        a1 = sum(v for nm, v in per1.items() if EDT_KERNELS[0] in nm)
+        scan = split[0] - a1
+        pl_ms, pl_k, _ = device_ms(torch, lambda: edt.edt_sites_plain(sites),
+                                   3)
+        host = cuda_ms(torch, lambda: edt.edt_sites(sites), 20)
+        p_host = cuda_ms(torch, parent, 20)
+        bms, by = edt_bound(shape)
+        print(f"  {shape}: edt_sites {ms:.4f} ms ({n_k:g} kernels: scan D + "
+              f"pass H {split[0]:.4f}, pass W + sqrt {split[1]:.4f}; scan "
+              f"along D {scan:.4f} = {100 * scan / split[0]:.1f}% of kernel "
+              f"A, which takes {a1:.4f} at depth 1)  parent composition "
+              f"{p_ms:.4f} ms ({p_k:g} kernels)  plain {pl_ms:.4f} ms "
+              f"({pl_k:g} kernels)  bound {bms:.5f} ms ({by}; "
+              f"{100 * bms / ms:.1f}% of edt_sites)  host ms per call "
+              f"{host:.4f} (parent composition {p_host:.4f})  exact")
+        k5[shape] = dict(ms=ms, kernels=n_k, kernel_ms=split, scan_ms=scan,
+                         parent_ms=p_ms, parent_kernels=p_k, plain_ms=pl_ms,
+                         bound_ms=bms, bound_by=by, host_ms=host,
+                         parent_host_ms=p_host)
+
+    # the single pass: exact against the plain version; some lines without
+    # a site.  (3584, 128): a tester case's pass; (11424, 168): one at
+    # n = 168; (3584, 64): a validation step's pass (2 x 28 x 64 lines of a
+    # 64^2 plane)
     for n_lines, n in ((28 * 128, 128), (68 * 168, 168), (2 * 28 * 64, 64)):
         f2 = torch.randint(0, n, (n_lines, n), generator=gen,
                            device=dev).float() ** 2
-        f2[::8] = _BIG
-        out = edt_parabola(f2)
-        ref = edt_parabola_plain(f2)
+        f2[::8] = edt._BIG
+        out = edt.edt_parabola(f2)
+        ref = edt.edt_parabola_plain(f2)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         if not torch.equal(out, ref):
             raise AssertionError(f"K5 differs from its plain version at "
                                  f"({n_lines}, {n}): max|err| {err}")
-        ms = cuda_ms(torch, lambda: edt_parabola(f2), 20)
-        plain = cuda_ms(torch, lambda: edt_parabola_plain(f2), 5)
-        ops = 2.0 * n_lines * n * n                      # add + min
-        bms, by = bound_ms(ops, 8.0 * n_lines * n)
+        ms = cuda_ms(torch, lambda: edt.edt_parabola(f2), 20)
+        plain = cuda_ms(torch, lambda: edt.edt_parabola_plain(f2), 5)
+        pass_ms, _, _ = device_ms(torch, lambda: edt.edt_parabola(f2), 20)
+        # the larger of its bytes (f in, out) and an O(n) envelope's
+        # operations; the n candidates an output are the kernel's choice
+        bms, by = bound_ms(ENVELOPE_PASS_OPS * n_lines * n, 8.0 * n_lines * n)
         print(f"K5 edt_parabola ({n_lines}, {n}): max|err| {err} (exact); "
-              f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {bms:.5f} ms "
-              f"({by})")
-        k5[(n_lines, n)] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
-                                bound_by=by)
-        k5["max_abs_err"] = max(k5.get("max_abs_err", 0.0), err)
+              f"kernel {pass_ms:.4f} ms device, {ms:.4f} ms host per call  "
+              f"plain {plain:.4f} ms  bound {bms:.5f} ms ({by})")
+        k5[(n_lines, n)] = dict(ms=pass_ms, host_ms=ms, plain_ms=plain,
+                                bound_ms=bms, bound_by=by)
+        k5["max_abs_err"] = max(k5["max_abs_err"], err)
     print("K5 has no single PyTorch library call that computes it "
           "(library_ms null)")
-    return k1, k5
+    return k5
 
 
 def train_kernel_phase(torch):
@@ -665,9 +853,11 @@ def slice_phase(torch, work):
     if launches["conv3x3"] != 10 * n:
         raise AssertionError(f"K1 launched {launches['conv3x3']} times, "
                              f"expected 10 per case")
-    if launches["edt_parabola"] != 8 * n:
-        raise AssertionError(f"K5 launched {launches['edt_parabola']} times, "
-                             f"expected 8 per case")
+    if launches["edt_sites"] != EDT_PER_STEP * n or launches["edt_parabola"]:
+        raise AssertionError(f"K5: {launches['edt_sites']} edt_sites calls "
+                             f"and {launches['edt_parabola']} single passes, "
+                             f"expected {EDT_PER_STEP} calls per case and "
+                             f"no single pass")
     steady = tester.case_seconds[1:]
     infer_ms = 1e3 * sum(s[1] for s in steady) / len(steady)
     total_ms = 1e3 * sum(s[2] for s in steady) / len(steady)
@@ -712,8 +902,61 @@ def slice_phase(torch, work):
             a, b = getattr(m_gpu[part], f), getattr(m_cpu[part], f)
             if abs(a - b) > 1e-3 * max(1.0, abs(b)):
                 raise AssertionError(f"{part} {f}: card {a} vs CPU {b}")
-    profile_cases(torch, tester, batch, infer_ms)
-    return launches, infer_ms
+    edt_metrics_vs_plain(torch, tester, batch)
+    edt_case = profile_cases(torch, tester, batch, infer_ms)
+    return launches, infer_ms, edt_case
+
+
+def edt_metrics_vs_plain(torch, tester, batch):
+    """One case's core and penumbra measures on the card, through the EDT's
+    kernels and again with ``edt_sites_plain`` in their place on the same
+    card tensors: the distance volumes are equal, so HD and ASSD must be.
+    Random weights may predict no core (HD inf on both sides, whatever the
+    EDT gives), so the predicted penumbra is held against the core label
+    too, and at least one pair must have a finite HD."""
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_IMAGES, KEY_LABELS)
+    from stroke_prediction_tpu_torch.eval import metrics
+    from stroke_prediction_tpu_torch.inference import unet_inference
+    from stroke_prediction_tpu_torch.ops.edt import edt_sites, edt_sites_plain
+
+    with torch.inference_mode():
+        dto = unet_inference(tester._model,
+                             tester._to_device(batch[KEY_IMAGES]),
+                             tester._to_device(batch[KEY_LABELS]))
+        pairs = {part: (getattr(dto.outputs, part),
+                        getattr(dto.given_variables, part))
+                 for part in ("core", "penu")}
+        pairs["penu vs core label"] = (dto.outputs.penu,
+                                       dto.given_variables.core)
+        finite = 0
+        for part, args in pairs.items():
+            before = edt_sites.launches
+            card = metrics.binary_measures(*args)
+            calls = edt_sites.launches - before
+            kernel_edt = metrics.edt_to_sites
+            metrics.edt_to_sites = lambda s, axes: edt_sites_plain(s, axes)
+            try:
+                plain = metrics.binary_measures(*args)
+            finally:
+                metrics.edt_to_sites = kernel_edt
+            if calls != 2 or edt_sites.launches - before != 2:
+                raise AssertionError(f"{part}: {calls} edt_sites calls with "
+                                     f"the kernels, "
+                                     f"{edt_sites.launches - before - calls}"
+                                     f" with the plain version")
+            for f in ("hd", "assd", "dc"):
+                a, b = getattr(card, f), getattr(plain, f)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{part} {f}: kernels {float(a)} "
+                                         f"vs plain {float(b)}")
+            finite += bool(torch.isfinite(card.hd))
+            print(f"slice: {part} HD {float(card.hd):.6f} ASSD "
+                  f"{float(card.assd):.6f} equal with the EDT's kernels and "
+                  f"with its plain version on the card")
+    if not finite:
+        raise AssertionError("no pair has a finite HD: the EDT's values "
+                             "were not compared")
 
 
 def train_phase(torch, work):
@@ -755,10 +998,14 @@ def train_phase(torch, work):
         "conv3x3_bwd_dx": routes.count("split") * n_train,
         "conv3x3_bwd_dw": (routes.count("split") + routes.count("dw"))
         * n_train,
-        "edt_parabola": 8 * n_eval}
-    print(f"train: routes per layer {routes}; expected launches {want}")
+        "edt_sites": EDT_PER_STEP * n_eval}
+    print(f"train: routes per layer {routes}; expected launches {want} and "
+          f"no single EDT pass")
     if n_train != 3 or n_eval != 3:
         raise AssertionError(f"expected 3 train and 3 eval steps: {steps}")
+    if launches["edt_parabola"]:
+        raise AssertionError(f"edt_parabola launched "
+                             f"{launches['edt_parabola']} times on the path")
     for name, n in want.items():
         if launches[name] != n or n < 1:
             raise AssertionError(f"{name} launched {launches[name]} times, "
@@ -830,6 +1077,36 @@ def time_steps(torch, learner, n=TIMED_STEPS):
     return mean
 
 
+# profiler kernel names -> groups (first match wins)
+PROFILE_GROUPS = (
+    *((k, "K5 EDT") for k in EDT_KERNELS),
+    ("conv3x3_fwd", "K1 conv forward"),
+    ("conv3x3_bwd_dx_tc_kernel", "K3 dx"),
+    ("conv3x3_bwd_dw_tc_kernel", "K4 dW"),
+    ("conv3x3_bwd_tc_kernel", "K2 fused"),
+    ("conv3x3_bwd_dx_f32_tc_kernel", "K3 dx (float32)"),
+    ("conv3x3_bwd_f32_tc_kernel", "K2 fused (float32)"),
+    ("conv3x3_bwd_dw_f32_tc_kernel", "K4 dW (float32)"),
+    ("finalize", "K2/K4 dW, db reductions"),
+    ("MeanOps", "BN moments (means)"), ("MaxOps", "max reductions"),
+    ("multi_tensor_apply", "Adam (foreach)"),
+    ("gemm", "matmuls (upsample, 1^3 head)"),
+    ("xmma", "matmuls (upsample, 1^3 head)"),
+    ("Memcpy", "copies"), ("copy", "copies / casts"))
+
+
+def kernel_groups(kernels, reps=1):
+    """{group: (device ms, kernels)} per rep of profiler kernel events."""
+    groups = {}
+    for e in kernels:
+        g = next((name for frag, name in PROFILE_GROUPS if frag in e.key),
+                 "other elementwise / reductions")
+        ms, n = groups.get(g, (0.0, 0.0))
+        groups[g] = (ms + e.self_device_time_total / 1e3 / reps,
+                     n + e.count / reps)
+    return groups
+
+
 def profile_step(torch, learner):
     """One training step: device time by phase (CUDA events around the
     parts of ``UnetSegmentationLearner.train_step``) and by kernel
@@ -884,27 +1161,10 @@ def profile_step(torch, learner):
     print(f"train profile: device busy {busy_ms:.3f} ms of {wall_ms:.2f} ms "
           f"({100 * busy_ms / wall_ms:.1f}% busy); "
           f"{sum(e.count for e in kernels)} kernels")
-    rules = [("conv3x3_fwd", "K1 conv forward"),
-             ("conv3x3_bwd_dx_tc_kernel", "K3 dx"),
-             ("conv3x3_bwd_dw_tc_kernel", "K4 dW"),
-             ("conv3x3_bwd_tc_kernel", "K2 fused"),
-             ("conv3x3_bwd_dx_f32_tc_kernel", "K3 dx (float32)"),
-             ("conv3x3_bwd_f32_tc_kernel", "K2 fused (float32)"),
-             ("conv3x3_bwd_dw_f32_tc_kernel", "K4 dW (float32)"),
-             ("finalize", "K2/K4 dW, db reductions"),
-             ("MeanOps", "BN moments (means)"), ("MaxOps", "max reductions"),
-             ("multi_tensor_apply", "Adam (foreach)"),
-             ("gemm", "matmuls (upsample, 1^3 head)"),
-             ("xmma", "matmuls (upsample, 1^3 head)"),
-             ("Memcpy", "copies"), ("copy", "copies / casts")]
-    groups = {}
-    for e in kernels:
-        g = next((name for frag, name in rules if frag in e.key),
-                 "other elementwise / reductions")
-        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    groups = kernel_groups(kernels)
     print("  by kernel: " + "; ".join(
-        f"{g} {ms:.3f} ms ({100 * ms / busy_ms:.1f}%)"
-        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+        f"{g} {ms:.3f} ms ({100 * ms / busy_ms:.1f}%, x{n:g})"
+        for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
     for e in kernels[:15]:
         ms = e.self_device_time_total / 1e3
         print(f"  {ms:8.4f} ms {100 * ms / busy_ms:5.1f}%  x{e.count}"
@@ -978,31 +1238,155 @@ def step_vs_cpu(torch, learner):
                 cpu_vs_f64=cpu64[1][0])
 
 
+# torch.cuda._sleep's kernel: launched just before and just after each EDT
+# call of a marked trace, it brackets that call's device work
+EDT_MARK = "spin_kernel"
+
+
+def marked_spans(prof, reps):
+    """(device ms, kernels) per rep of the device work between each pair of
+    EDT_MARK kernels of a trace, in device order."""
+    from torch.autograd import DeviceType
+
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    ms, n, marks, inside = 0.0, 0, 0, False
+    for e in events:
+        if EDT_MARK in e.name:
+            inside, marks = not inside, marks + 1
+        elif inside:
+            ms += e.time_range.elapsed_us() / 1e3
+            n += 1
+    if inside or marks != 2 * EDT_PER_STEP * reps:
+        raise AssertionError(f"{marks} EDT marks in the trace, expected "
+                             f"{2 * EDT_PER_STEP * reps}")
+    return ms / reps, n / reps
+
+
 def profile_cases(torch, tester, batch, infer_ms, reps=3):
     """Device time per tester case by kernel (torch.profiler, CUPTI) and the
-    device's busy share of the unprofiled ms per case."""
+    device's busy share of the unprofiled ms per case.  Then the EDT's
+    device time per case inside the tester's own cases, its calls marked
+    (EDT_MARK): with its kernels, and with the parent composition (the
+    parent's scan, copies and sqrt around today's single pass) in their
+    place; and the same case's four masks' EDTs outside the case: back to
+    back, after an L2 flush (a 256 MB write) and after 2 ms of an idle card
+    before each case's worth; the labels' layout; the shares of the masks'
+    columns, 8-column lanes and 32-column strips with a site in every
+    column (where an outward scan along D could stop early).  Returns
+    {what: (device ms, kernels) per case} and those shares."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            tester.infer_batch(batch)
-        torch.cuda.synchronize()
+    from stroke_prediction_tpu_torch.data.dataset import KEY_LABELS
+    from stroke_prediction_tpu_torch.eval import metrics
+    from stroke_prediction_tpu_torch.ops import edt
+
+    def trace(fn, n=reps):
+        with torch.inference_mode(), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return prof
+
+    prof = trace(lambda: tester.infer_batch(batch))
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
     if not busy_ms:
-        print("profile: no device time in the trace (not measured)")
-        return
+        raise AssertionError("profile: no device time in the trace")
     print(f"profile: device busy {busy_ms:.3f} ms per case of {infer_ms:.2f} "
           f"ms ({100 * busy_ms / infer_ms:.1f}% busy); "
           f"{sum(e.count for e in kernels) / reps:.0f} kernels per case")
+    groups = kernel_groups(kernels, reps)
+    print("  by kernel, per case: " + "; ".join(
+        f"{g} {ms:.3f} ms ({100 * ms / busy_ms:.1f}%, x{n:g})"
+        for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    named = groups.get("K5 EDT", (0.0, 0.0))
+    if named[1] != 2 * EDT_PER_STEP:
+        raise AssertionError(f"the profiled tester case ran {named[1]:g} EDT "
+                             f"kernels, expected {2 * EDT_PER_STEP}")
     for e in kernels[:12]:
         ms = e.self_device_time_total / 1e3 / reps
         print(f"  {ms:8.4f} ms {100 * ms / busy_ms:5.1f}%  x{e.count / reps:g}"
               f"  {e.key[:90]}")
+
+    masks = []
+    kernel_edt = metrics.edt_to_sites
+
+    def in_case(edt_fn):
+        def marked(sites, axes):
+            if len(masks) < EDT_PER_STEP:
+                masks.append(sites)
+            torch.cuda._sleep(1)
+            out = edt_fn(sites, axes)
+            torch.cuda._sleep(1)
+            return out
+        metrics.edt_to_sites = marked
+        try:
+            return marked_spans(trace(lambda: tester.infer_batch(batch)),
+                                reps)
+        finally:
+            metrics.edt_to_sites = kernel_edt
+
+    out = {"named": named, "in_case": in_case(kernel_edt),
+           "parent_in_case": in_case(
+               lambda s, axes: edt.separable_edt(s, axes, edt.edt_parabola))}
+    labels = tester._to_device(batch[KEY_LABELS])
+    print(f"profile: the case's labels {tuple(labels.shape)} arrive with "
+          f"strides {labels.stride()}; the EDT's masks are contiguous: "
+          f"{[m.is_contiguous() for m in masks]}")
+    if out["in_case"][1] != 2 * EDT_PER_STEP:
+        raise AssertionError(f"{out['in_case'][1]:g} kernels inside the "
+                             f"marked EDT calls, expected "
+                             f"{2 * EDT_PER_STEP}")
+
+    flush = torch.empty(64 << 20, device="cuda")
+    variants = {"back_to_back": lambda: None, "l2_flushed": flush.zero_,
+                "idle_gap": lambda: (torch.cuda.synchronize(),
+                                     time.sleep(2e-3))}
+    for name, before in variants.items():
+        def case_edts():
+            before()
+            for m in masks:
+                edt.edt_sites(m)
+        prof = trace(case_edts, 20)
+        ks = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and any(k in e.key for k in EDT_KERNELS)]
+        out[name] = (sum(e.self_device_time_total for e in ks) / 1e3 / 20,
+                     sum(e.count for e in ks) / 20)
+    del flush
+    print("profile: the EDT per case, device ms (kernels): "
+          + "; ".join(f"{k} {ms:.4f} ({n:g})" for k, (ms, n) in out.items())
+          + f"  [named = the EDT kernels' names in the trace above; in_case "
+          f"/ parent_in_case = inside the marked calls of {reps} cases with "
+          f"the kernels / the parent composition; the rest = the case's "
+          f"{len(masks)} masks, 20 times: back to back, after an L2 flush, "
+          f"after 2 ms idle]")
+
+    # an outward scan along D could stop a lane early only where all its 8
+    # columns (kernel A's 8-byte loads) hold a site, and shorten a block's
+    # scan only where all the columns of its 32-wide strip do
+    cols = torch.stack([m.any(dim=1) for m in masks])     # (4, N, H, W)
+    n4, h, w = cols.shape[1:]
+    if w % EDT_STRIP == 0:
+        lanes = cols.reshape(-1, n4, h, w // 8, 8).all(-1)
+        strips = cols.reshape(-1, n4, h, w // EDT_STRIP, EDT_STRIP).all(
+            -1).all(2)
+        shares = {"columns": float(cols.float().mean()),
+                  "lanes": float(lanes.float().mean()),
+                  "strips": float(strips.float().mean())}
+        print(f"profile: the case's EDT masks: {100 * shares['columns']:.2f}"
+              f"% of (h, w) columns hold a site; {100 * shares['lanes']:.2f}"
+              f"% of 8-column lanes and {100 * shares['strips']:.2f}% of "
+              f"32-column strips hold one in every column")
+        out["with_a_site_in_every_column"] = shares
+    return out
 
 
 def main():
@@ -1032,10 +1416,11 @@ def main():
     if log.exists():
         print(log.read_text().strip())
 
-    k1, k5 = kernel_phase(torch)
+    k1 = kernel_phase(torch)
+    k5 = edt_phase(torch)
     train_k, s_err = train_kernel_phase(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        t_launches, case_ms = slice_phase(torch, work)
+        t_launches, case_ms, edt_case = slice_phase(torch, work)
         launches, step_ms, learner = train_phase(torch, work)
         step = step_vs_cpu(torch, learner)
 
@@ -1113,22 +1498,41 @@ def main():
               "launches": launches["conv3x3_bwd_dw"]}, **per_step("K4"),
              source_float32=csrc + "conv3x3_bwd_dw_f32_tc.cu", per=step_per,
              float32=dict(per_step("K4", "float32"), per=f32_step_per)),
-        {"name": "edt_parabola", "route": "cuda",
-         "source": csrc + "edt_parabola.cu",
+        {"name": "edt_sites", "route": "cuda",
+         "source": csrc + "edt_sites.cu",
          "replaces": "stroke_prediction_tpu/ops/edt.py:80",
-         "launches": launches["edt_parabola"],
+         "launches": launches["edt_sites"],
          "max_abs_err": k5["max_abs_err"],
-         "ms": 8 * k5[(3584, 64)]["ms"],
-         "plain_ms": 8 * k5[(3584, 64)]["plain_ms"],
-         "bound_ms": 8 * k5[(3584, 64)]["bound_ms"],
-         "bound_by": k5[(3584, 64)]["bound_by"], "library_ms": None,
-         "per": "one validation step: 8 x one measured (3584, 64) pass",
-         "tester": {"launches": t_launches["edt_parabola"],
-                    "ms": 8 * k5[(3584, 128)]["ms"],
-                    "plain_ms": 8 * k5[(3584, 128)]["plain_ms"],
-                    "bound_ms": 8 * k5[(3584, 128)]["bound_ms"],
-                    "per": "one tester case: 8 x one measured (3584, 128) "
-                           "pass"}},
+         "ms": EDT_PER_STEP * k5[EDT_VALID]["ms"],
+         "plain_ms": EDT_PER_STEP * k5[EDT_VALID]["plain_ms"],
+         "bound_ms": EDT_PER_STEP * k5[EDT_VALID]["bound_ms"],
+         "bound_by": k5[EDT_VALID]["bound_by"], "library_ms": None,
+         "parent_ms": EDT_PER_STEP * k5[EDT_VALID]["parent_ms"],
+         "kernels_per_call": k5[EDT_VALID]["kernels"],
+         "parent_kernels_per_call": k5[EDT_VALID]["parent_kernels"],
+         "per": f"one validation step: {EDT_PER_STEP} x one measured "
+                f"{EDT_VALID} EDT (two kernels a call), device time; "
+                f"parent = the parent composition (its scan, copies and "
+                f"sqrt around today's single pass); bound = the bytes, "
+                f"5 a voxel, or an exact O(n) envelope's operations",
+         "tester": {"launches": t_launches["edt_sites"],
+                    "ms": EDT_PER_STEP * k5[EDT_TESTER]["ms"],
+                    "plain_ms": EDT_PER_STEP * k5[EDT_TESTER]["plain_ms"],
+                    "bound_ms": EDT_PER_STEP * k5[EDT_TESTER]["bound_ms"],
+                    "parent_ms": EDT_PER_STEP * k5[EDT_TESTER]["parent_ms"],
+                    "in_case_ms_and_kernels": edt_case,
+                    "per": f"one tester case: {EDT_PER_STEP} x one measured "
+                           f"{EDT_TESTER} EDT; in_case: the EDT per case "
+                           f"inside the tester's own profiled cases"},
+         "single_pass": {"name": "edt_parabola",
+                         "launches": launches["edt_parabola"],
+                         "ms": k5[(3584, 64)]["ms"],
+                         "host_ms": k5[(3584, 64)]["host_ms"],
+                         "plain_ms": k5[(3584, 64)]["plain_ms"],
+                         "bound_ms": k5[(3584, 64)]["bound_ms"],
+                         "bound_by": k5[(3584, 64)]["bound_by"],
+                         "per": "one (3584, 64) pass (kernel B without the "
+                                "sqrt), device time"}},
     ]
     for k in kernels:
         if k["launches"] < 1:

@@ -8,7 +8,7 @@ for Hopper (``ops/csrc``), bound through ``ctypes``.
 
 Ported so far: U-Net training (``cli.train_unet_segmentation``) and
 full-volume U-Net testing (``cli.test_unet_segmentation``), with the fused
-3x3x3 conv forward and backward (``ops.conv3x3``) and the EDT parabola pass
+3x3x3 conv forward and backward (``ops.conv3x3``) and the separable EDT
 (``ops.edt``) as hand-written kernels.  Entry points run on ``cuda`` unless
 the caller asks for ``cpu``; on CPU tensors every kernel wrapper runs its
 plain PyTorch version.

@@ -37,20 +37,23 @@ def batch_dice_loss(outputs: torch.Tensor, targets: torch.Tensor,
 
 def _surface6(mask: torch.Tensor) -> torch.Tensor:
     """Surface voxels of (N, D, H, W) masks under 6-connectivity erosion
-    with a zero border (scipy ``binary_erosion`` default)."""
+    with a zero border (scipy ``binary_erosion`` default).  Made from the
+    padded copy, so the result is contiguous whatever ``mask``'s layout
+    (the tester's labels arrive transposed) and the EDT's kernels read it
+    in place."""
     p = F.pad(mask, (1, 1, 1, 1, 1, 1), value=False)
     c = p[:, 1:-1, 1:-1, 1:-1]
     eroded = (c
               & p[:, :-2, 1:-1, 1:-1] & p[:, 2:, 1:-1, 1:-1]
               & p[:, 1:-1, :-2, 1:-1] & p[:, 1:-1, 2:, 1:-1]
               & p[:, 1:-1, 1:-1, :-2] & p[:, 1:-1, 1:-1, 2:])
-    return mask & ~eroded
+    return c & ~eroded
 
 
 def _surface_distance_stats(a: torch.Tensor, b: torch.Tensor):
     """(max, sum, count) over all N volumes of the distances from
     surface(a) to surface(b); a, b: (N, D, H, W) bool.  The EDT runs once
-    for all N volumes (one K5 launch per pass)."""
+    for all N volumes (two K5 kernel launches on the card)."""
     sa = _surface6(a)
     dist_to_b = edt_to_sites(_surface6(b), axes=(1, 2, 3))
     d = torch.where(sa, dist_to_b, torch.zeros_like(dist_to_b))

@@ -59,7 +59,9 @@ SIGNATURES = {
     # z_pad, bias_table, act, alpha, n_blocks, stream
     "conv3x3_bwd_dw_f32": _BWD_DW,
     "conv3x3_bwd_dw_bf16": _BWD_DW,
-    # f, out, n_lines, n, stream
+    # sites, out, tmp, N, D, H, W, stream
+    "edt_sites_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # f, out, n_rows, n, stream
     "edt_parabola_f32": [_P, _P, _LL, _I, _P],
 }
 

@@ -101,3 +101,73 @@ def test_signed_edt_matches_jax():
     want = np.asarray(jax_edt.signed_edt(jnp.asarray(vol)))
     np.testing.assert_allclose(got, want, atol=1e-4)
     assert got[6, 6, 6] > 0 and got[0, 0, 0] < 0
+
+
+# Site masks (N, D, H, W) for the whole-transform tests: odd sizes, an axis
+# of length 1, lines and planes without a site, a volume without any site.
+_SITE_CASES = ("odd-5x7x33", "d1", "h1", "w1", "empty-columns",
+               "empty-planes", "empty-volume")
+
+
+def _sites(case):
+    rs = np.random.RandomState(_SITE_CASES.index(case) + 10)
+    shape = {"odd-5x7x33": (2, 5, 7, 33), "d1": (2, 1, 9, 12),
+             "h1": (1, 6, 1, 11), "w1": (1, 6, 9, 1),
+             "empty-columns": (1, 9, 8, 10), "empty-planes": (1, 7, 10, 9),
+             "empty-volume": (2, 5, 6, 7)}[case]
+    sites = rs.rand(*shape) < 0.1
+    if case == "empty-columns":          # (h, w) columns without a site
+        sites[:, :, rs.rand(*shape[2:]) < 0.5] = False
+    elif case == "empty-planes":         # a D plane and an H plane
+        sites[:, 3] = False
+        sites[:, :, 4] = False
+    elif case == "empty-volume":
+        sites[0] = False
+    return sites
+
+
+@pytest.mark.parametrize("case", _SITE_CASES)
+def test_edt_sites_plain_matches_jax_bitwise(case):
+    sites = _sites(case)
+    got = edt.edt_sites_plain(torch.from_numpy(sites)).numpy()
+    want = np.asarray(jax_edt._edt_from_sites(jnp.asarray(sites),
+                                              axes=(1, 2, 3)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        edt.edt_to_sites(torch.from_numpy(sites), axes=(1, 2, 3)).numpy(),
+        want)
+    if case == "empty-volume":
+        assert np.all(got[0] == np.float32(np.sqrt(np.float32(1e12))))
+
+
+def _scan_d_rule(sites):
+    """The card's f2 rule along D (kernel A of csrc/edt_sites.cu), in
+    numpy: the least (z - d)^2 over the column's sites, else 1e12f."""
+    depth = sites.shape[1]
+    z = np.arange(depth)
+    dist = np.abs(z[:, None] - z[None, :])                    # (d, z)
+    best = np.where(sites[:, None], dist[None, :, :, None, None],
+                    depth).min(axis=2)
+    k = best.astype(np.float32)
+    return np.where(best < depth, k * k, np.float32(edt._BIG))
+
+
+@pytest.mark.parametrize("case", _SITE_CASES)
+def test_scan_d_rule_equals_plain_clamped_scan(case):
+    sites = _sites(case)
+    d = edt._nearest_site_dist1d(torch.from_numpy(sites), 1)
+    plain = torch.clamp(d * d, max=edt._BIG).numpy()
+    rule = _scan_d_rule(sites)
+    assert rule.dtype == plain.dtype == np.float32
+    np.testing.assert_array_equal(rule, plain)
+
+
+def test_cpu_transforms_never_touch_the_kernel_counters():
+    sites = torch.from_numpy(_sites("odd-5x7x33"))
+    before = (edt.edt_sites.launches, edt.edt_parabola.launches)
+    edt.edt_to_sites(sites, axes=(1, 2, 3))
+    edt.edt_to_sites(sites[0])
+    edt.edt_sites(sites)
+    edt.distance_transform_edt(sites[1])
+    edt.signed_edt(sites[0].float())
+    assert (edt.edt_sites.launches, edt.edt_parabola.launches) == before

@@ -86,6 +86,20 @@ def test_surface6_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
+def test_surface6_of_a_transposed_mask_is_contiguous_and_matches_jax():
+    """The tester's labels arrive with D fastest; the surface mask the EDT
+    reads must still be contiguous (its kernels read it in place)."""
+    a, _ = _pair(6)
+    m = a > 0.5
+    transposed = torch.from_numpy(np.ascontiguousarray(m.transpose(2, 1, 0))
+                                  ).permute(2, 1, 0)[None]
+    assert not transposed.is_contiguous()
+    got = metrics._surface6(transposed)
+    assert got.is_contiguous()
+    want = np.asarray(jax_metrics._surface6(jnp.asarray(m)))
+    np.testing.assert_array_equal(got[0].numpy(), want)
+
+
 def test_batch_dice_loss_matches_jax():
     rs = np.random.RandomState(5)
     out = rs.rand(2, 4, 5, 6, 2).astype(np.float32)
