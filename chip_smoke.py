@@ -53,6 +53,22 @@ non-zero without one.  Phases:
    the EDT's device time per case inside those cases, with its kernels and
    with the parent composition, beside the same masks' EDTs back to back,
    after an L2 flush and after an idle gap;
+4b. CAE phase: the port's shape tester CLI (``cli.test_shape_reconstruction``,
+   no ``--device``: the card) at the reference width (channels 1 16 24 32
+   100 200 1, seeded weights, BN statistics the moments of each layer's
+   input over three blobs so that the reconstructions follow the latent,
+   written with ``save_cae_checkpoint``) on the three synthetic cases
+   (28x128x128 masks); K1 and K5 launches per case; every K1 and
+   edt_sites call of one case held on its own inputs against its plain
+   version; the float32 K1 at each distinct layer of a case (recorded at
+   the wrapper) against its plain version and a float64 conv, timed beside
+   cuDNN with the bound, summed per case; a torch.profiler trace of its
+   cases (device busy, K1's share); one case on the card against the CPU
+   (latents and reconstructions, the measures); the curve tester CLI on
+   one case; its three sweeps recorded as the case was (every call on its
+   own inputs, then K1 at each distinct layer, N = 1 to 11); each sweep
+   batched (timed) against the serial forwards, element by element and by
+   the measures, its first and last step required to differ;
 5. training phase: the port's training CLI at the reference width and
    patch in its default bfloat16 on eight full-size synthetic cases (six
    train, two validate, batch 6, three epochs); the launch counts of K1-K5
@@ -959,6 +975,437 @@ def edt_metrics_vs_plain(torch, tester, batch):
                              "were not compared")
 
 
+# The CAE serving path at the reference width (--channelscae default):
+# per tester case 3 encodes x 7 K1 layers + 4 decodes x 6, and two EDT calls
+# for each of the three binary_measures; a sweep of the curve tester
+# encodes the core and penumbra and decodes them and its batched
+# interpolations once each
+CAE_CHANNELS = (1, 16, 24, 32, 100, 200, 1)
+CAE_DHW = (28, 128, 128)  # the masks, 256 x 256 x 28 resampled by 0.5
+CAE_K1_PER_CASE = 3 * 7 + 4 * 6
+CAE_EDT_PER_CASE = 6
+CAE_SWEEP_K1, CAE_SWEEP_EDT = 2 * 7 + 3 * 6, 2
+CAE_ATOL = 1e-4           # card vs CPU reconstructions and latents
+CAE_DICE_ATOL = 1e-5      # card vs CPU, and batched sweep vs serial: Dice
+CAE_ASSD_ATOL = 1e-3      # batched sweep vs serial: ASSD (tests/test_eval.py)
+CAE_MIN_MOVED = 0.01      # a sweep's first vs last step: voxels apart
+CAE_FIELDS = ("core", "penu", "lesion", "interpolation")
+CAE_MEASURED = {"lesion": "interpolation", "core": "core", "penu": "penu"}
+
+
+def cae_blobs(torch, dhw, radii=(0.45, 0.7, 1.0)):
+    """(len(radii), D, H, W, 1) masks of nested ellipsoids, scaled by
+    ``radii``."""
+    d, h, w = torch.meshgrid(*(torch.arange(n, dtype=torch.float32)
+                               for n in dhw), indexing="ij")
+    r2 = (((d - dhw[0] / 2) / 8) ** 2 + ((h - dhw[1] * 0.47) / (
+        dhw[1] / 5)) ** 2 + ((w - dhw[2] * 0.55) / (dhw[2] / 4)) ** 2)
+    return torch.stack([(r2 < r * r).float() for r in radii])[..., None]
+
+
+def cae_model(torch, channels=CAE_CHANNELS, dhw=CAE_DHW):
+    """The CAE with seeded weights and BN scales and biases.  Its BN
+    statistics are the moments of each layer's input over three nested
+    blobs, as a trained model's running statistics are of its data, so
+    that each layer passes its input's variation on and the
+    reconstructions follow the latent.  The last bias is set so that the
+    middle blob's reconstruction has its median at 0.5: the thresholded
+    reconstructions then hold both classes."""
+    from stroke_prediction_tpu_torch.models.cae3d import Cae3D, Dec3D, Enc3D
+    from stroke_prediction_tpu_torch.models.layers import BatchNorm
+
+    gen = torch.Generator().manual_seed(2)
+    model = Cae3D(Enc3D(channels, generator=gen),
+                  Dec3D(channels, generator=gen))
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    blobs = cae_blobs(torch, dhw)
+    last = model.dec.decoder.convs[-1]         # its output: the logits
+    logits = []
+    hook = last.register_forward_hook(lambda m, a, y: logits.append(y))
+    with torch.no_grad():
+        for m in bns:
+            m.scale.uniform_(0.8, 1.2, generator=gen)
+            m.bias.uniform_(-0.1, 0.1, generator=gen)
+            m.momentum = 0.0            # the running statistics := batch's
+        model.train().dec.decoder(model.enc.encoder(blobs))
+        for m in bns:
+            m.momentum = 0.9
+        model.eval().dec.decoder(model.enc.encoder(blobs[1:2]))
+        hook.remove()
+        last.bias -= logits[-1].median()
+    return model
+
+
+def cae_recorded(torch, run):
+    """``run()`` with K1's and edt_sites' wrappers recorded as the model and
+    the measures call them, each call held on its own inputs against its
+    plain version (K1 within K1_TOL, edt_sites equal) -> ({(N, D, H, W,
+    C_in, C_out, mode, plane table, act): K1 calls}, {mask shape:
+    edt_sites calls}, K1's max |err|)."""
+    from stroke_prediction_tpu_torch.ops import conv3x3 as conv_mod
+    from stroke_prediction_tpu_torch.ops import edt as edt_mod
+
+    conv, edt = conv_mod.conv3x3, edt_mod.edt_sites
+    k1, sites, worst = {}, {}, [0.0]
+
+    def k1_record(x, kernel, bias, act="none", alpha=0.01, mode="v"):
+        key = (*x.shape, kernel.shape[-1], mode, bias.ndim == 2, act)
+        k1[key] = k1.get(key, 0) + 1
+        y = conv(x, kernel, bias, act, alpha, mode)
+        ref = conv_mod.conv3x3_plain(x, kernel, bias, act, alpha, mode)
+        torch.testing.assert_close(y, ref, **K1_TOL)
+        worst[0] = max(worst[0], float((y - ref).abs().max()))
+        return y
+
+    def edt_record(mask):
+        out = edt(mask)
+        if not torch.equal(out, edt_mod.edt_sites_plain(mask)):
+            raise AssertionError(f"edt_sites on a {tuple(mask.shape)} mask "
+                                 f"of the CAE path differs from its plain "
+                                 f"version")
+        sites[tuple(mask.shape)] = sites.get(tuple(mask.shape), 0) + 1
+        return out
+
+    # each kernel's wrapper counts into its module's attribute by name
+    k1_record.launches = edt_record.launches = 0
+    conv_mod.conv3x3, edt_mod.edt_sites = k1_record, edt_record
+    try:
+        with torch.inference_mode():
+            run()
+    finally:
+        conv_mod.conv3x3, edt_mod.edt_sites = conv, edt
+    return k1, sites, worst[0]
+
+
+def cae_check_recorded(name, k1, sites, worst, n_k1, edt_shapes):
+    """The recorded calls of a CAE run: ``n_k1`` K1 calls and edt_sites
+    called at ``edt_shapes`` ({mask shape: calls})."""
+    print(f"cae: {name}: {sum(k1.values())} K1 calls on their own inputs "
+          f"within {K1_TOL} of plain (max |err| {worst:.3e}); edt_sites "
+          f"{sites} equal to plain")
+    if sum(k1.values()) != n_k1 or sites != edt_shapes:
+        raise AssertionError(f"{name}: expected {n_k1} K1 calls and "
+                             f"edt_sites at {edt_shapes}")
+
+
+def cae_kernel_phase(torch, calls, per):
+    """The float32 K1 at every distinct layer of ``calls`` (as
+    :func:`cae_recorded` gives them) against its plain version and a
+    float64 conv, timed beside cuDNN's conv; sums ``per`` (each layer times
+    its calls)."""
+    import torch.nn.functional as F
+
+    from stroke_prediction_tpu_torch.ops.conv3x3 import (
+        MODES, conv3x3, conv3x3_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops=0.0,
+               bytes=0.0, max_abs_err=0.0, max_rel_err_f64=0.0, launches=0)
+    print(f"\nK1 at the CAE's layers {per} (float32, ELU 1.0, 3xTF32; x n = "
+          f"calls; bias a plane table or a vector; cuDNN with the vector "
+          f"bias, no activation):")
+    for (nb, d, h, w, ci, co, mode, table, act), n in calls.items():
+        d_out = d if mode == "s" else d - 2
+        bnd = (27 * ci) ** -0.5
+        x = uniform((nb, d, h, w, ci), -1.0, 1.0)
+        k = uniform((3, 3, 3, ci, co), -bnd, bnd)
+        b = uniform((d_out, co) if table else (co,), -bnd, bnd)
+        y = conv3x3(x, k, b, act, 1.0, mode)
+        ref = conv3x3_plain(x, k, b, act, 1.0, mode)
+        ref64 = conv3x3_plain(x.double(), k.double(), b.double(), act, 1.0,
+                              mode)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        torch.testing.assert_close(y, ref, **K1_TOL)
+        f64 = rel_err(y.double(), ref64)
+        if f64 > F64_REL:
+            raise AssertionError(f"K1 CAE layer {d}x{h}x{w} {ci}->{co}: "
+                                 f"{f64:.3e} of max|ref| off float64")
+        del ref64
+        x_lib = x.permute(0, 4, 1, 2, 3)
+        w_lib = k.permute(4, 3, 0, 1, 2).contiguous()
+        b_lib = b[0].contiguous() if table else b
+        ms = cuda_ms(torch, lambda: conv3x3(x, k, b, act, 1.0, mode), 10)
+        plain = cuda_ms(torch, lambda: conv3x3_plain(x, k, b, act, 1.0,
+                                                     mode), 10)
+        lib = cuda_ms(torch, lambda: F.conv3d(
+            x_lib, w_lib, b_lib, padding=(MODES[mode], 0, 0)), 10)
+        ops = 2.0 * 27 * ci * co * nb * d_out * (h - 2) * (w - 2)
+        nbytes = 4.0 * (x.numel() + k.numel() + b.numel() + y.numel())
+        bms, by = bound_ms(ops, nbytes, "tf32x3")
+        print(f"  in {nb}x{d}x{h}x{w} {ci:>3}->{co:<3} '{mode}' "
+              f"{'table ' if table else 'vector'} x{n}  {ops / 1e9:6.3f} "
+              f"GFLOP  kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s, "
+              f"tile eff. {tile_efficiency((h - 2, w - 2), K1_TILE):.3f})  "
+              f"plain {plain:.4f} ms  cuDNN {lib:.4f} ms  bound {bms:.4f} "
+              f"({by[0]}) ms  err vs plain {err:.3e}, vs f64 {f64:.3e}")
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", bms), ("ops", ops), ("bytes", nbytes)):
+            tot[key] += n * v
+        tot["launches"] += n
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        tot["max_rel_err_f64"] = max(tot["max_rel_err_f64"], f64)
+        del x, k, b, y, ref, x_lib, w_lib, b_lib
+    tot["bound_by"] = bound_ms(tot["ops"], tot["bytes"], "tf32x3")[1]
+    print(f"  {per} ({tot['launches']} launches): "
+          f"{tot['ops'] / 1e9:.2f} GFLOP  kernel {tot['ms']:.4f} ms "
+          f"({tot['ops'] / tot['ms'] / 1e9:.1f} TFLOP/s)  plain "
+          f"{tot['plain_ms']:.4f} ms  cuDNN {tot['library_ms']:.4f} ms  "
+          f"bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}; the sum's "
+          f"own: {bound_ms(tot['ops'], tot['bytes'], 'tf32x3')[0]:.4f})  "
+          f"max err vs f64 {tot['max_rel_err_f64']:.3e} of max|ref|")
+    return tot
+
+
+def cae_check_cli_run(name, tester, launches, per_case_k1, per_case_edt):
+    """The launches of a CAE CLI run: K1 and edt_sites as its cases need
+    them, no backward kernel and no single EDT pass."""
+    n = len(tester.case_seconds)
+    print(f"cae: {name} on {n} case(s); launches {launches}; per case K1 "
+          f"{launches['conv3x3'] / n:g}, edt_sites "
+          f"{launches['edt_sites'] / n:g}")
+    if any(launches[k] for k in ("conv3x3_bwd_fused", "conv3x3_bwd_dx",
+                                 "conv3x3_bwd_dw", "edt_parabola")):
+        raise AssertionError(f"{name} launched a backward kernel or a "
+                             f"single EDT pass")
+    if (launches["conv3x3"] != per_case_k1 * n
+            or launches["edt_sites"] != per_case_edt * n):
+        raise AssertionError(f"{name}: expected {per_case_k1} K1 and "
+                             f"{per_case_edt} edt_sites launches a case")
+
+
+def cae_phase(torch, work):
+    """The CAE serving path on the card: the shape tester's CLI on three
+    full-size cases, K1 at its layers, a profile of its cases, one case
+    against the CPU, and the curve tester's CLI on one case with its
+    batched sweeps against the serial forwards."""
+    from stroke_prediction_tpu_torch.cli import test_shape_reconstruction
+    from stroke_prediction_tpu_torch.eval.cae_tester import (
+        CaeReconstructionTester)
+    from stroke_prediction_tpu_torch.models.convert import (
+        save_cae_checkpoint)
+    from stroke_prediction_tpu_torch.utils.args import get_args_shape_testing
+    from stroke_prediction_tpu_torch.utils.nifti import read_nifti
+
+    ckpt = os.path.join(work, "cae.model")
+    save_cae_checkpoint(ckpt, cae_model(torch))
+    base = os.path.join(work, "shape")
+    # no --device: the CLI's default, the card
+    args = get_args_shape_testing(["--path", ckpt, "--fold", *map(str, FOLD),
+                                   "--synthetic", "--outbasepath", base])
+    reset_launches()
+    t0 = time.perf_counter()
+    (tester,) = test_shape_reconstruction.test(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if tester.device.type != "cuda" or len(tester.case_seconds) != len(FOLD):
+        raise AssertionError(f"the shape tester ran {tester.case_seconds} "
+                             f"on {tester.device}")
+    cae_check_cli_run("shape tester CLI", tester, launches, CAE_K1_PER_CASE,
+                      CAE_EDT_PER_CASE)
+    steady = tester.case_seconds[1:]
+    infer_ms = 1e3 * sum(s[1] for s in steady) / len(steady)
+    total_ms = 1e3 * sum(s[2] for s in steady) / len(steady)
+    print(f"cae: CLI wall {wall:.2f} s; ms per case after the first: "
+          f"{infer_ms:.2f} to metrics on the host (forward + three "
+          f"measures), {total_ms:.2f} incl. the three NIfTI dumps; per case "
+          f"(id, s, s): {tester.case_seconds}")
+    for cid, _, _ in tester.case_seconds:
+        for part in ("_core", "_pred", "_penu"):
+            vol, _ = read_nifti(f"{base}_{cid}{part}.nii.gz")
+            if vol.shape != (256, 256, 28) or not (
+                    vol.min() >= 0.0 and vol.max() <= 1.0):
+                raise AssertionError(f"case {cid}{part}: shape {vol.shape} "
+                                     f"or values outside [0, 1]")
+
+    loader = tester._dataloader
+    batch = loader.dataset.stack([loader.indices[0]])
+    k1_calls, edt_calls, worst = cae_recorded(
+        torch, lambda: tester.infer_batch(batch))
+    cae_check_recorded("one shape tester case", k1_calls, edt_calls, worst,
+                       CAE_K1_PER_CASE, {(1, *CAE_DHW): CAE_EDT_PER_CASE})
+    k1 = cae_kernel_phase(torch, k1_calls, "per CAE tester case")
+    busy_ms, k1_busy = cae_profile(torch, tester, batch, infer_ms)
+
+    # one case on the card and on the CPU (plain versions)
+    with torch.inference_mode():
+        m_gpu, dto_gpu = tester.infer_batch(batch)
+        cpu = CaeReconstructionTester(loader, ckpt, base + "_cpu", 10, "cpu")
+        t0 = time.perf_counter()
+        m_cpu, dto_cpu = cpu.infer_batch(batch)
+        cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for part in ("latents", "reconstructions"):
+        for f in CAE_FIELDS:
+            a = getattr(getattr(dto_gpu, part).gtruth, f).cpu()
+            b = getattr(getattr(dto_cpu, part).gtruth, f)
+            if a.shape != b.shape or not torch.isfinite(a).all():
+                raise AssertionError(f"{part} {f}: {tuple(a.shape)} on the "
+                                     f"card, {tuple(b.shape)} on the CPU")
+            worst = max(worst, float((a - b).abs().max()))
+    print(f"cae: case {int(batch['case_id'][0])} card vs CPU max|err| of the "
+          f"latents and reconstructions {worst:.3e} (CPU plain path "
+          f"{cpu_s:.1f} s)")
+    if worst > CAE_ATOL:
+        raise AssertionError(f"card and CPU CAE outputs differ by {worst}")
+    for name, field in CAE_MEASURED.items():
+        a = getattr(dto_gpu.reconstructions.gtruth, field).cpu() > 0.5
+        b = getattr(dto_cpu.reconstructions.gtruth, field) > 0.5
+        flips = int((a != b).sum())
+        g, c = m_gpu[name], m_cpu[name]
+        print(f"cae: {name} Dice {g.dc:.6f} / {c.dc:.6f}, HD {g.hd:.4f} / "
+              f"{c.hd:.4f}, ASSD {g.assd:.4f} / {c.assd:.4f} (card / CPU); "
+              f"{flips} voxels thresholded apart, of {a.sum()} / {b.sum()} "
+              f"foreground")
+        # equal masks: equal Dice; else each voxel apart moves Dice by at
+        # most 3 / (|card mask| + |CPU mask|)
+        limit = (3.0 * flips / max(1, int(a.sum() + b.sum())) if flips
+                 else CAE_DICE_ATOL)
+        if abs(g.dc - c.dc) > limit:
+            raise AssertionError(f"{name} Dice: card {g.dc} vs CPU {c.dc} "
+                                 f"({flips} voxels apart)")
+    sweeps, k1_curve = cae_curve(torch, ckpt, base + "_curve")
+    return dict(launches=launches, infer_ms=infer_ms, total_ms=total_ms,
+                k1=k1, busy_ms=busy_ms, k1_busy=k1_busy, sweeps=sweeps,
+                k1_curve=k1_curve)
+
+
+def cae_profile(torch, tester, batch, infer_ms, reps=3):
+    """Device time per CAE tester case by kernel (torch.profiler) and its
+    share of the unprofiled ms per case."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            tester.infer_batch(batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    if not busy_ms:
+        raise AssertionError("cae profile: no device time in the trace")
+    groups = kernel_groups(kernels, reps)
+    k1 = groups.get("K1 conv forward", (0.0, 0.0))
+    print(f"cae profile: device busy {busy_ms:.3f} ms per case of "
+          f"{infer_ms:.2f} ms ({100 * busy_ms / infer_ms:.1f}% busy) in "
+          f"{sum(e.count for e in kernels) / reps:.0f} kernels; K1 "
+          f"{k1[0]:.3f} ms ({100 * k1[0] / busy_ms:.1f}%, x{k1[1]:g})")
+    print("  by kernel, per case: " + "; ".join(
+        f"{g} {ms:.3f} ms ({100 * ms / busy_ms:.1f}%, x{n:g})"
+        for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        ms = e.self_device_time_total / 1e3 / reps
+        print(f"  {ms:8.4f} ms {100 * ms / busy_ms:5.1f}%  x{e.count / reps:g}"
+              f"  {e.key[:90]}")
+    if k1[1] != CAE_K1_PER_CASE:
+        raise AssertionError(f"the profiled CAE case ran {k1[1]:g} K1 "
+                             f"kernels, expected {CAE_K1_PER_CASE}")
+    return busy_ms, k1
+
+
+def cae_curve(torch, ckpt, base):
+    """The curve tester's CLI on one case, K1 at its sweeps' layers, then
+    each of its three sweeps batched (timed) against the serial forwards
+    at the same steps."""
+    from stroke_prediction_tpu_torch.cli import (
+        test_shape_reconstruction_CurveAnalysis as curve_cli)
+    from stroke_prediction_tpu_torch.utils.args import get_args_shape_testing
+
+    args = get_args_shape_testing(["--path", ckpt, "--fold", str(FOLD[0]),
+                                   "--synthetic", "--outbasepath", base])
+    reset_launches()
+    t0 = time.perf_counter()
+    (curve,) = curve_cli.test(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cae_check_cli_run("curve tester CLI", curve, read_launches(),
+                      CAE_K1_PER_CASE + 3 * CAE_SWEEP_K1,
+                      CAE_EDT_PER_CASE + 3 * CAE_SWEEP_EDT)
+    print(f"cae: curve CLI wall {wall:.2f} s (one case, NIfTI dumps "
+          f"included)")
+
+    loader = curve._dataloader
+    batch = loader.dataset.stack([loader.indices[0]])
+    k1 = cae_kernel_phase(torch, cae_sweep_calls(torch, curve, batch),
+                          "per curve case's three sweeps")
+    return cae_sweeps_vs_serial(torch, curve, batch), k1
+
+
+def cae_sweep_calls(torch, curve, batch):
+    """K1's calls in the case's three sweeps, each K1 and edt_sites call
+    held on its own inputs against its plain version."""
+    _, sweeps = curve.sweeps(batch)
+    k1_calls, edt_calls, worst = cae_recorded(torch, lambda: [
+        curve.infer_batch_steps(batch, steps) for steps, _ in sweeps])
+    edt_want = {}
+    for steps, _ in sweeps:
+        key = (len(steps), *CAE_DHW)
+        edt_want[key] = edt_want.get(key, 0) + CAE_SWEEP_EDT
+    cae_check_recorded("the curve case's three sweeps", k1_calls, edt_calls,
+                       worst, 3 * CAE_SWEEP_K1, edt_want)
+    return k1_calls
+
+
+def cae_sweeps_vs_serial(torch, curve, batch):
+    """Each sweep batched (timed) against the serial forwards at its steps,
+    element by element and by the measures; the reconstruction must follow
+    the step -> {sweep: (steps, ms)}."""
+    _, sweeps = curve.sweeps(batch)
+    out = {}
+    for name, (steps, _) in zip(("fixed", "relative", "uniform"), sweeps):
+        with torch.inference_mode():
+            curve.infer_batch_steps(batch, steps)          # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batched, dto = curve.infer_batch_steps(batch, steps)
+            ms = 1e3 * (time.perf_counter() - t0)
+            serial = [curve.infer_batch(batch, s) for s in steps]
+        rec = dto.reconstructions.gtruth.interpolation
+        lat = dto.latents.gtruth.interpolation
+        worst = 0.0
+        for i, (s, a, (m, one)) in enumerate(zip(steps, batched, serial)):
+            b = m["lesion"]
+            worst = max(worst, float((rec[i] - one.reconstructions.gtruth
+                                      .interpolation[0]).abs().max()),
+                        float((lat[i] - one.latents.gtruth.interpolation[0])
+                              .abs().max()))
+            same_inf = a.assd == b.assd == float("inf")
+            if (abs(a.dc - b.dc) > CAE_DICE_ATOL
+                    or not (same_inf or abs(a.assd - b.assd)
+                            <= CAE_ASSD_ATOL)):
+                raise AssertionError(f"sweep {name} step {s}: batched "
+                                     f"{a} vs serial {b}")
+        if worst > CAE_ATOL:
+            raise AssertionError(f"sweep {name}: a batched interpolation "
+                                 f"latent or reconstruction is {worst} off "
+                                 f"its serial one")
+        # the reconstructions follow the step, so a wrong step or a swapped
+        # sample would show in the comparisons above
+        moved = float(((rec[0] > 0.5) != (rec[-1] > 0.5)).float().mean())
+        dice_moved = abs(batched[0].dc - batched[-1].dc)
+        out[name] = (len(steps), ms)
+        print(f"cae: {name} sweep of {len(steps)} steps {ms:.2f} ms "
+              f"batched (host clock, to the measures); equal to the serial "
+              f"forwards (latents and reconstructions {worst:.3e} <= "
+              f"{CAE_ATOL}, Dice {CAE_DICE_ATOL}, ASSD {CAE_ASSD_ATOL}); "
+              f"first vs last step: {100 * moved:.2f}% of the voxels "
+              f"thresholded apart, lesion Dice {dice_moved:.4f} apart; "
+              f"lesion Dice {[round(m.dc, 4) for m in batched]}")
+        if moved < CAE_MIN_MOVED or dice_moved <= CAE_DICE_ATOL:
+            raise AssertionError(f"sweep {name}: the reconstruction barely "
+                                 f"follows the step ({moved} of the voxels "
+                                 f"and {dice_moved} of Dice moved)")
+    return out
+
+
 def train_phase(torch, work):
     """The port's training CLI at the reference configuration on the card:
     launch counts per step, finite losses, artifacts, the best-valid model
@@ -1421,6 +1868,7 @@ def main():
     train_k, s_err = train_kernel_phase(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         t_launches, case_ms, edt_case = slice_phase(torch, work)
+        cae = cae_phase(torch, work)
         launches, step_ms, learner = train_phase(torch, work)
         step = step_vs_cpu(torch, learner)
 
@@ -1480,7 +1928,30 @@ def main():
                      "max_abs_err": k1["max_abs_err"],
                      "max_rel_err_f64": k1["max_rel_err_f64"],
                      "per": "one tester case (float32, batch 1; bound_ms "
-                            "in 3xTF32)"}),
+                            "in 3xTF32)"},
+             cae={"launches": cae["launches"]["conv3x3"],
+                  "launches_per_case": cae["k1"]["launches"],
+                  "gflop": cae["k1"]["ops"] / 1e9,
+                  **{key: cae["k1"][key] for key in (
+                      "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                      "max_abs_err", "max_rel_err_f64")},
+                  "in_case_device_ms": cae["k1_busy"][0],
+                  "per": "one CAE tester case (float32, batch 1, channels "
+                         "1 16 24 32 100 200 1, 28x128x128 masks; each "
+                         "layer's time times its calls; bound_ms in "
+                         "3xTF32; launches: the CLI run's 3 cases; "
+                         "in_case_device_ms: K1 inside the profiled "
+                         "cases)"},
+             cae_curve={"launches": cae["k1_curve"]["launches"],
+                        "gflop": cae["k1_curve"]["ops"] / 1e9,
+                        **{key: cae["k1_curve"][key] for key in (
+                            "ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by", "max_abs_err", "max_rel_err_f64")},
+                        "per": "the curve tester's three sweeps of one case "
+                               "(core and penumbra at batch 1, the 6, 9 "
+                               "and 11 interpolations decoded as one "
+                               "batch each); each layer's time times its "
+                               "calls; bound_ms in 3xTF32"}),
         dict({"name": "conv3x3_bwd_fused", "route": "cuda",
               "source": csrc + "conv3x3_bwd_tc.cu", "replaces": s2d + "491",
               "launches": launches["conv3x3_bwd_fused"]}, **per_step("K2"),
@@ -1524,6 +1995,9 @@ def main():
                     "per": f"one tester case: {EDT_PER_STEP} x one measured "
                            f"{EDT_TESTER} EDT; in_case: the EDT per case "
                            f"inside the tester's own profiled cases"},
+         "cae": {"launches": cae["launches"]["edt_sites"],
+                 "per": f"the CAE shape tester CLI's 3 cases, "
+                        f"{CAE_EDT_PER_CASE} a case"},
          "single_pass": {"name": "edt_parabola",
                          "launches": launches["edt_parabola"],
                          "ms": k5[(3584, 64)]["ms"],
@@ -1538,6 +2012,13 @@ def main():
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")
     print(f"tester ms per case (card, after the first case): {case_ms:.2f}")
+    print(f"CAE tester ms per case (card, after the first case): "
+          f"{cae['infer_ms']:.2f} to metrics, {cae['total_ms']:.2f} with the "
+          f"dumps; device busy {cae['busy_ms']:.3f} ms; K1 "
+          f"{cae['k1']['launches']} launches a case, {cae['k1']['ms']:.4f} ms "
+          f"(plain {cae['k1']['plain_ms']:.4f}, cuDNN "
+          f"{cae['k1']['library_ms']:.4f}, bound {cae['k1']['bound_ms']:.4f});"
+          f" curve sweeps (steps, ms) {cae['sweeps']}")
     print(f"training ms per step (card, bfloat16, mean of {TIMED_STEPS} "
           f"back to back, CUDA events): {step_ms:.3f}; card vs CPU float32 "
           f"step {step}; 's', 3 -> 4 and 192 -> 64 cases max|err| (and the "

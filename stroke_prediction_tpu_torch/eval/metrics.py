@@ -51,13 +51,14 @@ def _surface6(mask: torch.Tensor) -> torch.Tensor:
 
 
 def _surface_distance_stats(a: torch.Tensor, b: torch.Tensor):
-    """(max, sum, count) over all N volumes of the distances from
+    """(max, sum, count) per volume, each (N,), of the distances from
     surface(a) to surface(b); a, b: (N, D, H, W) bool.  The EDT runs once
     for all N volumes (two K5 kernel launches on the card)."""
     sa = _surface6(a)
     dist_to_b = edt_to_sites(_surface6(b), axes=(1, 2, 3))
     d = torch.where(sa, dist_to_b, torch.zeros_like(dist_to_b))
-    return torch.amax(d), torch.sum(d), torch.sum(sa)
+    axes = (1, 2, 3)
+    return torch.amax(d, axes), torch.sum(d, axes), torch.sum(sa, axes)
 
 
 def _to_b3(m: torch.Tensor) -> torch.Tensor:
@@ -71,20 +72,17 @@ def _to_b3(m: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unsupported mask rank {m.ndim}")
 
 
-def binary_measures(result: torch.Tensor, target: torch.Tensor,
-                    binary_threshold: float = 0.5,
-                    with_distances: bool = True) -> BinaryMeasures:
-    """Dice, HD, ASSD, precision, sensitivity, specificity for one
-    structure, as 0-d float32 tensors on the inputs' device."""
-    r = result > binary_threshold
-    t = target > binary_threshold
-    rf = r.reshape(-1).float()
-    tf = t.reshape(-1).float()
+def _measures(r: torch.Tensor, t: torch.Tensor, n: int,
+              with_distances: bool) -> BinaryMeasures:
+    """The measures of ``n`` groups of the thresholded masks' leading axis
+    (one group: the whole arrays), each field (n,)."""
+    rf = r.reshape(n, -1).float()
+    tf = t.reshape(n, -1).float()
 
-    tp = torch.sum(rf * tf)
-    fp = torch.sum(rf * (1 - tf))
-    fn = torch.sum((1 - rf) * tf)
-    tn = torch.sum((1 - rf) * (1 - tf))
+    tp = torch.sum(rf * tf, 1)
+    fp = torch.sum(rf * (1 - tf), 1)
+    fn = torch.sum((1 - rf) * tf, 1)
+    tn = torch.sum((1 - rf) * (1 - tf), 1)
     zero = torch.zeros_like(tp)
 
     def ratio(num, den):
@@ -99,14 +97,43 @@ def binary_measures(result: torch.Tensor, target: torch.Tensor,
     hd = assd = inf
     if with_distances:
         r3, t3 = _to_b3(r), _to_b3(t)
-        m1, s1, n1 = _surface_distance_stats(r3, t3)
-        m2, s2, n2 = _surface_distance_stats(t3, r3)
-        nonempty = torch.any(r) & torch.any(t)
-        hd = torch.where(nonempty, torch.maximum(m1, m2), inf)
-        assd = torch.where(nonempty,
-                           (s1 + s2) / torch.clamp(n1 + n2, min=1), inf)
+        m1, s1, n1 = (v.reshape(n, -1) for v in
+                      _surface_distance_stats(r3, t3))
+        m2, s2, n2 = (v.reshape(n, -1) for v in
+                      _surface_distance_stats(t3, r3))
+        nonempty = torch.any(r.reshape(n, -1), 1) & torch.any(
+            t.reshape(n, -1), 1)
+        hd = torch.where(nonempty, torch.maximum(m1.amax(1), m2.amax(1)),
+                         inf)
+        assd = torch.where(nonempty, (s1.sum(1) + s2.sum(1)) / torch.clamp(
+            n1.sum(1) + n2.sum(1), min=1), inf)
     return BinaryMeasures(dc=dc, hd=hd, assd=assd, precision=precision,
                           sensitivity=sensitivity, specificity=specificity)
+
+
+def binary_measures(result: torch.Tensor, target: torch.Tensor,
+                    binary_threshold: float = 0.5,
+                    with_distances: bool = True) -> BinaryMeasures:
+    """Dice, HD, ASSD, precision, sensitivity, specificity for one
+    structure, as 0-d float32 tensors on the inputs' device."""
+    m = _measures(result > binary_threshold, target > binary_threshold, 1,
+                  with_distances)
+    return BinaryMeasures(*(v[0] for v in _fields(m)))
+
+
+def binary_measures_per_sample(result: torch.Tensor, target: torch.Tensor,
+                               binary_threshold: float = 0.5,
+                               with_distances: bool = True
+                               ) -> BinaryMeasures:
+    """:func:`binary_measures` of each sample of (N, D, H, W, C) masks, each
+    field (N,): what the JAX package's ``vmap`` of ``binary_measures`` over
+    the leading axis computes, with one EDT call a direction for all N."""
+    return _measures(result > binary_threshold, target > binary_threshold,
+                     result.shape[0], with_distances)
+
+
+def _fields(m: BinaryMeasures):
+    return (m.dc, m.hd, m.assd, m.precision, m.sensitivity, m.specificity)
 
 
 def binary_measures_host(result, target, binary_threshold: float = 0.5,
@@ -114,6 +141,4 @@ def binary_measures_host(result, target, binary_threshold: float = 0.5,
     """:func:`binary_measures` with host floats (for printing/curves)."""
     m = binary_measures(torch.as_tensor(result), torch.as_tensor(target),
                         binary_threshold, with_distances)
-    vals = torch.stack([m.dc, m.hd, m.assd, m.precision, m.sensitivity,
-                        m.specificity]).tolist()
-    return BinaryMeasures(*vals)
+    return BinaryMeasures(*torch.stack(_fields(m)).tolist())

@@ -32,6 +32,13 @@ class Tester:
         return (self._path_outputs_base + "_" + str(case_id) + str(type_)
                 + str(suffix) + ".nii.gz")
 
+    def _case_index(self, case_id) -> Optional[int]:
+        ds = self._dataloader.dataset
+        for i in self._dataloader.indices:
+            if ds.case_id(i) == case_id:
+                return i
+        return None
+
     def _to_device(self, array) -> Optional[torch.Tensor]:
         if array is None:
             return None

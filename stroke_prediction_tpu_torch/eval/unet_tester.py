@@ -53,13 +53,6 @@ class UnetSegmentationTester(Tester):
         save_nifti(self._fn(case_id, "_penu", suffix),
                    self._to_native(seg_np[0, :, :, :, 1]), affine)
 
-    def _case_index(self, case_id):
-        ds = self._dataloader.dataset
-        for i in self._dataloader.indices:
-            if ds.case_id(i) == case_id:
-                return i
-        return None
-
     def print_inference(self, batch, metrics, out=None):
         print("Case Id {}:\t DC Core:{:.3},\tDC Penumbra:{:.3}".format(
             int(batch[KEY_CASE_ID][0]), metrics["core"].dc,

@@ -1,0 +1,272 @@
+"""3-D convolutional autoencoder (CAE) of lesion shapes (port of
+models/cae3d.py, evaluation path).
+
+* :class:`Enc3D` — ten BN -> conv -> ELU layers with z-only padding and
+  three stride-2 downsamples, mapping (B, 28, 128, 128, 1) masks to a
+  (B, 1, 10, 10, n_ch_fc) latent, and the latent interpolation
+  ``core + t * (penu - core)``.
+* :class:`Enc3DStep` — adds the clinical-scalar head that regresses the
+  interpolation step when no time to treatment is given.
+* :class:`Dec3D` — the 14-layer mirrored decoder.
+* :class:`Cae3D` — enc ∘ dec.
+
+The channel list ``[in, origin, down2x, down4x, down8x, fc, ..., classes]``
+is the ``--channelscae`` contract.  Structures (core, penumbra, lesion,
+interpolation) are encoded and decoded one pass each, the JAX package's
+default (``structure_batching()`` off).  The stride-1 3^3 convs run in K1
+(:mod:`..ops.conv3x3`): the encoder's z-SAME convs and its fc conv with BN
+folded in, the decoder's (1, 2, 2)-padded convs after BN.  The stride-2 and
+transposed convs are cuDNN's, the 1^3 convs matmuls.  Everything runs in
+float32.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from stroke_prediction_tpu_torch.core.dto import (
+    BRANCH_GTRUTH, CaeBranches, CaeDto)
+from stroke_prediction_tpu_torch.models.layers import (
+    BatchNorm, BnConvActBlock, Conv3d, ConvTranspose3d, Dense)
+from stroke_prediction_tpu_torch.ops.conv3x3 import activation
+
+
+def elu(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    return activation(x, "elu", alpha)
+
+
+def cae_latent_spatial(spatial: Tuple[int, int, int]) -> Tuple[int, int, int]:
+    """Latent (D, H, W) of an input (D, H, W), e.g. 28x128x128 -> 1x10x10."""
+    dz, hy, wx = spatial
+    for _ in range(2):     # two z-SAME, in-plane VALID convs, stride-2 pad 1
+        hy, wx = hy - 4, wx - 4
+        dz, hy, wx = ((v - 1) // 2 + 1 for v in (dz, hy, wx))
+    hy, wx = hy - 4, wx - 4                    # third pair of z-SAME convs
+    dz, hy, wx = ((v - 3) // 2 + 1 for v in (dz, hy, wx))  # stride-2 VALID
+    return dz - 2, hy - 2, wx - 2              # the fc conv, 3^3 VALID
+
+
+def interpolate_latent(latent_core: Optional[torch.Tensor],
+                       latent_penu: Optional[torch.Tensor],
+                       step: Optional[torch.Tensor]
+                       ) -> Optional[torch.Tensor]:
+    """``core + step * (penu - core)`` per sample; step (B, 1)."""
+    if latent_core is None or latent_penu is None:
+        return None
+    if step is None:
+        raise ValueError("Step must be given for interpolation!")
+    s = step.reshape(step.shape[0], 1, 1, 1, 1).to(latent_core.dtype)
+    return latent_core + s * (latent_penu - latent_core)
+
+
+def _reset(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    for m in module.modules():
+        if hasattr(m, "reset_parameters") and m is not module:
+            m.reset_parameters(generator)
+
+
+class EncoderStack(nn.Module):
+    """The encoder's ten BN -> conv -> ELU layers (cae3d.py ``EncoderStack``):
+    z-SAME pairs between stride-2 convs (padding 1, 1, then VALID) and a
+    VALID 3^3 fc conv."""
+
+    def __init__(self, channels: Sequence[int], alpha: float = 1.0):
+        super().__init__()
+        c_in, origin, d2, d4, d8, fc = channels[:6]
+        zpad, down = (1, 0, 0), (2, 2, 2)
+        layers = [(c_in, origin, {"padding": zpad}),
+                  (origin, origin, {"padding": zpad}),
+                  (origin, d2, {"strides": down, "padding": (1, 1, 1)}),
+                  (d2, d2, {"padding": zpad}), (d2, d2, {"padding": zpad}),
+                  (d2, d4, {"strides": down, "padding": (1, 1, 1)}),
+                  (d4, d4, {"padding": zpad}), (d4, d4, {"padding": zpad}),
+                  (d4, d8, {"strides": down}), (d8, fc, {})]
+        self.blocks = nn.ModuleList([
+            BnConvActBlock(ci, co, act="elu", act_param=alpha, **kw)
+            for ci, co, kw in layers])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        for block in self.blocks:
+            x = block(x)
+        return x
+
+
+class DecoderStack(nn.Module):
+    """The decoder's layers in the JAX package's order (cae3d.py
+    ``DecoderStack``, lax path): BN before each of four transposed convs,
+    six (1, 2, 2)-padded 3^3 convs and two 1^3 convs, ELU after all but the
+    last, then a sigmoid.  ``bns``, ``convs`` and ``cts`` are numbered as
+    flax numbers ``BatchNorm_i``, ``Conv3d_i`` and ``ConvTranspose3d_i``."""
+
+    # the decoder's layers: (kind, index into its list)
+    ORDER = (("ct", 0), ("ct", 1), ("conv", 0), ("conv", 1), ("ct", 2),
+             ("conv", 2), ("conv", 3), ("ct", 3), ("conv", 4), ("conv", 5),
+             ("conv", 6), ("conv", 7))
+
+    def __init__(self, channels: Sequence[int], alpha: float = 1.0):
+        super().__init__()
+        _, origin, d2, d4, d8, fc = channels[:6]
+        n_classes = channels[-1]
+        self.alpha = alpha
+        pad = {"padding": (1, 2, 2)}
+        self.cts = nn.ModuleList([
+            ConvTranspose3d(fc, d8, (3, 3, 3), (1, 1, 1)),
+            ConvTranspose3d(d8, d4, (3, 3, 3), (2, 2, 2)),
+            ConvTranspose3d(d2, d2, (2, 2, 2), (2, 2, 2)),
+            ConvTranspose3d(origin, origin, (2, 2, 2), (2, 2, 2))])
+        self.convs = nn.ModuleList([
+            Conv3d(d4, d4, **pad), Conv3d(d4, d2, **pad),
+            Conv3d(d2, d2, **pad), Conv3d(d2, origin, **pad),
+            Conv3d(origin, origin, **pad), Conv3d(origin, origin, **pad),
+            Conv3d(origin, origin, (1, 1, 1)),
+            Conv3d(origin, n_classes, (1, 1, 1))])
+        lists = {"ct": self.cts, "conv": self.convs}
+        self.bns = nn.ModuleList([              # BN over each layer's input
+            BatchNorm(lists[kind][i].kernel.shape[-2])
+            for kind, i in self.ORDER])
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        x = z.float()
+        last = len(self.ORDER) - 1
+        for n, ((kind, i), bn) in enumerate(zip(self.ORDER, self.bns)):
+            x = bn(x)
+            if kind == "ct":
+                x = elu(self.cts[i](x), self.alpha)
+            else:
+                x = self.convs[i](x, "none" if n == last else "elu",
+                                  self.alpha)
+        return torch.sigmoid(x)
+
+
+class Enc3D(nn.Module):
+    """The CAE encoder over the given branches (cae3d.py ``Enc3D``)."""
+
+    def __init__(self, channels: Sequence[int], n_ch_global: int = 5,
+                 alpha: float = 1.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.channels, self.n_ch_global = tuple(channels), n_ch_global
+        self.alpha = alpha
+        self.encoder = EncoderStack(self.channels, alpha)
+        self._build_head()
+        _reset(self, generator)
+
+    def _build_head(self) -> None:
+        pass
+
+    def _encode_many(self, xs: List[Optional[torch.Tensor]]):
+        return [None if x is None else self.encoder(x) for x in xs]
+
+    def _get_step(self, dto: CaeDto) -> Optional[torch.Tensor]:
+        return dto.given_variables.time_to_treatment
+
+    def forward(self, dto: CaeDto,
+                branches: CaeBranches = BRANCH_GTRUTH) -> CaeDto:
+        step = self._get_step(dto)
+        latents = dto.latents
+        given = dto.given_variables
+        if branches.gtruth:
+            core, penu, lesion = self._encode_many(
+                [given.gtruth.core, given.gtruth.penu, given.gtruth.lesion])
+            latents = replace(latents, gtruth=replace(
+                latents.gtruth, core=core, penu=penu, lesion=lesion,
+                interpolation=interpolate_latent(core, penu, step)))
+        if branches.inputs:
+            core, penu = self._encode_many([given.inputs.core,
+                                            given.inputs.penu])
+            latents = replace(latents, inputs=replace(
+                latents.inputs, core=core, penu=penu,
+                interpolation=interpolate_latent(core, penu, step)))
+        if step is not given.time_to_treatment:
+            # the learned step (Enc3DStep) is recorded for losses / testers
+            dto = replace(dto, given_variables=replace(
+                given, time_to_treatment=step))
+        return replace(dto, latents=latents)
+
+
+class Enc3DStep(Enc3D):
+    """Enc3D with the clinical-scalar step head (cae3d.py ``Enc3DStep``):
+    used when ``time_to_treatment`` is None."""
+
+    def _build_head(self) -> None:
+        g = self.n_ch_global
+        self.reduce1 = Dense(g, g)
+        self.reduce2 = Dense(g, g // 2)
+        self.step_head = Dense(g // 2, 1, kernel_init=(0.0, 0.001),
+                               bias_init=(0.5, 0.01))
+
+    def drop_head(self) -> None:
+        """Remove the head, as a tree written without it has none (flax
+        creates it at its first call); the step must then be given."""
+        self.reduce1 = self.reduce2 = self.step_head = None
+
+    def _get_step(self, dto: CaeDto) -> Optional[torch.Tensor]:
+        step = dto.given_variables.time_to_treatment
+        if step is None:
+            if self.step_head is None:
+                raise ValueError("this Enc3DStep has no step head: give a "
+                                 "time to treatment")
+            g = dto.given_variables.globals
+            h = elu(self.reduce1(g.reshape(g.shape[0], -1).float()),
+                    self.alpha)
+            h = elu(self.reduce2(h), self.alpha)
+            step = torch.sigmoid(self.step_head(h))
+        return step
+
+
+class Dec3D(nn.Module):
+    """The CAE decoder over the given branches (cae3d.py ``Dec3D``)."""
+
+    def __init__(self, channels: Sequence[int], n_ch_global: int = 5,
+                 alpha: float = 1.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.channels, self.n_ch_global = tuple(channels), n_ch_global
+        self.decoder = DecoderStack(self.channels, alpha)
+        _reset(self, generator)
+
+    def _decode_many(self, zs: List[Optional[torch.Tensor]]):
+        return [None if z is None else self.decoder(z) for z in zs]
+
+    def forward(self, dto: CaeDto,
+                branches: CaeBranches = BRANCH_GTRUTH) -> CaeDto:
+        recon = dto.reconstructions
+        if branches.gtruth:
+            lg = dto.latents.gtruth
+            core, penu, lesion, interp = self._decode_many(
+                [lg.core, lg.penu, lg.lesion, lg.interpolation])
+            recon = replace(recon, gtruth=replace(
+                recon.gtruth, core=core, penu=penu, lesion=lesion,
+                interpolation=interp))
+        if branches.inputs:
+            li = dto.latents.inputs
+            core, penu, interp = self._decode_many(
+                [li.core, li.penu, li.interpolation])
+            recon = replace(recon, inputs=replace(
+                recon.inputs, core=core, penu=penu, interpolation=interp))
+        return replace(dto, reconstructions=recon)
+
+
+class Cae3D(nn.Module):
+    """enc ∘ dec (cae3d.py ``Cae3D``)."""
+
+    def __init__(self, enc: Enc3D, dec: Dec3D):
+        super().__init__()
+        self.enc, self.dec = enc, dec
+
+    @property
+    def config(self) -> dict:
+        """The ``.model`` header of this model, as the JAX learner writes
+        it."""
+        return {"kind": "cae3d", "channels": list(self.enc.channels),
+                "n_ch_global": self.enc.n_ch_global,
+                "step": isinstance(self.enc, Enc3DStep)}
+
+    def forward(self, dto: CaeDto,
+                branches: CaeBranches = BRANCH_GTRUTH) -> CaeDto:
+        return self.dec(self.enc(dto, branches), branches)

@@ -1,16 +1,25 @@
-"""Weights across the two packages: the flax variable tree of ``Unet3D`` <->
-the port's ``Unet3D.state_dict()``.
+"""Weights across the two packages: the flax variable trees of ``Unet3D``
+and of the CAE models <-> the port's ``state_dict()``s.
 
-The port keeps the JAX layouts (conv kernels ``(kD, kH, kW, C_in, C_out)``,
-BN vectors), so the mapping is by name only:
+The port keeps the JAX layouts (conv and transposed-conv kernels ``(kD, kH,
+kW, C_in, C_out)``, dense kernels ``(C_in, C_out)``, BN vectors), so the
+mapping is by name only.  A BN -> conv block (``BnConvActBlock_{j}``):
 
-  params/UnetBlock_{i}/BnConvActBlock_{j}/Conv3d_0/{kernel,bias}
-      -> blocks.{i}.layers.{j}.conv.{kernel,bias}
-  params/UnetBlock_{i}/BnConvActBlock_{j}/BatchNorm_0/BatchNorm_0/{scale,bias}
-      -> blocks.{i}.layers.{j}.bn.{scale,bias}
-  batch_stats/UnetBlock_{i}/BnConvActBlock_{j}/BatchNorm_0/BatchNorm_0/{mean,var}
-      -> blocks.{i}.layers.{j}.bn.{mean,var}
-  params/Conv3d_{k}/{kernel,bias} -> head.{k}.{kernel,bias}
+  params/<block>/Conv3d_0/{kernel,bias} -> <block'>.conv.{kernel,bias}
+  params/<block>/BatchNorm_0/BatchNorm_0/{scale,bias} -> <block'>.bn.{...}
+  batch_stats/<block>/BatchNorm_0/BatchNorm_0/{mean,var} -> <block'>.bn.{...}
+
+U-Net (``unet3d``): ``UnetBlock_{i}/BnConvActBlock_{j}`` ->
+``blocks.{i}.layers.{j}``, ``Conv3d_{k}`` -> ``head.{k}``.
+
+CAE (``cae3d``; ``enc3d`` / ``enc3d_step`` are the encoder alone, its
+tree without the ``enc/`` level and its keys without ``enc.``):
+
+  enc/encoder/BnConvActBlock_{j}  -> enc.encoder.blocks.{j}
+  enc/{reduce1,reduce2,step_head}/{kernel,bias} -> enc.<same>  (step)
+  dec/decoder/BatchNorm_{i}/BatchNorm_0 -> dec.decoder.bns.{i}
+  dec/decoder/Conv3d_{i}               -> dec.decoder.convs.{i}
+  dec/decoder/ConvTranspose3d_{i}/ConvTranspose_0 -> dec.decoder.cts.{i}
 
 The optimizer state goes the same way: the optax tree that the JAX learner
 writes to ``.optim`` (``optax.inject_hyperparams`` around ``add_decayed_weights
@@ -34,25 +43,74 @@ import torch
 
 from stroke_prediction_tpu_torch.utils.checkpoint import save_checkpoint
 
+KeyMap = Iterator[Tuple[Tuple[str, ...], str]]
+
+# U-Net blocks, layers a block and head convs; CAE encoder blocks, decoder
+# BNs, 3^3 and 1^3 convs and transposed convs; Enc3DStep's head
 _N_BLOCKS, _N_LAYERS, _N_HEAD = 5, 2, 2
+_N_ENC, _N_DEC_BN, _N_DEC_CONV, _N_DEC_CT = 10, 12, 8, 4
+_STEP_HEAD = ("reduce1", "reduce2", "step_head")
 
 
-def _unet_key_map() -> Iterator[Tuple[Tuple[str, ...], str]]:
+def _params(jax_pre, pre) -> KeyMap:
+    for leaf in ("kernel", "bias"):
+        yield ("params",) + jax_pre + (leaf,), pre + leaf
+
+
+def _bn(jax_pre, pre) -> KeyMap:
+    for leaf in ("scale", "bias"):
+        yield ("params",) + jax_pre + (leaf,), pre + leaf
+    for leaf in ("mean", "var"):
+        yield ("batch_stats",) + jax_pre + (leaf,), pre + leaf
+
+
+def _block(jax_pre, pre) -> KeyMap:
+    yield from _params(jax_pre + ("Conv3d_0",), pre + "conv.")
+    yield from _bn(jax_pre + ("BatchNorm_0", "BatchNorm_0"), pre + "bn.")
+
+
+def _unet_key_map() -> KeyMap:
     for i in range(_N_BLOCKS):
         for j in range(_N_LAYERS):
-            jax_pre = (f"UnetBlock_{i}", f"BnConvActBlock_{j}")
-            pre = f"blocks.{i}.layers.{j}."
-            for leaf in ("kernel", "bias"):
-                yield ("params",) + jax_pre + ("Conv3d_0", leaf), \
-                    pre + "conv." + leaf
-            bn = jax_pre + ("BatchNorm_0", "BatchNorm_0")
-            for leaf in ("scale", "bias"):
-                yield ("params",) + bn + (leaf,), pre + "bn." + leaf
-            for leaf in ("mean", "var"):
-                yield ("batch_stats",) + bn + (leaf,), pre + "bn." + leaf
+            yield from _block((f"UnetBlock_{i}", f"BnConvActBlock_{j}"),
+                              f"blocks.{i}.layers.{j}.")
     for k in range(_N_HEAD):
-        for leaf in ("kernel", "bias"):
-            yield ("params", f"Conv3d_{k}", leaf), f"head.{k}.{leaf}"
+        yield from _params((f"Conv3d_{k}",), f"head.{k}.")
+
+
+def _encoder_key_map(jax_pre, pre, step: bool) -> KeyMap:
+    for j in range(_N_ENC):
+        yield from _block(jax_pre + ("encoder", f"BnConvActBlock_{j}"),
+                          f"{pre}encoder.blocks.{j}.")
+    if step:
+        for name in _STEP_HEAD:
+            yield from _params(jax_pre + (name,), pre + name + ".")
+
+
+def _cae_key_map(config: Dict[str, Any]) -> KeyMap:
+    """The CAE tree of a ``cae3d``, ``enc3d`` or ``enc3d_step`` header."""
+    kind = config["kind"]
+    if kind in ("enc3d", "enc3d_step"):
+        yield from _encoder_key_map((), "", kind == "enc3d_step")
+        return
+    if kind != "cae3d":
+        raise NotImplementedError(f"model kind {kind!r}: not ported yet")
+    yield from _encoder_key_map(("enc",), "enc.", bool(config.get("step")))
+    dec, pre = ("dec", "decoder"), "dec.decoder."
+    for i in range(_N_DEC_BN):
+        yield from _bn(dec + (f"BatchNorm_{i}", "BatchNorm_0"),
+                       f"{pre}bns.{i}.")
+    for i in range(_N_DEC_CONV):
+        yield from _params(dec + (f"Conv3d_{i}",), f"{pre}convs.{i}.")
+    for i in range(_N_DEC_CT):
+        yield from _params(dec + (f"ConvTranspose3d_{i}", "ConvTranspose_0"),
+                           f"{pre}cts.{i}.")
+
+
+def _key_map(config: Dict[str, Any]) -> KeyMap:
+    if config["kind"] == "unet3d":
+        return _unet_key_map()
+    return _cae_key_map(config)
 
 
 def _tree_get(tree, path):
@@ -67,21 +125,56 @@ def _tree_set(tree, path, value) -> None:
     tree[path[-1]] = value
 
 
+def _from_jax(state: Dict[str, Any], key_map: KeyMap
+              ) -> Dict[str, torch.Tensor]:
+    out = {}
+    for path, key in key_map:
+        try:
+            leaf = _tree_get(state, path)
+        except KeyError:
+            # flax creates Enc3DStep's head at its first call: a tree
+            # initialised with a time to treatment has none
+            if set(path) & set(_STEP_HEAD):
+                continue
+            raise
+        out[key] = torch.from_numpy(np.array(leaf, dtype=np.float32))
+    return out
+
+
+def _to_jax(state_dict: Dict[str, torch.Tensor], key_map: KeyMap
+            ) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for path, key in key_map:
+        if key not in state_dict and set(path) & set(_STEP_HEAD):
+            continue            # an Enc3DStep loaded without its head
+        _tree_set(tree, path, state_dict[key].detach().cpu().numpy().astype(
+            np.float32))
+    return tree
+
+
+def state_from_jax(state: Dict[str, Any], config: Dict[str, Any]
+                   ) -> Dict[str, torch.Tensor]:
+    """``{"params": ..., "batch_stats": ...}`` flax tree (numpy leaves) of a
+    model with the ``.model`` header ``config`` -> the port's state dict
+    (without the step head's entries where the tree has no head)."""
+    return _from_jax(state, _key_map(config))
+
+
+def state_to_jax(state_dict: Dict[str, torch.Tensor],
+                 config: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's state dict of a model with header ``config`` -> the flax
+    variable tree."""
+    return _to_jax(state_dict, _key_map(config))
+
+
 def unet_state_from_jax(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """``{"params": ..., "batch_stats": ...}`` flax tree (numpy leaves) ->
-    the port's ``Unet3D`` state dict."""
-    return {key: torch.from_numpy(np.array(_tree_get(state, path),
-                                           dtype=np.float32))
-            for path, key in _unet_key_map()}
+    """The flax tree of a ``Unet3D`` -> the port's ``Unet3D`` state dict."""
+    return _from_jax(state, _unet_key_map())
 
 
 def unet_state_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """The port's ``Unet3D`` state dict -> the flax variable tree."""
-    tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
-    for path, key in _unet_key_map():
-        _tree_set(tree, path, state_dict[key].detach().cpu().numpy().astype(
-            np.float32))
-    return tree
+    return _to_jax(state_dict, _unet_key_map())
 
 
 def save_unet_checkpoint(path: str, model) -> None:
@@ -90,6 +183,14 @@ def save_unet_checkpoint(path: str, model) -> None:
     ``unet_learner.py`` writes it)."""
     save_checkpoint(path, unet_state_to_jax(model.state_dict()),
                     {"kind": "unet3d", "channels": list(model.channels)})
+
+
+def save_cae_checkpoint(path: str, model) -> None:
+    """Write the port's ``Cae3D`` as a ``.model`` file that the JAX
+    package's ``load_model`` / CAE testers read (header as
+    ``cae_learners.py`` writes it)."""
+    save_checkpoint(path, state_to_jax(model.state_dict(), model.config),
+                    model.config)
 
 
 def _param_paths(model) -> List[Tuple[Tuple[str, ...], torch.nn.Parameter]]:

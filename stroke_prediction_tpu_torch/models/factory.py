@@ -1,5 +1,7 @@
 """Model reconstruction from checkpoint config headers (port of
-models/factory.py).  Only ``kind == "unet3d"`` is ported so far."""
+models/factory.py): the kinds ``unet3d``, ``cae3d`` (``step`` false or
+true), ``enc3d`` and ``enc3d_step``.  ``cae3d_ctp`` and ``large_unet3d``
+are not ported yet."""
 
 from __future__ import annotations
 
@@ -8,7 +10,9 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from stroke_prediction_tpu_torch.device import resolve_device
-from stroke_prediction_tpu_torch.models.convert import unet_state_from_jax
+from stroke_prediction_tpu_torch.models.cae3d import (
+    Cae3D, Dec3D, Enc3D, Enc3DStep)
+from stroke_prediction_tpu_torch.models.convert import state_from_jax
 from stroke_prediction_tpu_torch.models.unet3d import Unet3D
 from stroke_prediction_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -17,16 +21,29 @@ def build_model(config: Dict[str, Any]) -> torch.nn.Module:
     kind = config["kind"]
     if kind == "unet3d":
         return Unet3D(channels=tuple(config["channels"]))
+    ch, ng = tuple(config.get("channels", ())), config.get("n_ch_global", 5)
+    if kind == "cae3d":
+        enc_cls = Enc3DStep if config.get("step") else Enc3D
+        return Cae3D(enc=enc_cls(ch, ng), dec=Dec3D(ch, ng))
+    if kind in ("enc3d", "enc3d_step"):
+        return (Enc3DStep if kind == "enc3d_step" else Enc3D)(ch, ng)
     raise NotImplementedError(f"model kind {kind!r}: not ported yet")
 
 
 def load_model(path: str, device: Optional[Union[str, torch.device]] = None
                ) -> Tuple[torch.nn.Module, Dict[str, Any]]:
     """Load a ``.model`` checkpoint (written by either package) -> (model in
-    eval mode on ``device``, config)."""
+    eval mode on ``device``, config).  An ``Enc3DStep`` whose tree has no
+    step head loads without one and raises where it would regress the step,
+    as flax does."""
     state, config = load_checkpoint(path)
     if config is None:
         raise ValueError(f"Checkpoint {path} has no model config header")
     model = build_model(config)
-    model.load_state_dict(unet_state_from_jax(state))
+    state = state_from_jax(state, config)
+    if not any("step_head" in k.split(".") for k in state):
+        for m in model.modules():
+            if isinstance(m, Enc3DStep):
+                m.drop_head()
+    model.load_state_dict(state)
     return model.to(resolve_device(device)).eval(), config

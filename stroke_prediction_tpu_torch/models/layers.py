@@ -7,8 +7,11 @@ Parameters, BN statistics and their gradients stay float32; the convs run
 in the input's type (float32 or bfloat16), as ``compute_dtype`` does in the
 JAX package.
 
-BN is folded into the following VALID conv (``fold_bn``) and the activation
-runs in the conv kernel's epilogue, as on the JAX package's s2d path.  In
+BN is folded into the following stride-1 VALID or z-SAME 3^3 conv
+(``fold_bn``, ``fold_bn_zsame``) and the activation runs in the conv
+kernel's epilogue, as on the JAX package's s2d path.  Where the conv's
+padding holds BN outputs in H or W, or the conv has stride 2, BN is applied
+to its input instead.  The stride-2 and transposed convs are cuDNN's.  In
 training the fold uses the batch statistics, so the conv's kernel and bias
 gradients flow back through the fold to BN's ``scale`` / ``bias`` and,
 through the batch mean and variance, to the input.
@@ -20,21 +23,21 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from stroke_prediction_tpu_torch.ops.conv3x3 import (
-    Conv3x3Fn, activation, fold_bn)
+    Conv3x3Fn, activation, fold_bn, fold_bn_zsame)
 
 
-class Conv3d(nn.Module):
-    """Stride-1 VALID 3-D conv over (B, D, H, W, C) with the torch-0.3 init
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = C_in * prod(kernel)."""
+class _ConvParams(nn.Module):
+    """A conv kernel ``(*kernel_size, C_in, C_out)`` and bias with the
+    torch-0.3 init U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = C_in *
+    prod(kernel_size)."""
 
     def __init__(self, in_features: int, features: int,
-                 kernel_size: Tuple[int, int, int] = (3, 3, 3)):
+                 kernel_size: Tuple[int, int, int]):
         super().__init__()
-        if tuple(kernel_size) not in ((3, 3, 3), (1, 1, 1)):
-            raise NotImplementedError(f"kernel {kernel_size} not ported yet")
         self.kernel = nn.Parameter(
             torch.empty(*kernel_size, in_features, features))
         self.bias = nn.Parameter(torch.empty(features))
@@ -45,20 +48,108 @@ class Conv3d(nn.Module):
             self.kernel.uniform_(-bound, bound, generator=generator)
             self.bias.uniform_(-bound, bound, generator=generator)
 
+
+class Conv3d(_ConvParams):
+    """3-D conv over (B, D, H, W, C): a 1^3 conv, a stride-1 3^3 conv with
+    padding ``(pd, ph, pw)`` (pd 0 or 1) or ``"VALID"``, or a stride-2 3^3
+    conv with padding 1 or ``"VALID"`` (layers.py ``Conv3d``)."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Tuple[int, int, int] = (3, 3, 3),
+                 strides: Tuple[int, int, int] = (1, 1, 1),
+                 padding="VALID"):
+        super().__init__(in_features, features, kernel_size)
+        pads = (0, 0, 0) if padding == "VALID" else tuple(padding)
+        kernel_size, strides = tuple(kernel_size), tuple(strides)
+        if kernel_size == (1, 1, 1):
+            ok = strides == (1, 1, 1) and pads == (0, 0, 0)
+        elif kernel_size == (3, 3, 3) and strides == (1, 1, 1):
+            ok = pads[0] in (0, 1)
+        else:
+            ok = (kernel_size == (3, 3, 3) and strides == (2, 2, 2)
+                  and pads in ((0, 0, 0), (1, 1, 1)))
+        if not ok:
+            raise NotImplementedError(f"conv {kernel_size} stride {strides} "
+                                      f"padding {padding} not ported")
+        self.strides, self.pads = strides, pads
+
     def forward(self, x: torch.Tensor, act: str = "none",
                 alpha: float = 0.01) -> torch.Tensor:
-        """1^3 conv: ``act(x @ kernel + bias)`` with the kernel in x's type,
-        the product summed and the bias and activation applied in float32
-        (float64 for a float64 x), rounded once to x's type, as s2d.py
-        ``s2d_conv1x1`` does."""
-        if self.kernel.shape[0] != 1:
-            raise NotImplementedError(
-                "a bare 3^3 Conv3d is not ported yet; BnConvActBlock runs "
-                "its folded 3^3 conv through conv3x3")
-        acc = torch.promote_types(x.dtype, torch.float32)
-        k = self.kernel[0, 0, 0].to(x.dtype).to(acc)
-        y = torch.matmul(x.to(acc), k) + self.bias.to(acc)
-        return activation(y, act, alpha).to(x.dtype)
+        """``act(conv(x) + bias)`` in x's type.
+
+        * 1^3: ``x @ kernel`` with the kernel in x's type, the product
+          summed and the bias and activation applied in float32 (float64
+          for a float64 x), rounded once to x's type, as s2d.py
+          ``s2d_conv1x1`` does.
+        * stride 1: H and W zero-padded here, D by the kernel's z-SAME mode
+          (``'s'``), then K1 (:class:`Conv3x3Fn`) with the activation in
+          its epilogue.
+        * stride 2: cuDNN's conv in float32 (the JAX package runs it as
+          XLA convs, a stride-1 conv sliced), then bias and activation.
+        """
+        if self.kernel.shape[0] == 1:
+            acc = torch.promote_types(x.dtype, torch.float32)
+            k = self.kernel[0, 0, 0].to(x.dtype).to(acc)
+            y = torch.matmul(x.to(acc), k) + self.bias.to(acc)
+            return activation(y, act, alpha).to(x.dtype)
+        pd, ph, pw = self.pads
+        if self.strides == (1, 1, 1):
+            if ph or pw:
+                x = F.pad(x, (0, 0, pw, pw, ph, ph))
+            return Conv3x3Fn.apply(x.contiguous(), self.kernel, self.bias,
+                                   act, alpha, "s" if pd else "v")
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3),
+                         self.kernel.to(x.dtype).permute(4, 3, 0, 1, 2),
+                         stride=self.strides, padding=self.pads)
+        return activation(y.permute(0, 2, 3, 4, 1) + self.bias.to(x.dtype),
+                          act, alpha)
+
+
+class ConvTranspose3d(_ConvParams):
+    """3-D transposed conv over (B, D, H, W, C), padding 0: out = (in - 1)
+    * stride + k (layers.py ``ConvTranspose3d``).
+
+    The kernel keeps the JAX layout ``(kD, kH, kW, C_in, C_out)``.  JAX's
+    ``lax.conv_transpose`` (``transpose_kernel=False``) does not flip it and
+    torch's ``conv_transpose3d`` does, so cuDNN gets it flipped on its
+    three spatial axes and laid out ``(C_in, C_out, kD, kH, kW)``."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Tuple[int, int, int] = (3, 3, 3),
+                 strides: Tuple[int, int, int] = (1, 1, 1)):
+        super().__init__(in_features, features, kernel_size)
+        self.strides = tuple(strides)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.kernel.to(x.dtype).flip(0, 1, 2).permute(3, 4, 0, 1, 2)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w,
+                                   stride=self.strides)
+        return y.permute(0, 2, 3, 4, 1) + self.bias.to(x.dtype)
+
+
+class Dense(nn.Module):
+    """``x @ kernel + bias`` with flax ``nn.Dense``'s layout: kernel
+    ``(C_in, C_out)``, init N(0, 1/C_in) (flax's default draws a truncated
+    normal of that variance) and zero bias, or the given normal inits."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_init: Optional[Tuple[float, float]] = None,
+                 bias_init: Tuple[float, float] = (0.0, 0.0)):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self._inits = (kernel_init or (0.0, in_features ** -0.5), bias_init)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        (km, ks), (bm, bs) = self._inits
+        with torch.no_grad():
+            self.kernel.normal_(km, ks, generator=generator)
+            self.bias.normal_(bm, bs, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.kernel + self.bias
 
 
 class BatchNorm(nn.Module):
@@ -99,20 +190,45 @@ class BatchNorm(nn.Module):
         s = self.scale * torch.rsqrt(var + self.epsilon)
         return s, self.bias - mean * s
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``bn(x) = x*s + t`` in x's type (layers.py ``BatchNorm`` on a
+        logical tensor)."""
+        s, t = self.affine(x)
+        return x * s.to(x.dtype) + t.to(x.dtype)
+
 
 class BnConvActBlock(nn.Module):
-    """BN -> 3^3 VALID conv -> activation, with BN folded into the conv and
-    the activation fused into its kernel (:class:`Conv3x3Fn`)."""
+    """BN -> 3^3 conv -> activation (layers.py ``BnConvActBlock``).
+
+    Stride 1 ('VALID', or z-SAME ``padding=(1, 0, 0)``): BN folded into the
+    conv (``fold_bn``, or ``fold_bn_zsame`` with a per-output-plane bias
+    table, which is exact at the planes whose taps read the z padding) and
+    the activation fused into K1 (:class:`Conv3x3Fn`).  Stride 2: BN applied
+    to the input, whose zero padding then holds BN outputs, so it cannot
+    fold; then :class:`Conv3d`."""
 
     def __init__(self, in_features: int, features: int,
+                 strides: Tuple[int, int, int] = (1, 1, 1), padding="VALID",
                  act: str = "leaky_relu", act_param: float = 0.01):
         super().__init__()
         self.bn = BatchNorm(in_features)
-        self.conv = Conv3d(in_features, features)
+        self.conv = Conv3d(in_features, features, strides=strides,
+                           padding=padding)
+        if self.conv.strides == (1, 1, 1) and self.conv.pads[1:] != (0, 0):
+            raise NotImplementedError(f"padding {padding}: BN folds into "
+                                      f"z-SAME or VALID convs only")
         self.act, self.act_param = act, act_param
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv.strides != (1, 1, 1):
+            return self.conv(self.bn(x), self.act, self.act_param)
         s, t = self.bn.affine(x)
-        kernel, bias = fold_bn(self.conv.kernel, self.conv.bias, s, t)
+        if self.conv.pads[0]:
+            kernel, bias = fold_bn_zsame(self.conv.kernel, self.conv.bias,
+                                         s, t, x.shape[1])
+            mode = "s"
+        else:
+            kernel, bias = fold_bn(self.conv.kernel, self.conv.bias, s, t)
+            mode = "v"
         return Conv3x3Fn.apply(x.contiguous(), kernel, bias, self.act,
-                               self.act_param, "v")
+                               self.act_param, mode)

@@ -1,7 +1,9 @@
-"""CLI flags (port of utils/args.py, the U-Net parsers).
+"""CLI flags (port of utils/args.py: the U-Net parsers and the shape-testing
+parser).
 
 The same flags and defaults as the JAX package's ``ExpParser`` /
-``UnetParser``, plus ``--device {cuda,cpu}`` (default ``cuda``).
+``UnetParser`` / ``get_args_shape_testing``, plus ``--device {cuda,cpu}``
+(default ``cuda``).
 ``--dtype`` picks the training compute type (bfloat16 by default; the tester
 runs float32) and ``--distances`` computes HD/ASSD on training batches too.
 The runtime flags of the parallel path and the profiler (``--ndevices``,
@@ -19,6 +21,13 @@ from typing import Optional, Sequence
 # flag -> default; any other value raises until its slice is ported
 UNPORTED_FLAGS = {"ndevices": 1, "distributed": False, "coordinator": None,
                   "nprocs": None, "procid": None, "profile": None}
+
+
+def _add_device(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=["cuda", "cpu"],
+                        help="Device to run on; cpu runs every kernel's "
+                             "plain PyTorch version")
 
 
 class ExpParser(argparse.ArgumentParser):
@@ -75,10 +84,7 @@ class ExpParser(argparse.ArgumentParser):
                           help="Distributed process count")
         self.add_argument("--procid", type=int, default=None,
                           help="This process's distributed rank")
-        self.add_argument("--device", type=str, default="cuda",
-                          choices=["cuda", "cpu"],
-                          help="Device to run on; cpu runs every kernel's "
-                               "plain PyTorch version")
+        _add_device(self)
 
     def parse_args(self, args=None, namespace=None):
         ns = super().parse_args(args, namespace)
@@ -105,3 +111,29 @@ class UnetParser(ExpParser):
 
 def get_args_unet_training(argv: Optional[Sequence[str]] = None):
     return UnetParser().parse_args(argv)
+
+
+def get_args_shape_testing(argv: Optional[Sequence[str]] = None):
+    """The CAE testers' flags: one ``--path`` and one ``--fold`` list per
+    model to test."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--path", action="append", type=str,
+                        help="Path to model of Shape CAE")
+    parser.add_argument("--fold", action="append", type=int, nargs="+",
+                        help="Fold case indices")
+    parser.add_argument("--normalize", type=int, default=10)
+    parser.add_argument("--outbasepath", type=str, default="/tmp/shape")
+    parser.add_argument("--xyresample", type=float, default=0.5)
+    parser.add_argument("--xyoriginal", type=int, default=256)
+    parser.add_argument("--zsize", type=int, default=28)
+    parser.add_argument("--padding", type=int, nargs="+",
+                        default=[20, 20, 20])
+    parser.add_argument("--hemisflipid", type=float, default=15)
+    parser.add_argument("--seed", type=int, default=4)
+    parser.add_argument("--datadir", type=str, default=None)
+    parser.add_argument("--clinicalcsv", type=str, default=None)
+    parser.add_argument("--synthetic", action="store_true", default=False)
+    _add_device(parser)
+    args = parser.parse_args(argv)
+    print(args)
+    return args

@@ -135,15 +135,44 @@ def test_port_unet_checkpoint_runs_in_jax(tmp_path):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
-def test_factory_refuses_unported_kinds():
+@pytest.mark.parametrize("kind", ["cae3d_ctp", "large_unet3d"])
+def test_factory_refuses_unported_kinds(kind):
     with pytest.raises(NotImplementedError):
-        build_model({"kind": "cae3d", "channels": [1, 2, 3, 4, 5, 6, 1]})
+        build_model({"kind": kind, "channels": [1, 2, 3, 4, 5, 6, 1]})
 
 
 def test_bare_3x3_conv_refused():
-    conv = Conv3d(2, 4)
-    with pytest.raises(NotImplementedError):
-        conv(torch.zeros(1, 5, 5, 5, 2))
+    """The bare conv forms that no ported model runs are refused when the
+    layer is built: z padding of 2, a stride-2 conv with H/W-only padding,
+    and a 2^3 kernel."""
+    for kw in ({"padding": (2, 0, 0)},
+               {"strides": (2, 2, 2), "padding": (0, 1, 1)},
+               {"kernel_size": (2, 2, 2)}):
+        with pytest.raises(NotImplementedError):
+            Conv3d(2, 4, **kw)
+
+
+@pytest.mark.parametrize("padding", ["VALID", (1, 0, 0), (1, 2, 2),
+                                     (0, 1, 2)])
+def test_bare_3x3_conv_matches_jax(padding):
+    """A bare stride-1 3^3 conv (K1 on the zero-padded input; z-SAME mode
+    for a z pad of one) against the JAX package's ``Conv3d``."""
+    from stroke_prediction_tpu.models.layers import Conv3d as JaxConv3d
+
+    rs = np.random.RandomState(11)
+    x = rs.standard_normal((2, 5, 6, 7, 3)).astype(np.float32)
+    kernel = rs.standard_normal((3, 3, 3, 3, 4)).astype(np.float32) * 0.2
+    bias = rs.standard_normal(4).astype(np.float32)
+    ref = JaxConv3d(4, (3, 3, 3), padding=padding)
+    want = np.asarray(ref.apply({"params": {"kernel": kernel, "bias": bias}},
+                                jnp.asarray(x)))
+    conv = Conv3d(3, 4, padding=padding)
+    conv.load_state_dict({"kernel": torch.from_numpy(kernel),
+                          "bias": torch.from_numpy(bias)})
+    with torch.no_grad():
+        got = conv(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("flags", [
@@ -217,7 +246,10 @@ def test_port_imports_without_jax_and_never_the_jax_package():
     loaded = set(out.stdout.split())
     for mod in ("cli.train_unet_segmentation", "train.learner",
                 "train.unet_learner", "train.optim", "data.augment",
-                "ops.conv3x3", "ops.pooling", "models.convert"):
+                "ops.conv3x3", "ops.pooling", "models.convert",
+                "models.cae3d", "eval.cae_tester",
+                "cli.test_shape_reconstruction",
+                "cli.test_shape_reconstruction_CurveAnalysis"):
         assert "stroke_prediction_tpu_torch." + mod in loaded, mod
 
 
