@@ -80,6 +80,21 @@ non-zero without one.  Phases:
    and on the CPU from the same weights and crop: loss, every parameter
    gradient and the running statistics compared; the same step in float64
    on the CPU as a third witness of which side is further off.
+7. CAE training phase: the port's CAE training CLI
+   (``cli.train_shape_reconstruction``: no ``--device``, ``--dtype`` or
+   ``--channelscae``, so the card, bfloat16 and channels 1 16 24 32 100 200
+   1) on the eight cases' 28x128x128 masks (six train, two validate, batch
+   4, three epochs); K1-K5 launches per training step, validation batch
+   and visual forward against the route rule (45 / 15 / 27 / 30 K1 / K2 /
+   K3 / K4 a step); finite losses, the artifacts, the best-valid
+   ``_cae1.model`` in the CAE tester; every K1-K4 call of one training step
+   in bfloat16 and in float32 held on its own inputs against its plain
+   version (K2-K4 run twice, bit-identical); K1-K4 at each distinct layer
+   of a step in both types beside plain and cuDNN's forward, dgrad and
+   wgrad with the bound, summed per step; 20 bfloat16 steps back to back
+   and a torch.profiler trace of one; one float32 and one bfloat16 step
+   (batch 2, same weights, batch, flips and fields) on the card against
+   the CPU, float32 also against a float64 CPU step.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero.
@@ -87,6 +102,7 @@ line.  Any failure raises and exits non-zero.
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -300,11 +316,12 @@ def kernel_phase(torch):
 
 # K5, the whole EDT per call: the validation step's (2, 28, 64, 64) and
 # the tester's (1, 28, 128, 128) surface masks, a 168^2 plane at the
-# tester's padded depth, and a 256^2 plane (the reference's volumes before
-# the 0.5 in-plane resample)
+# tester's padded depth, a 256^2 plane (the reference's volumes before
+# the 0.5 in-plane resample), and a CAE training validation batch's masks
 EDT_SHAPES = ((2, 28, 64, 64), (1, 28, 128, 128), (1, 68, 168, 168),
-              (1, 28, 256, 256))
-EDT_VALID, EDT_TESTER = EDT_SHAPES[:2]
+              (1, 28, 256, 256), (2, 28, 128, 128))
+EDT_VALID, EDT_TESTER, EDT_CAE_VALID = (EDT_SHAPES[0], EDT_SHAPES[1],
+                                        EDT_SHAPES[4])
 EDT_PER_STEP = 4       # EDTs per validation step and per tester case
 EDT_KERNELS = ("edt_scan_d_pass_h_kernel", "edt_pass_w_kernel")
 EDT_STRIP = 32         # kernel A's w columns a block (kStrip)
@@ -989,6 +1006,7 @@ CAE_ATOL = 1e-4           # card vs CPU reconstructions and latents
 CAE_DICE_ATOL = 1e-5      # card vs CPU, and batched sweep vs serial: Dice
 CAE_ASSD_ATOL = 1e-3      # batched sweep vs serial: ASSD (tests/test_eval.py)
 CAE_MIN_MOVED = 0.01      # a sweep's first vs last step: voxels apart
+CAE_KERNELS = ("K1", "K2", "K3", "K4")
 CAE_FIELDS = ("core", "penu", "lesion", "interpolation")
 CAE_MEASURED = {"lesion": "interpolation", "core": "core", "penu": "penu"}
 
@@ -1036,29 +1054,84 @@ def cae_model(torch, channels=CAE_CHANNELS, dhw=CAE_DHW):
     return model
 
 
-def cae_recorded(torch, run):
-    """``run()`` with K1's and edt_sites' wrappers recorded as the model and
-    the measures call them, each call held on its own inputs against its
-    plain version (K1 within K1_TOL, edt_sites equal) -> ({(N, D, H, W,
-    C_in, C_out, mode, plane table, act): K1 calls}, {mask shape:
-    edt_sites calls}, K1's max |err|)."""
-    from stroke_prediction_tpu_torch.ops import conv3x3 as conv_mod
+def cae_recorded(torch, run, grad=False):
+    """``run()`` (under inference mode unless ``grad``) with the wrappers of
+    K1-K4 and edt_sites recorded as the CAE path calls them, each call held
+    on its own inputs against its plain version: y and dx within K1_TOL
+    (float32) or BF16_REL of max|ref| (bfloat16), dW and db within DW_REL
+    of max|ref|, each backward kernel run twice for a bit-identical result,
+    edt_sites equal -> ({(kernel, N, D, H, W, C_in, C_out, mode, plane
+    table, act): calls}, {mask shape: edt_sites calls}, {kernel: largest
+    max|err|})."""
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
     from stroke_prediction_tpu_torch.ops import edt as edt_mod
 
-    conv, edt = conv_mod.conv3x3, edt_mod.edt_sites
-    k1, sites, worst = {}, {}, [0.0]
+    real = {"K1": cm.conv3x3, "K2": cm.conv3x3_bwd_fused,
+            "K3": cm.conv3x3_bwd_dx, "K4": cm.conv3x3_bwd_dw,
+            "edt": edt_mod.edt_sites}
+    calls, sites, worst = {}, {}, dict.fromkeys(CAE_KERNELS, 0.0)
 
-    def k1_record(x, kernel, bias, act="none", alpha=0.01, mode="v"):
-        key = (*x.shape, kernel.shape[-1], mode, bias.ndim == 2, act)
-        k1[key] = k1.get(key, 0) + 1
-        y = conv(x, kernel, bias, act, alpha, mode)
-        ref = conv_mod.conv3x3_plain(x, kernel, bias, act, alpha, mode)
-        torch.testing.assert_close(y, ref, **K1_TOL)
-        worst[0] = max(worst[0], float((y - ref).abs().max()))
+    def out_err(name, got, ref):
+        if got.dtype == torch.float32:
+            torch.testing.assert_close(got, ref, **K1_TOL)
+        elif rel_err(got, ref) > BF16_REL:
+            raise AssertionError(f"{name}: {rel_err(got, ref):.3e} of "
+                                 f"max|ref| off plain")
+        return float((got.float() - ref.float()).abs().max())
+
+    def sum_err(name, got, ref):
+        if rel_err(got, ref) > DW_REL:
+            raise AssertionError(f"{name}: {rel_err(got, ref):.3e} of "
+                                 f"max|ref| off plain")
+        return float((got - ref).abs().max())
+
+    def note(kernel, x_shape, co, mode, table, act, err):
+        key = (kernel, *x_shape, co, mode, table, act)
+        calls[key] = calls.get(key, 0) + 1
+        worst[kernel] = max(worst[kernel], err)
+
+    def same(name, a, b):
+        if not all(torch.equal(p, q) for p, q in zip(a, b)):
+            raise AssertionError(f"{name} differs between two runs")
+
+    def k1(x, kernel, bias, act="none", alpha=0.01, mode="v"):
+        y = real["K1"](x, kernel, bias, act, alpha, mode)
+        err = out_err("K1", y, cm.conv3x3_plain(x, kernel, bias, act, alpha,
+                                                mode))
+        note("K1", x.shape, kernel.shape[-1], mode, bias.ndim == 2, act, err)
         return y
 
-    def edt_record(mask):
-        out = edt(mask)
+    def k2(x, g, y, kernel, act="none", alpha=0.01, mode="v",
+           bias_table=False):
+        a = (x, g, y, kernel, act, alpha, mode, bias_table)
+        out = real["K2"](*a)
+        same(f"K2 {tuple(x.shape)}", out, real["K2"](*a))
+        rdx, rdk, rdb = cm.conv3x3_bwd_fused_plain(*a)
+        err = max(out_err("K2 dx", out[0], rdx),
+                  sum_err("K2 dk", out[1], rdk), sum_err("K2 db", out[2], rdb))
+        note("K2", x.shape, kernel.shape[-1], mode, bias_table, act, err)
+        return out
+
+    def k3(g, y, kernel, x_shape, act="none", alpha=0.01, mode="v"):
+        a = (g, y, kernel, x_shape, act, alpha, mode)
+        dx = real["K3"](*a)
+        same(f"K3 {tuple(x_shape)}", (dx,), (real["K3"](*a),))
+        err = out_err("K3 dx", dx, cm.conv3x3_bwd_dx_plain(*a))
+        note("K3", x_shape, kernel.shape[-1], mode, False, act, err)
+        return dx
+
+    def k4(x, g, y, act="none", alpha=0.01, mode="v", bias_table=False):
+        a = (x, g, y, act, alpha, mode, bias_table)
+        out = real["K4"](*a)
+        same(f"K4 {tuple(x.shape)}", out, real["K4"](*a))
+        rdk, rdb = cm.conv3x3_bwd_dw_plain(*a)
+        err = max(sum_err("K4 dk", out[0], rdk),
+                  sum_err("K4 db", out[1], rdb))
+        note("K4", x.shape, g.shape[-1], mode, bias_table, act, err)
+        return out
+
+    def edt(mask):
+        out = real["edt"](mask)
         if not torch.equal(out, edt_mod.edt_sites_plain(mask)):
             raise AssertionError(f"edt_sites on a {tuple(mask.shape)} mask "
                                  f"of the CAE path differs from its plain "
@@ -1067,29 +1140,41 @@ def cae_recorded(torch, run):
         return out
 
     # each kernel's wrapper counts into its module's attribute by name
-    k1_record.launches = edt_record.launches = 0
-    conv_mod.conv3x3, edt_mod.edt_sites = k1_record, edt_record
+    for fn in (k1, k2, k3, k4, edt):
+        fn.launches = 0
+
+    def install(fns):
+        (cm.conv3x3, cm.conv3x3_bwd_fused, cm.conv3x3_bwd_dx,
+         cm.conv3x3_bwd_dw, edt_mod.edt_sites) = fns
+
+    install((k1, k2, k3, k4, edt))
     try:
-        with torch.inference_mode():
+        with torch.inference_mode(not grad):
             run()
+        torch.cuda.synchronize()
     finally:
-        conv_mod.conv3x3, edt_mod.edt_sites = conv, edt
-    return k1, sites, worst[0]
+        install(tuple(real.values()))
+    return calls, sites, worst
 
 
-def cae_check_recorded(name, k1, sites, worst, n_k1, edt_shapes):
-    """The recorded calls of a CAE run: ``n_k1`` K1 calls and edt_sites
-    called at ``edt_shapes`` ({mask shape: calls})."""
-    print(f"cae: {name}: {sum(k1.values())} K1 calls on their own inputs "
-          f"within {K1_TOL} of plain (max |err| {worst:.3e}); edt_sites "
-          f"{sites} equal to plain")
-    if sum(k1.values()) != n_k1 or sites != edt_shapes:
-        raise AssertionError(f"{name}: expected {n_k1} K1 calls and "
-                             f"edt_sites at {edt_shapes}")
+def cae_check_recorded(name, calls, sites, worst, want, edt_shapes):
+    """The recorded calls of a CAE run: ``want`` ({kernel: calls}, no
+    call of a kernel it leaves out) and edt_sites called at ``edt_shapes``
+    ({mask shape: calls})."""
+    counts = {k: sum(n for key, n in calls.items() if key[0] == k)
+              for k in CAE_KERNELS}
+    print(f"cae: {name}: calls {counts} on their own inputs against plain "
+          f"(y, dx: float32 {K1_TOL}, bfloat16 {BF16_REL} of max|ref|; dW, "
+          f"db {DW_REL} of max|ref|; K2-K4 bit-identical on repeat), "
+          f"max|err| {worst}; edt_sites {sites} equal to plain")
+    if counts != {k: want.get(k, 0) for k in CAE_KERNELS} or \
+            sites != edt_shapes:
+        raise AssertionError(f"{name}: expected calls {want} and edt_sites "
+                             f"at {edt_shapes}")
 
 
 def cae_kernel_phase(torch, calls, per):
-    """The float32 K1 at every distinct layer of ``calls`` (as
+    """The float32 K1 at every distinct layer of ``calls``' K1 calls (as
     :func:`cae_recorded` gives them) against its plain version and a
     float64 conv, timed beside cuDNN's conv; sums ``per`` (each layer times
     its calls)."""
@@ -1109,7 +1194,9 @@ def cae_kernel_phase(torch, calls, per):
     print(f"\nK1 at the CAE's layers {per} (float32, ELU 1.0, 3xTF32; x n = "
           f"calls; bias a plane table or a vector; cuDNN with the vector "
           f"bias, no activation):")
-    for (nb, d, h, w, ci, co, mode, table, act), n in calls.items():
+    for (kern, nb, d, h, w, ci, co, mode, table, act), n in calls.items():
+        if kern != "K1":
+            continue
         d_out = d if mode == "s" else d - 2
         bnd = (27 * ci) ** -0.5
         x = uniform((nb, d, h, w, ci), -1.0, 1.0)
@@ -1226,11 +1313,12 @@ def cae_phase(torch, work):
 
     loader = tester._dataloader
     batch = loader.dataset.stack([loader.indices[0]])
-    k1_calls, edt_calls, worst = cae_recorded(
+    calls, edt_calls, worst = cae_recorded(
         torch, lambda: tester.infer_batch(batch))
-    cae_check_recorded("one shape tester case", k1_calls, edt_calls, worst,
-                       CAE_K1_PER_CASE, {(1, *CAE_DHW): CAE_EDT_PER_CASE})
-    k1 = cae_kernel_phase(torch, k1_calls, "per CAE tester case")
+    cae_check_recorded("one shape tester case", calls, edt_calls, worst,
+                       {"K1": CAE_K1_PER_CASE},
+                       {(1, *CAE_DHW): CAE_EDT_PER_CASE})
+    k1 = cae_kernel_phase(torch, calls, "per CAE tester case")
     busy_ms, k1_busy = cae_profile(torch, tester, batch, infer_ms)
 
     # one case on the card and on the CPU (plain versions)
@@ -1340,18 +1428,18 @@ def cae_curve(torch, ckpt, base):
 
 
 def cae_sweep_calls(torch, curve, batch):
-    """K1's calls in the case's three sweeps, each K1 and edt_sites call
+    """The calls in the case's three sweeps, each K1 and edt_sites call
     held on its own inputs against its plain version."""
     _, sweeps = curve.sweeps(batch)
-    k1_calls, edt_calls, worst = cae_recorded(torch, lambda: [
+    calls, edt_calls, worst = cae_recorded(torch, lambda: [
         curve.infer_batch_steps(batch, steps) for steps, _ in sweeps])
     edt_want = {}
     for steps, _ in sweeps:
         key = (len(steps), *CAE_DHW)
         edt_want[key] = edt_want.get(key, 0) + CAE_SWEEP_EDT
-    cae_check_recorded("the curve case's three sweeps", k1_calls, edt_calls,
-                       worst, 3 * CAE_SWEEP_K1, edt_want)
-    return k1_calls
+    cae_check_recorded("the curve case's three sweeps", calls, edt_calls,
+                       worst, {"K1": 3 * CAE_SWEEP_K1}, edt_want)
+    return calls
 
 
 def cae_sweeps_vs_serial(torch, curve, batch):
@@ -1464,15 +1552,9 @@ def train_phase(torch, work):
         print(f"train: {phase} losses {losses}")
         if len(losses) != 3 or not all(0.0 <= v <= 1.0 for v in losses):
             raise AssertionError(f"{phase} losses {losses}")
-    names = ["_unet.model", "_unet.optim", "_unet.json", "_unet_final.model"]
-    try:
-        import matplotlib  # noqa: F401
-        names += ["_visual_1.png", "_visual_plots.png"]
-    except ImportError:
-        print("train: no matplotlib here, so no PNGs are expected")
-    for suffix in names:
-        if not os.path.getsize(base + suffix):
-            raise AssertionError(f"empty {base + suffix}")
+    check_artifacts(base, ["_unet.model", "_unet.optim", "_unet.json",
+                           "_unet_final.model"],
+                    ["_visual_1.png", "_visual_plots.png"], "train")
     model, config = load_model(base + "_unet.model", "cuda")
     with torch.no_grad():
         seg = model(torch.zeros((1,) + PATCH_DHW + (2,), device="cuda"))
@@ -1485,25 +1567,34 @@ def train_phase(torch, work):
 
     print(f"train: CLI training passes (s, steps): "
           f"{learner.train_pass_seconds}")
-    step_ms = time_steps(torch, learner)
+    data, _ = learner.device_data(learner._dataloader_training)
+    rows = torch.arange(TRAIN_BATCH, device="cuda")
+    step_ms = time_steps(torch, lambda: learner.train_step(
+        {k: None if v is None else v.index_select(0, rows)
+         for k, v in data.items()}), TIMED_STEPS,
+        f"train (bfloat16, batch {TRAIN_BATCH})")[0]
     profile_step(torch, learner)
     return launches, step_ms, learner
 
 
-def time_steps(torch, learner, n=TIMED_STEPS):
-    """``n`` of the learner's training steps back to back on the stacked
-    training cases, as its training pass runs them (gather, crop, forward,
-    loss, backward, Adam, metrics on the device), after one warm-up step.
-    Host ms per step between two synchronizes, and the spread of the device
-    ms between CUDA events recorded after each step.  Returns the mean of
-    the events' ms per step."""
-    data, _ = learner.device_data(learner._dataloader_training)
-    rows = torch.arange(TRAIN_BATCH, device="cuda")
+def check_artifacts(base, names, pngs, what):
+    """The training CLI's files ``base + name`` exist and are not empty;
+    the PNGs too where matplotlib is installed."""
+    try:
+        import matplotlib  # noqa: F401
+        names = names + pngs
+    except ImportError:
+        print(f"{what}: no matplotlib here, so no PNGs are expected")
+    for suffix in names:
+        if not os.path.getsize(base + suffix):
+            raise AssertionError(f"empty {base + suffix}")
 
-    def step():
-        learner.train_step({k: None if v is None else v.index_select(0, rows)
-                            for k, v in data.items()})
 
+def time_steps(torch, step, n, what):
+    """``n`` calls of ``step`` (one training step) back to back after a
+    warm-up call: host ms per step between two synchronizes, and the mean
+    and spread of the device ms between CUDA events recorded after each
+    step -> (mean, std, host ms)."""
     step()
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
     torch.cuda.synchronize()
@@ -1517,11 +1608,10 @@ def time_steps(torch, learner, n=TIMED_STEPS):
     per = sorted(marks[i].elapsed_time(marks[i + 1]) for i in range(n))
     mean = sum(per) / n
     std = (sum((v - mean) ** 2 for v in per) / n) ** 0.5
-    print(f"train: {n} steps back to back (bfloat16, batch {TRAIN_BATCH}): "
-          f"host {host_ms:.3f} ms per step; CUDA events per step mean "
-          f"{mean:.3f} ms, std {std:.3f}, min {per[0]:.3f}, median "
-          f"{per[n // 2]:.3f}, max {per[-1]:.3f}")
-    return mean
+    print(f"{what}: {n} steps back to back: host {host_ms:.3f} ms per step; "
+          f"CUDA events per step mean {mean:.3f} ms, std {std:.3f}, min "
+          f"{per[0]:.3f}, median {per[n // 2]:.3f}, max {per[-1]:.3f}")
+    return mean, std, host_ms
 
 
 # profiler kernel names -> groups (first match wins)
@@ -1558,9 +1648,6 @@ def profile_step(torch, learner):
     """One training step: device time by phase (CUDA events around the
     parts of ``UnetSegmentationLearner.train_step``) and by kernel
     (torch.profiler), and the device's busy share of the step's wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     data, _ = learner.device_data(learner._dataloader_training)
     rows = torch.arange(TRAIN_BATCH, device="cuda")
     batch = {k: None if v is None else v.index_select(0, rows)
@@ -1594,28 +1681,40 @@ def profile_step(torch, learner):
           f"(CUDA events): " + "; ".join(
               f"{name} {marks[i].elapsed_time(marks[i + 1]):.3f} ms"
               for i, name in enumerate(phases)))
+    trace_kernels(torch, lambda: step(marks), "train profile", wall_ms)
+
+
+def trace_kernels(torch, run, what, wall_ms):
+    """``run()`` under torch.profiler: the device's busy ms and share of
+    ``wall_ms``, the kernels' count, their time by group and the largest
+    fifteen -> (busy ms, kernels, {group: (ms, count)}); (0, 0, {}) when
+    the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(marks)
+        run()
         torch.cuda.synchronize()
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not busy_ms:
-        print("train profile: no device time in the trace (not measured)")
-        return
-    print(f"train profile: device busy {busy_ms:.3f} ms of {wall_ms:.2f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}% busy); "
-          f"{sum(e.count for e in kernels)} kernels")
+        print(f"{what}: no device time in the trace (not measured)")
+        return 0.0, 0, {}
+    n_kernels = sum(e.count for e in kernels)
     groups = kernel_groups(kernels)
+    print(f"{what}: device busy {busy_ms:.3f} ms of {wall_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}% busy); {n_kernels} kernels")
     print("  by kernel: " + "; ".join(
-        f"{g} {ms:.3f} ms ({100 * ms / busy_ms:.1f}%, x{n:g})"
-        for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+        f"{g} {ms:.3f} ms ({100 * ms / busy_ms:.1f}%, x{c:g})"
+        for g, (ms, c) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
     for e in kernels[:15]:
         ms = e.self_device_time_total / 1e3
         print(f"  {ms:8.4f} ms {100 * ms / busy_ms:5.1f}%  x{e.count}"
               f"  {e.key[:100]}")
+    return busy_ms, n_kernels, groups
 
 
 def step_vs_cpu(torch, learner):
@@ -1683,6 +1782,527 @@ def step_vs_cpu(torch, learner):
     return dict(loss_rel=loss_rel, grad_rel=grad[0], worst_grad=grad[1],
                 stats_err=stats_err, card_vs_f64=card64[1][0],
                 cpu_vs_f64=cpu64[1][0])
+
+
+# CAE phase-1 training at the reference width (--channelscae default) and
+# batch (--batchsize 4) on eight synthetic cases, six training and two
+# validating, three epochs; the card-vs-CPU steps at batch 2 keep the CPU's
+# share of the run short
+CAE_TRAIN_BATCH = 4
+CAE_TRAIN_EPOCHS = 3
+CAE_TIMED_STEPS = 20
+CAE_VS_CPU_BATCH = 2
+CAE_VS_CPU_FACTOR = 0.4          # the latent L1 term on
+# one bfloat16 CAE step, card vs CPU (the CPU's plain versions round to
+# bfloat16 where the kernels do, so only the sums' order differs), from
+# seeded weights:
+# * the loss and the running statistics within CAE_BF16_LOSS_REL and
+#   CAE_BF16_STATS_ATOL of the CPU's;
+# * each gradient within CAE_BF16_GRAD_REL of its layer's largest
+#   gradient (its BN and conv) of the CPU's.  The first limit stated here,
+#   1e-1, read 0.112 on the card at enc.encoder.blocks.9.conv.kernel, the
+#   fc conv's kernel, while the float64 rule below held; 0.25 sits between
+#   that reading and the two controls that must fail it (a card step with
+#   the entry conv's K4 output zeroed, and the card's entry BN gradients
+#   zeroed): a zero gradient of the layer reads 1.0, and the entry BN's
+#   bfloat16 bias gradient stands ~0.8 of its layer's largest gradient
+#   off float64 on both sides;
+# * each layer's gradients against float64 (|err| / |grad| over the layer)
+#   no further off than CAE_BF16_GRAD_FACTOR times the CPU's bfloat16 ones
+#   plus CAE_BF16_GRAD_FLOOR: the CPU's own bfloat16 step is 0.55 of the
+#   entry layer's gradients' norm off float64, the bias gradients being
+#   sums over every voxel that cancel far below their terms, so this rule
+#   alone would pass a zero layer (1.0).
+CAE_BF16_LOSS_REL, CAE_BF16_STATS_ATOL = 2e-2, 2e-2
+CAE_BF16_GRAD_REL = 0.25
+CAE_BF16_GRAD_FACTOR, CAE_BF16_GRAD_FLOOR = 2.0, 1e-2
+CAE_ENTRY = "enc.encoder.blocks.0"
+
+
+def cae_conv_layers(channels=CAE_CHANNELS):
+    """(C_in, C_out, input needs a gradient) of the stride-1 3^3 convs (K1)
+    of one encode and of one decode, in call order."""
+    c_in, origin, d2, d4, d8, fc = channels[:6]
+    encode = [(c_in, origin, False), (origin, origin, True), (d2, d2, True),
+              (d2, d2, True), (d4, d4, True), (d4, d4, True), (d8, fc, True)]
+    decode = [(d4, d4, True), (d4, d2, True), (d2, d2, True),
+              (d2, origin, True), (origin, origin, True),
+              (origin, origin, True)]
+    return encode, decode
+
+
+def cae_step_launches(channels=CAE_CHANNELS):
+    """K1-K4 launches of one training step (three encodes, four decodes)
+    as the route rule gives them, and K1's of one forward."""
+    from stroke_prediction_tpu_torch.ops.conv3x3 import bwd_route
+
+    encode, decode = cae_conv_layers(channels)
+    routes = ([bwd_route(*c) for c in encode] * 3
+              + [bwd_route(*c) for c in decode] * 4)
+    return {"K1": len(routes), "K2": routes.count("fused"),
+            "K3": routes.count("split"),
+            "K4": routes.count("split") + routes.count("dw")}
+
+
+def set_cae_dtype(model, dtype):
+    model.enc.encoder.compute_dtype = dtype
+    model.dec.decoder.compute_dtype = dtype
+
+
+def cae_train_phase(torch, work):
+    """CAE phase-1 training on the card: the port's CLI in its default
+    bfloat16, launches per step and per validation batch, finite losses,
+    artifacts and the best-valid model in the shape tester; every K1-K4 call
+    of one step in each type on its own inputs; K1-K4 at each distinct
+    layer of a step; ms per step and a profile of one; one float32 and one
+    bfloat16 step on the card against the CPU."""
+    from stroke_prediction_tpu_torch.cli import train_shape_reconstruction
+    from stroke_prediction_tpu_torch.data.loader import get_testdata
+    from stroke_prediction_tpu_torch.eval.cae_tester import (
+        CaeReconstructionTester)
+    from stroke_prediction_tpu_torch.utils.args import (
+        get_args_shape_training)
+
+    base = os.path.join(work, "shape_train")
+    # no --device, no --dtype, no --channelscae: the card, bfloat16, the
+    # reference width
+    args = get_args_shape_training(
+        ["--synthetic", "--fold", *map(str, TRAIN_FOLD), "--validsetsize",
+         "0.25", "--batchsize", str(CAE_TRAIN_BATCH), "--epochs",
+         str(CAE_TRAIN_EPOCHS), "--outbasepath", base])
+    if args.dtype != "bfloat16" or tuple(args.channelscae) != CAE_CHANNELS:
+        raise AssertionError(f"the CLI's defaults: {args.dtype}, "
+                             f"{args.channelscae}")
+    reset_launches()
+    t0 = time.perf_counter()
+    learner = train_shape_reconstruction.train(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    steps = dict(learner.step_counts)
+    per_step = cae_step_launches()
+    fwd = per_step["K1"]
+    n_train, n_eval, n_vis = steps["train"], steps["eval"], steps["visual"]
+    want = {"conv3x3": fwd * (n_train + n_eval + n_vis),
+            "conv3x3_bwd_fused": per_step["K2"] * n_train,
+            "conv3x3_bwd_dx": per_step["K3"] * n_train,
+            "conv3x3_bwd_dw": per_step["K4"] * n_train,
+            "edt_sites": CAE_EDT_PER_CASE * n_eval, "edt_parabola": 0}
+    print(f"\ncae train: CLI, {CAE_TRAIN_EPOCHS} epochs in {wall:.2f} s; "
+          f"steps {steps}; launches {launches}; per training step "
+          f"{per_step}, per validation batch K1 {fwd} and "
+          f"{CAE_EDT_PER_CASE} edt_sites, per visual forward K1 {fwd}; "
+          f"training passes (s, steps) {learner.train_pass_seconds}")
+    if (learner.device.type != "cuda" or n_train != 2 * CAE_TRAIN_EPOCHS
+            or n_eval != CAE_TRAIN_EPOCHS):
+        raise AssertionError(f"cae train: steps {steps} on "
+                             f"{learner.device}")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"cae train: {name} launched "
+                                 f"{launches[name]} times, expected {n}")
+    curves = learner._metric_dtos
+    for phase in ("training", "validate"):
+        losses = [m["loss"] for m in curves[phase]]
+        print(f"cae train: {phase} losses {losses}; lesion Dice "
+              f"{[round(m['lesion_dc'], 4) for m in curves[phase]]}")
+        if len(losses) != CAE_TRAIN_EPOCHS or not all(
+                math.isfinite(v) and v >= 0.0 for v in losses):
+            raise AssertionError(f"cae train: {phase} losses {losses}")
+    check_artifacts(base, ["_cae1.model", "_cae1.optim", "_cae1.json",
+                           "_cae1_final.model"],
+                    ["_cae1_1.png", "_cae1_plots.png"], "cae train")
+    valid = learner._dataloader_validation
+    tester = CaeReconstructionTester(
+        get_testdata(valid.dataset, valid.indices, shuffle=False),
+        base + "_cae1.model", base + "_tester", 10, "cuda")
+    vb = valid.dataset.stack(valid.indices[:1])
+    with torch.inference_mode():
+        m, dto = tester.infer_batch(vb)
+    rec = dto.reconstructions.gtruth.interpolation
+    if tuple(rec.shape) != (1, *CAE_DHW, 1) or not torch.isfinite(rec).all():
+        raise AssertionError(f"best-valid CAE: {tuple(rec.shape)}")
+    print(f"cae train: best-valid _cae1.model runs in the CAE tester: "
+          f"lesion Dice {m['lesion'].dc:.4f}, HD {m['lesion'].hd:.2f}")
+
+    data, _ = learner.device_data(learner._dataloader_training)
+    rows = torch.arange(CAE_TRAIN_BATCH, device="cuda")
+    batch = {k: None if v is None else v.index_select(0, rows)
+             for k, v in data.items()}
+    # the validation batch as the CLI's epochs ran it (bfloat16): K1 and
+    # edt_sites on their own inputs
+    vdata, _ = learner.device_data(valid)
+    if (len(valid.indices), *CAE_DHW) != EDT_CAE_VALID:
+        raise AssertionError(f"cae train: {len(valid.indices)} validation "
+                             f"cases")
+    v_calls, v_sites, v_worst = cae_recorded(
+        torch, lambda: learner.eval_step(vdata))
+    cae_check_recorded("one bfloat16 validation batch", v_calls, v_sites,
+                       v_worst, {"K1": fwd}, {EDT_CAE_VALID: CAE_EDT_PER_CASE})
+    recorded = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        set_cae_dtype(learner._model, dtype)
+        calls, sites, worst = cae_recorded(
+            torch, lambda: learner.train_step(batch, CAE_VS_CPU_FACTOR),
+            grad=True)
+        cae_check_recorded(f"one {str(dtype)[6:]} training step", calls,
+                           sites, worst, per_step, {})
+        recorded[dtype] = calls, worst
+    set_cae_dtype(learner._model, torch.bfloat16)
+    times = {dtype: cae_step_kernel_times(torch, calls, dtype)
+             for dtype, (calls, _) in recorded.items()}
+    mean, std, host = time_steps(torch, lambda: learner.train_step(batch),
+                                 CAE_TIMED_STEPS,
+                                 f"cae train (bfloat16, batch "
+                                 f"{CAE_TRAIN_BATCH})")
+    step_ms = dict(mean=mean, std=std, host=host)
+    busy = cae_profile_step(torch, learner, batch)
+    vs_cpu = cae_steps_vs_cpu(torch, learner)
+    return dict(launches=launches, per_step=per_step, steps=steps,
+                recorded={str(d)[6:]: r[1] for d, r in recorded.items()},
+                times={str(d)[6:]: t for d, t in times.items()},
+                step_ms=step_ms, busy=busy, vs_cpu=vs_cpu, wall=wall)
+
+
+def cae_layer_times(torch, key, dtype, gen):
+    """K1 and the backward kernels its route takes at one CAE layer (random
+    inputs at the recorded shape), timed beside their plain versions and
+    cuDNN's forward, dgrad and wgrad (TF32 off), with the bound."""
+    import torch.nn.functional as F
+
+    from stroke_prediction_tpu_torch.ops.conv3x3 import (
+        MODES, conv3x3, conv3x3_bwd_dw, conv3x3_bwd_dw_plain, conv3x3_bwd_dx,
+        conv3x3_bwd_dx_plain, conv3x3_bwd_fused, conv3x3_bwd_fused_plain,
+        conv3x3_plain)
+
+    nb, d, h, w, ci, co, mode, table, act, route = key
+    dname = str(dtype)[6:]
+    dev = torch.device("cuda")
+
+    def uniform(shape, lo, hi, dt=dtype):
+        t = torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+        return t.to(dt)
+
+    d_out = d if mode == "s" else d - 2
+    bnd = (27 * ci) ** -0.5
+    x = uniform((nb, d, h, w, ci), -1.0, 1.0)
+    k = uniform((3, 3, 3, ci, co), -bnd, bnd)
+    b = uniform((d_out, co) if table else (co,), -bnd, bnd, torch.float32)
+    y = conv3x3(x, k, b, act, 1.0, mode)
+    g = uniform(y.shape, -1.0, 1.0)
+    pad = (MODES[mode], 0, 0)
+    gp = (g.float() * torch.where(y > 0, 1.0, y.float() + 1.0)).to(dtype)
+    x_l, g_l = x.permute(0, 4, 1, 2, 3), gp.permute(0, 4, 1, 2, 3)
+    w_l = k.permute(4, 3, 0, 1, 2).contiguous()
+    b_l = (b[0] if table else b).to(dtype).contiguous()
+    runs = {"K1": (lambda: conv3x3(x, k, b, act, 1.0, mode),
+                   lambda: conv3x3_plain(x, k, b, act, 1.0, mode),
+                   lambda: F.conv3d(x_l, w_l, b_l, padding=pad))}
+    dgrad = lambda: torch.nn.grad.conv3d_input(  # noqa: E731
+        tuple(x_l.shape), w_l, g_l, padding=pad)
+    wgrad = lambda: torch.nn.grad.conv3d_weight(  # noqa: E731
+        x_l, tuple(w_l.shape), g_l, padding=pad)
+    if route == "fused":
+        runs["K2"] = (lambda: conv3x3_bwd_fused(x, g, y, k, act, 1.0, mode,
+                                                table),
+                      lambda: conv3x3_bwd_fused_plain(x, g, y, k, act, 1.0,
+                                                      mode, table),
+                      lambda: (dgrad(), wgrad()))
+    if route == "split":
+        runs["K3"] = (lambda: conv3x3_bwd_dx(g, y, k, x.shape, act, 1.0,
+                                             mode),
+                      lambda: conv3x3_bwd_dx_plain(g, y, k, x.shape, act,
+                                                   1.0, mode), dgrad)
+    if route in ("split", "dw"):
+        runs["K4"] = (lambda: conv3x3_bwd_dw(x, g, y, act, 1.0, mode, table),
+                      lambda: conv3x3_bwd_dw_plain(x, g, y, act, 1.0, mode,
+                                                   table), wgrad)
+    nbyte = 2 if dtype == torch.bfloat16 else 4
+    flops = 2.0 * 27 * ci * co * y[..., 0].numel()
+    nx, ny, nk, nbias = x.numel(), y.numel(), k.numel(), b.numel()
+    ops = {"K1": flops, "K2": 2 * flops, "K3": flops, "K4": flops}
+    nbytes = {                          # each input once, each output once
+        "K1": nbyte * (nx + nk + ny) + 4 * nbias,
+        "K2": nbyte * (2 * nx + 2 * ny + nk) + 4 * (nk + nbias),
+        "K3": nbyte * (2 * ny + nk + nx),
+        "K4": nbyte * (nx + 2 * ny) + 4 * (nk + nbias)}
+    out = {}
+    for kern, (fn, plain, lib) in runs.items():
+        bms, by = bound_ms(ops[kern], nbytes[kern], peak_key(kern, dname))
+        out[kern] = dict(ms=cuda_ms(torch, fn, 5),
+                         plain_ms=cuda_ms(torch, plain, 5),
+                         library_ms=cuda_ms(torch, lib, 5), bound_ms=bms,
+                         bound_by=by, ops=ops[kern], bytes=nbytes[kern])
+    return out
+
+
+def cae_step_kernel_times(torch, calls, dtype):
+    """K1-K4 at each distinct layer of a recorded step (calls keyed by K1's
+    shapes), each layer's times times its calls -> {kernel: sums}."""
+    from stroke_prediction_tpu_torch.ops.conv3x3 import bwd_route
+
+    dname = str(dtype)[6:]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   ops=0.0, bytes=0.0, launches=0) for k in CAE_KERNELS}
+    print(f"cae train: K1-K4 per distinct layer of one {dname} step (x n = "
+          f"calls a step; ms kernel / plain / cuDNN (K2: dgrad + wgrad) / "
+          f"bound; TFLOP/s; bound in {peak_key('K1', dname)}):")
+    # each layer's route as the step took it: its backward kernels' calls
+    # have its shape
+    took = {(key[0], key[1:8]) for key in calls if key[0] != "K1"}
+    for key, n in calls.items():
+        if key[0] != "K1":
+            continue
+        nb, d, h, w, ci, co = key[1:7]
+        route = next((r for kern, r in (("K2", "fused"), ("K3", "split"),
+                                        ("K4", "dw"))
+                      if (kern, key[1:8]) in took), None)
+        if route != bwd_route(ci, co, route != "dw"):
+            raise AssertionError(f"cae train: {key} took route {route}")
+        times = cae_layer_times(torch, key[1:] + (route,), dtype, gen)
+        parts = []
+        for kern, t in times.items():
+            for f in ("ms", "plain_ms", "library_ms", "bound_ms", "ops",
+                      "bytes"):
+                tot[kern][f] += n * t[f]
+            tot[kern]["launches"] += n
+            parts.append(f"{kern} {t['ms']:.4f}/{t['plain_ms']:.4f}/"
+                         f"{t['library_ms']:.4f}/{t['bound_ms']:.4f}"
+                         f"({t['bound_by'][0]}) "
+                         f"{t['ops'] / t['ms'] / 1e9:.1f}")
+        print(f"  in {nb}x{d}x{h}x{w} {ci:>3}->{co:<3} '{key[7]}' "
+              f"{'table ' if key[8] else 'vector'} x{n} route {route:5s} "
+              + "  ".join(parts))
+    for kern, t in tot.items():
+        t["bound_by"] = bound_ms(t["ops"], t["bytes"],
+                                 peak_key(kern, dname))[1]
+        t["gflop"] = t["ops"] / 1e9
+        print(f"  per step {kern} ({t['launches']} launches): "
+              f"{t['gflop']:.2f} GFLOP  kernel {t['ms']:.4f} ms "
+              f"({t['ops'] / t['ms'] / 1e9:.1f} TFLOP/s)  plain "
+              f"{t['plain_ms']:.4f} ms  cuDNN {t['library_ms']:.4f} ms  "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    if {k: t["launches"] for k, t in tot.items()} != cae_step_launches():
+        raise AssertionError(f"cae train: the timed layers give "
+                             f"{tot} launches a step")
+    return tot
+
+
+def cae_profile_step(torch, learner, batch):
+    """One bfloat16 CAE training step under torch.profiler: device busy,
+    the hand kernels' share, the number of kernels."""
+    learner.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learner.train_step(batch)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms, n_kernels, groups = trace_kernels(
+        torch, lambda: learner.train_step(batch), "cae train profile",
+        wall_ms)
+    if not busy_ms:
+        raise AssertionError("cae train profile: no device time in the "
+                             "trace")
+    hand = sum(ms for g, (ms, _) in groups.items() if g.startswith("K"))
+    print(f"cae train profile: one step {wall_ms:.2f} ms (host clock, "
+          f"unprofiled); K1-K5 {hand:.3f} ms ({100 * hand / busy_ms:.1f}% "
+          f"of device busy)")
+    return dict(busy_ms=busy_ms, wall_ms=wall_ms, kernels=n_kernels,
+                hand_ms=hand)
+
+
+def cae_layer_of(key):
+    """A CAE parameter's layer: an encoder block (its BN and conv), a
+    decoder conv or transposed conv with the BN in front of it, or a dense
+    layer of the step head."""
+    from stroke_prediction_tpu_torch.models.cae3d import DecoderStack
+
+    parts = key.split(".")
+    if parts[:3] == ["dec", "decoder", "bns"]:
+        kind, i = DecoderStack.ORDER[int(parts[3])]
+        return f"dec.decoder.{kind}s.{i}"
+    return ".".join(parts[:4] if parts[1] in ("encoder", "decoder")
+                    else parts[:2])
+
+
+def cae_steps_vs_cpu(torch, learner):
+    """One CAE training step (forward, loss at CAE_VS_CPU_FACTOR, backward;
+    no optimizer step) at batch 2 on the same batch, flips and displacement
+    fields, with a float64 CPU step as the witness:
+
+    * from seeded weights (as :func:`step_vs_cpu`'s U-Net), float32 and
+      bfloat16, card against CPU, with the bfloat16 limits' two controls;
+    * from the trained weights (the CLI's run), the card's float32 step
+      against float64 at the STEP_* limits.  The CPU's float32 step is
+      only printed there: a channel whose batch variance falls far below
+      its squared mean makes the folded BN's kernel gradient
+      ``dk' * s + t * db'`` two large terms that cancel, and the CPU's
+      sums' order put it 3.9e-3 of its layer's largest gradient off
+      float64 on the card's first run, the card 1.4e-5."""
+    from stroke_prediction_tpu_torch.data.augment import (
+        elastic_deform_batch, hemispheric_flip)
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_GLOBAL, KEY_LABELS)
+    from stroke_prediction_tpu_torch.models.cae3d import Cae3D, Dec3D, Enc3D
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+    from stroke_prediction_tpu_torch.ops.warp import (
+        elastic_fields, elastic_noise)
+    from stroke_prediction_tpu_torch.train.cae_learners import cae_loss
+
+    data, _ = learner.device_data(learner._dataloader_training)
+    labels = data[KEY_LABELS][:CAE_VS_CPU_BATCH].cpu()
+    clinical = data[KEY_GLOBAL][:CAE_VS_CPU_BATCH].cpu()
+    noise = elastic_noise(torch.Generator().manual_seed(5), CAE_VS_CPU_BATCH,
+                          CAE_DHW)
+    flip = torch.tensor([True, False])
+    gen = torch.Generator().manual_seed(3)
+    seeded = Cae3D(Enc3D(CAE_CHANNELS, generator=gen),
+                   Dec3D(CAE_CHANNELS, generator=gen))
+    trained = copy.deepcopy(learner._model).cpu()
+    real_dw = cm.conv3x3_bwd_dw
+
+    def entry_dw_zeroed(x, *args):
+        """K4 with the entry conv's (data input) dW and db zeroed."""
+        out = real_dw(x, *args)
+        return (tuple(torch.zeros_like(t) for t in out)
+                if x.shape[-1] == CAE_CHANNELS[0] else out)
+
+    entry_dw_zeroed.launches = 0
+    out = {}
+    for side, model, dev, dt in (
+            ("card float32", seeded, "cuda", torch.float32),
+            ("CPU float32", seeded, "cpu", torch.float32),
+            ("card bfloat16", seeded, "cuda", torch.bfloat16),
+            ("card bfloat16, entry K4 zeroed", seeded, "cuda",
+             torch.bfloat16),
+            ("CPU bfloat16", seeded, "cpu", torch.bfloat16),
+            ("CPU float64", seeded, "cpu", torch.float64),
+            ("trained card float32", trained, "cuda", torch.float32),
+            ("trained CPU float32", trained, "cpu", torch.float32),
+            ("trained CPU float64", trained, "cpu", torch.float64)):
+        m = copy.deepcopy(model).to(dev).train()
+        if dt == torch.float64:
+            m.double()
+        set_cae_dtype(m, dt)
+        wide = torch.promote_types(dt, torch.float32)
+        t0 = time.perf_counter()
+        labs = elastic_deform_batch(
+            hemispheric_flip(labels.to(dev, wide), flip.to(dev)),
+            elastic_fields(noise.to(dev, wide)))
+        dto = m(learner.make_dto(labs, clinical.to(dev, wide)))
+        loss = cae_loss(dto, CAE_VS_CPU_FACTOR)
+        if "zeroed" in side:
+            cm.conv3x3_bwd_dw = entry_dw_zeroed
+        try:
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                loss.backward()
+        finally:
+            cm.conv3x3_bwd_dw = real_dw
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[side] = (float(loss.detach()),
+                     {k: p.grad.cpu().double()
+                      for k, p in m.named_parameters() if p.grad is not None},
+                     {k: b.cpu().double() for k, b in m.named_buffers()},
+                     time.perf_counter() - t0)
+    print("\ncae step seconds: " + ", ".join(f"{side} {v[3]:.2f} s"
+                                            for side, v in out.items()))
+    entry_bn = {k: torch.zeros_like(g) if k.startswith(CAE_ENTRY + ".bn.")
+                else g for k, g in out["card bfloat16"][1].items()}
+    out["card bfloat16, entry BN zeroed"] = (out["card bfloat16"][0],
+                                             entry_bn) + out["card bfloat16"][2:]
+    layers = sorted({cae_layer_of(k) for k in out["CPU float64"][1]})
+
+    def compare(a, b):
+        """(loss rel, (worst grad err / its layer's max|grad|, its name),
+        stats err, {layer: |g_a - g_b| / |g_b| over the layer's
+        gradients})."""
+        (l_a, g_a, b_a, _), (l_b, g_b, b_b, _) = out[a], out[b]
+        if set(g_a) != set(g_b) or len(g_b) != len(list(seeded.parameters())):
+            raise AssertionError(f"cae step {a} vs {b}: gradients of "
+                                 f"{sorted(set(g_a) ^ set(g_b))}")
+        scale, diff2, ref2 = {}, {}, {}
+        for k, g in g_b.items():
+            lay = cae_layer_of(k)
+            scale[lay] = max(scale.get(lay, 0.0), float(g.abs().max()))
+            diff2[lay] = diff2.get(lay, 0.0) + float(
+                ((g_a[k] - g) ** 2).sum())
+            ref2[lay] = ref2.get(lay, 0.0) + float((g ** 2).sum())
+        grad = max((float((g_a[k] - g_b[k]).abs().max())
+                    / scale[cae_layer_of(k)], k) for k in g_b)
+        norm = {lay: (diff2[lay] / ref2[lay]) ** 0.5 for lay in layers}
+        stats = max(float((b_a[k] - b_b[k]).abs().max()) for k in b_b)
+        worst = max(norm, key=norm.get)
+        print(f"cae step {a} vs {b} (batch {CAE_VS_CPU_BATCH}, {len(g_b)} "
+              f"gradients): loss {l_a:.9f} / {l_b:.9f} (rel "
+              f"{abs(l_a - l_b) / abs(l_b):.2e}); max grad err {grad[0]:.2e} "
+              f"of its layer's max|grad| at {grad[1]}; per layer |err| / "
+              f"|grad| at most {norm[worst]:.2e} ({worst}); running stats "
+              f"max|err| {stats:.2e}")
+        return abs(l_a - l_b) / abs(l_b), grad, stats, norm
+
+    def f32_check(card, cpu, f64, witness):
+        """The card's float32 step against ``witness`` within the STEP_*
+        limits; both float32 steps against ``f64``."""
+        loss_rel, grad, stats, _ = compare(card, witness)
+        res = dict(loss_rel=loss_rel, grad_rel=grad[0], worst_grad=grad[1],
+                   stats_err=stats,
+                   card_vs_f64=(grad[0] if witness == f64
+                                else compare(card, f64)[1][0]),
+                   cpu_vs_f64=compare(cpu, f64)[1][0])
+        if (loss_rel > STEP_LOSS_REL or grad[0] > STEP_GRAD_REL
+                or stats > STEP_STATS_ATOL):
+            raise AssertionError(f"cae step {card} vs {witness}: beyond the "
+                                 f"STEP_* limits: {res}")
+        return res
+
+    f32 = f32_check("card float32", "CPU float32", "CPU float64",
+                    "CPU float32")
+    f32_trained = f32_check("trained card float32", "trained CPU float32",
+                            "trained CPU float64", "trained CPU float64")
+
+    cpu64 = compare("CPU bfloat16", "CPU float64")[3]
+
+    def bf16_check(card):
+        """-> (the card's bfloat16 step's readings, its failed limits)."""
+        loss_rel, grad, stats, _ = compare(card, "CPU bfloat16")
+        card64 = compare(card, "CPU float64")[3]
+        excess = {lay: card64[lay] - (CAE_BF16_GRAD_FACTOR * cpu64[lay]
+                                      + CAE_BF16_GRAD_FLOOR)
+                  for lay in layers}
+        worst = max(excess, key=excess.get)
+        res = dict(loss_rel=loss_rel, grad_rel=grad[0], worst_grad=grad[1],
+                   stats_err=stats, card_vs_f64=max(card64.values()),
+                   cpu_vs_f64=max(cpu64.values()), worst_layer=worst,
+                   worst_layer_card_cpu_vs_f64=(card64[worst], cpu64[worst]))
+        failed = [name for name, bad in (
+            ("loss", loss_rel > CAE_BF16_LOSS_REL),
+            ("stats", stats > CAE_BF16_STATS_ATOL),
+            ("grad", grad[0] > CAE_BF16_GRAD_REL),
+            ("grad vs float64", excess[worst] > 0)) if bad]
+        print(f"cae step {card} vs float64, per layer |err| / |grad|: card "
+              f"{res['card_vs_f64']:.3e}, CPU {res['cpu_vs_f64']:.3e} at "
+              f"most; nearest its limit: {worst} card {card64[worst]:.3e} "
+              f"vs CPU {cpu64[worst]:.3e}; limits failed: {failed}")
+        return res, failed
+
+    bf16, failed = bf16_check("card bfloat16")
+    if failed:
+        raise AssertionError(f"cae step bfloat16: card and CPU differ beyond "
+                             f"the {failed} limits: {bf16}")
+    controls = {}
+    for card in ("card bfloat16, entry K4 zeroed",
+                 "card bfloat16, entry BN zeroed"):
+        res, failed = bf16_check(card)
+        controls[card] = dict(grad_rel=res["grad_rel"],
+                              worst_grad=res["worst_grad"], failed=failed)
+        if "grad" not in failed:
+            raise AssertionError(f"cae step bfloat16: the {card} control "
+                                 f"passes the CAE_BF16_GRAD_REL limit: {res}")
+    bf16["controls"] = controls
+    return {"float32": f32, "float32 trained": f32_trained,
+            "bfloat16": bf16}
 
 
 # torch.cuda._sleep's kernel: launched just before and just after each EDT
@@ -1871,6 +2491,7 @@ def main():
         cae = cae_phase(torch, work)
         launches, step_ms, learner = train_phase(torch, work)
         step = step_vs_cpu(torch, learner)
+        cae_tr = cae_train_phase(torch, work)
 
     def per_step(key, dtype="bfloat16"):
         """Sums over the layers whose route runs ``key`` in one step."""
@@ -1907,6 +2528,25 @@ def main():
                         f"L{v['layers']})"
                         for key, v in ((key, per_step(key, dtype))
                                        for key in ("K1", "K2", "K3", "K4"))))
+    wrapper_of = {"K1": "conv3x3", "K2": "conv3x3_bwd_fused",
+                  "K3": "conv3x3_bwd_dx", "K4": "conv3x3_bwd_dw"}
+
+    def cae_train_use(key):
+        """A kernel's use on the CAE training path: its launches in the CLI
+        run and a step, and per step in each type the layers' sums."""
+        return {"launches": cae_tr["launches"][wrapper_of[key]],
+                "launches_per_step": cae_tr["per_step"][key],
+                **{dname: dict({f: cae_tr["times"][dname][key][f] for f in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "gflop")}, max_abs_err=cae_tr["recorded"][dname][key])
+                   for dname in ("bfloat16", "float32")},
+                "per": f"one CAE training step (batch {CAE_TRAIN_BATCH}, "
+                       f"channels 1 16 24 32 100 200 1, 28x128x128 masks, "
+                       f"3 encodes + 4 decodes): each layer's time times "
+                       f"its calls; max_abs_err: every call of one step on "
+                       f"its own inputs vs plain; bound_ms in bf16 or "
+                       f"3xTF32; launches: the CLI run's {cae_tr['steps']}"}
+
     csrc = "stroke_prediction_tpu_torch/ops/csrc/"
     s2d = "stroke_prediction_tpu/ops/pallas/s2d.py:"
     step_per = (f"one training step (bfloat16, batch {TRAIN_BATCH}, patch "
@@ -1951,24 +2591,28 @@ def main():
                                "(core and penumbra at batch 1, the 6, 9 "
                                "and 11 interpolations decoded as one "
                                "batch each); each layer's time times its "
-                               "calls; bound_ms in 3xTF32"}),
+                               "calls; bound_ms in 3xTF32"},
+             cae_train=cae_train_use("K1")),
         dict({"name": "conv3x3_bwd_fused", "route": "cuda",
               "source": csrc + "conv3x3_bwd_tc.cu", "replaces": s2d + "491",
               "launches": launches["conv3x3_bwd_fused"]}, **per_step("K2"),
              source_float32=csrc + "conv3x3_bwd_f32_tc.cu", per=step_per,
-             float32=dict(per_step("K2", "float32"), per=f32_step_per)),
+             float32=dict(per_step("K2", "float32"), per=f32_step_per),
+             cae_train=cae_train_use("K2")),
         dict({"name": "conv3x3_bwd_dx", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dx_tc.cu",
               "replaces": s2d + "589",
               "launches": launches["conv3x3_bwd_dx"]}, **per_step("K3"),
              source_float32=csrc + "conv3x3_bwd_dx_f32_tc.cu", per=step_per,
-             float32=dict(per_step("K3", "float32"), per=f32_step_per)),
+             float32=dict(per_step("K3", "float32"), per=f32_step_per),
+             cae_train=cae_train_use("K3")),
         dict({"name": "conv3x3_bwd_dw", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dw_tc.cu",
               "replaces": s2d + "623",
               "launches": launches["conv3x3_bwd_dw"]}, **per_step("K4"),
              source_float32=csrc + "conv3x3_bwd_dw_f32_tc.cu", per=step_per,
-             float32=dict(per_step("K4", "float32"), per=f32_step_per)),
+             float32=dict(per_step("K4", "float32"), per=f32_step_per),
+             cae_train=cae_train_use("K4")),
         {"name": "edt_sites", "route": "cuda",
          "source": csrc + "edt_sites.cu",
          "replaces": "stroke_prediction_tpu/ops/edt.py:80",
@@ -1998,6 +2642,18 @@ def main():
          "cae": {"launches": cae["launches"]["edt_sites"],
                  "per": f"the CAE shape tester CLI's 3 cases, "
                         f"{CAE_EDT_PER_CASE} a case"},
+         "cae_train": {"launches": cae_tr["launches"]["edt_sites"],
+                       "max_abs_err": 0.0,
+                       **{key: CAE_EDT_PER_CASE * k5[EDT_CAE_VALID][key]
+                          for key in ("ms", "plain_ms", "bound_ms")},
+                       "bound_by": k5[EDT_CAE_VALID]["bound_by"],
+                       "per": f"one CAE training validation batch: "
+                              f"{CAE_EDT_PER_CASE} x one measured "
+                              f"{EDT_CAE_VALID} EDT, device time; "
+                              f"max_abs_err: the batch's "
+                              f"{CAE_EDT_PER_CASE} calls on their own "
+                              f"masks vs plain (equal); launches: the CLI "
+                              f"run's validation batches"},
          "single_pass": {"name": "edt_parabola",
                          "launches": launches["edt_parabola"],
                          "ms": k5[(3584, 64)]["ms"],
@@ -2023,6 +2679,12 @@ def main():
           f"back to back, CUDA events): {step_ms:.3f}; card vs CPU float32 "
           f"step {step}; 's', 3 -> 4 and 192 -> 64 cases max|err| (and the "
           f"float32 K2, K3 and K4 vs f64, of max|ref|) {s_err}")
+    print(f"CAE training ms per step (card, bfloat16, batch "
+          f"{CAE_TRAIN_BATCH}, mean of {CAE_TIMED_STEPS} back to back, CUDA "
+          f"events): {cae_tr['step_ms']['mean']:.3f} (host "
+          f"{cae_tr['step_ms']['host']:.3f}); device busy "
+          f"{cae_tr['busy']['busy_ms']:.3f} ms in {cae_tr['busy']['kernels']}"
+          f" kernels a step; card vs CPU CAE step {cae_tr['vs_cpu']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,85 @@
+"""Phase-1 CAE training: learn the lesion shape space on the manual masks
+(port of cli/train_shape_reconstruction.py).  ``Enc3D`` (``Enc3DStep`` with
+``--steplearning``, which also trains on every fold case with no validation
+split) and ``Dec3D`` at ``--channelscae``, Adam (1e-3, betas (0.9, 0.999),
+L2 1e-5) with the beta1 ramp, optional MultiStepLR (``--lrsteps``), the
+curriculum loss of ``CaeReconstructionLearner``; cases resampled, then per
+step a random hemispheric flip and an elastic deformation of the labels;
+CBV / TTD are staged for the PNG grid only.
+
+    python -m stroke_prediction_tpu_torch.cli.train_shape_reconstruction \\
+        [--synthetic] [--fold ...] [--channelscae 1 16 24 32 100 200 1] \\
+        [--dtype bfloat16|float32] [--steplearning] [--device cuda|cpu] \\
+        [--outbasepath BASE] [--inbasepath BASE]
+
+Writes ``<BASE>_cae1.{model,optim,json}`` on each new validation optimum,
+``<BASE>_cae1_final.model`` at the end and, where matplotlib is installed,
+the PNGs.  ``--inbasepath`` resumes from such a snapshot, written by either
+package.
+"""
+
+import datetime
+
+import torch
+
+from stroke_prediction_tpu_torch.cli.common import make_dataset
+from stroke_prediction_tpu_torch.data.dataset import (
+    LABEL_CORE, LABEL_LESION, LABEL_PENU, MOD_CBV, MOD_TTD)
+from stroke_prediction_tpu_torch.data.loader import (
+    get_stroke_shape_training_data)
+from stroke_prediction_tpu_torch.device import resolve_device
+from stroke_prediction_tpu_torch.models.cae3d import (
+    Cae3D, Dec3D, Enc3D, Enc3DStep)
+from stroke_prediction_tpu_torch.train.cae_learners import (
+    CaeReconstructionLearner)
+from stroke_prediction_tpu_torch.train.optim import (
+    make_optimizer, multistep_lr)
+from stroke_prediction_tpu_torch.utils.args import get_args_shape_training
+
+
+def train(args) -> CaeReconstructionLearner:
+    use_validation = not args.steplearning
+    learning_rate = 1e-3
+    betas = (0.9, 0.999)
+
+    device = resolve_device(args.device)
+    gen = torch.Generator().manual_seed(args.seed)
+    dtype = getattr(torch, args.dtype)
+    enc_cls = Enc3DStep if args.steplearning else Enc3D
+    channels = tuple(args.channelscae)
+    cae = Cae3D(enc=enc_cls(channels, args.globals, generator=gen,
+                            compute_dtype=dtype),
+                dec=Dec3D(channels, args.globals, generator=gen,
+                          compute_dtype=dtype)).to(device)
+    optimizer = make_optimizer(cae.parameters(), learning_rate, betas=betas,
+                               weight_decay=1e-5)
+    sched = multistep_lr(learning_rate, args.lrsteps) if args.lrsteps else None
+
+    dataset = make_dataset(args, [MOD_CBV, MOD_TTD],
+                           [LABEL_CORE, LABEL_PENU, LABEL_LESION])
+    ds_train, ds_valid = get_stroke_shape_training_data(
+        dataset, args.fold, args.validsetsize, seed=args.seed,
+        batchsize=args.batchsize, split=use_validation)
+    print("Size training set:", len(ds_train.indices),
+          "samples | Size validation set:",
+          len(ds_valid.indices) if ds_valid else 0,
+          "samples | Capacity batch:", args.batchsize, "samples")
+    print("# training batches:", len(ds_train),
+          "| # validation batches:", len(ds_valid) if ds_valid else 0)
+
+    # --steplearning keeps this learner, with the time given: the step head
+    # trains later (the step learner)
+    learner = CaeReconstructionLearner(
+        ds_train, ds_valid, cae, optimizer, sched, n_epochs=args.epochs,
+        normalization_hours_penumbra=args.normalize,
+        path_previous_base=args.inbasepath,
+        path_outputs_base=args.outbasepath, seed=args.seed,
+        distances_on_training=args.distances, device=device)
+    learner.run_training()
+    return learner
+
+
+if __name__ == "__main__":
+    print(datetime.datetime.now())
+    train(get_args_shape_training())
+    print(datetime.datetime.now())

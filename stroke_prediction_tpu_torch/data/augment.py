@@ -1,5 +1,5 @@
-"""Random patch cropping on the device (port of data/augment.py
-``random_patch``).
+"""Augmentation on the device (port of data/augment.py): the U-Net's random
+patch crop, and the CAE's random hemispheric flip and elastic deformation.
 
 The JAX function draws per-sample offsets and crops with one-hot selection
 matmuls, a form chosen for the TPU's matrix unit.  Here the two halves are
@@ -8,7 +8,10 @@ gather at explicit offsets, and :func:`random_offsets` the sampler, which
 draws the offsets from a ``torch.Generator`` with the same bounds
 (``randint(0, S - s + 1)`` per axis).  The two packages' generators give
 different numbers for the same seed, so the tests feed both the same
-offsets.
+offsets.  The flip and the elastic deformation are split the same way:
+:func:`hemispheric_flip` and :func:`elastic_deform_batch` are the cores,
+which take explicit flip masks and displacement fields;
+:func:`random_flip_mask` and :func:`ops.warp.elastic_noise` the samplers.
 
 Layouts: batch volumes ``(B, D, H, W, C)``; patch and pad are given in the
 reference's (x, y, z) = (W, H, D) order.
@@ -19,6 +22,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from stroke_prediction_tpu_torch.ops.warp import (
+    elastic_fields, elastic_noise, map_coordinates_batch)
 
 
 def random_offsets(generator: torch.Generator, batch: int,
@@ -60,3 +66,44 @@ def crop_patch(images: torch.Tensor, labels: Optional[torch.Tensor],
     if labels is not None:
         labs = _crop(labels, offsets, (d - 2 * pz, h - 2 * py, w - 2 * px))
     return imgs, labs
+
+
+def random_flip_mask(generator: torch.Generator, batch: int) -> torch.Tensor:
+    """(B,) bool, each True with probability 0.5, on the generator's
+    device."""
+    return torch.rand((batch,), generator=generator,
+                      device=generator.device) < 0.5
+
+
+def hemispheric_flip(volumes: torch.Tensor,
+                     flip: torch.Tensor) -> torch.Tensor:
+    """(B, D, H, W, C) volumes with the samples where ``flip`` holds
+    mirrored along the hemispheric (X = W) axis."""
+    cond = flip.reshape((-1,) + (1,) * (volumes.ndim - 1))
+    return torch.where(cond, torch.flip(volumes, dims=(-2,)), volumes)
+
+
+def elastic_deform_batch(labels: torch.Tensor,
+                         fields: torch.Tensor) -> torch.Tensor:
+    """(B, D, H, W, C) labels warped by the (B, 3, D, H, W) displacement
+    fields of :func:`ops.warp.elastic_fields`, one field shared by a
+    sample's channels (the CAE learners deform the labels alone): each
+    voxel p reads ``labels(p + field(p))`` trilinearly, zero outside."""
+    _, d, h, w, _ = labels.shape
+    grid = torch.meshgrid(*(torch.arange(n, dtype=fields.dtype,
+                                         device=fields.device)
+                            for n in (d, h, w)), indexing="ij")
+    return map_coordinates_batch(labels, torch.stack(grid)[None] + fields)
+
+
+def random_cae_augment(generator: torch.Generator,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """The CAE learner's training augmentation of its labels: a random
+    hemispheric flip, then an elastic deformation (alpha 100, sigma 4,
+    depth scaled by 0.22).  (The JAX learner flips its images too, which
+    phase-1 training never reads.)"""
+    labels = hemispheric_flip(labels, random_flip_mask(generator,
+                                                       labels.shape[0]))
+    noise = elastic_noise(generator, labels.shape[0],
+                          tuple(labels.shape[1:4]), labels.dtype)
+    return elastic_deform_batch(labels, elastic_fields(noise))

@@ -59,15 +59,19 @@ class BatchLoader:
 
 def get_stroke_shape_training_data(dataset: StrokeDataset3D,
                                    fold_indices: Sequence[int], ratio: float,
-                                   seed: int = 4, batchsize: int = 2):
+                                   seed: int = 4, batchsize: int = 2,
+                                   split: bool = True):
     """(training loader, validation loader or None), both shuffled per epoch
-    from their own ``seed``-seeded RNG, as in the JAX package."""
-    train_idx, valid_idx = fold_split(len(dataset), fold_indices, ratio, seed)
+    from their own ``seed``-seeded RNG, as in the JAX package.  With
+    ``split`` False every fold case trains and there is no validation
+    loader (``--steplearning``)."""
+    train_idx, valid_idx = fold_split(len(dataset), fold_indices,
+                                      ratio if split else 0.0, seed)
     train = BatchLoader(dataset, train_idx, batchsize, shuffle=True,
                         seed=seed)
     valid = (BatchLoader(dataset, valid_idx, batchsize, shuffle=True,
                          seed=seed)
-             if valid_idx else None)
+             if split and valid_idx else None)
     return train, valid
 
 

@@ -35,6 +35,12 @@ def batch_dice_loss(outputs: torch.Tensor, targets: torch.Tensor,
     return 1.0 - torch.sum(w * dice)
 
 
+def monotonicity_hinge(diff: torch.Tensor) -> torch.Tensor:
+    """``mean(|d| - d)``: penalizes the negative entries of ``d``, the CAE
+    loss's core <= interpolation <= penumbra ordering term."""
+    return torch.mean(torch.abs(diff) - diff)
+
+
 def _surface6(mask: torch.Tensor) -> torch.Tensor:
     """Surface voxels of (N, D, H, W) masks under 6-connectivity erosion
     with a zero border (scipy ``binary_erosion`` default).  Made from the

@@ -1,5 +1,5 @@
 """3-D convolutional autoencoder (CAE) of lesion shapes (port of
-models/cae3d.py, evaluation path).
+models/cae3d.py).
 
 * :class:`Enc3D` — ten BN -> conv -> ELU layers with z-only padding and
   three stride-2 downsamples, mapping (B, 28, 128, 128, 1) masks to a
@@ -16,8 +16,12 @@ interpolation) are encoded and decoded one pass each, the JAX package's
 default (``structure_batching()`` off).  The stride-1 3^3 convs run in K1
 (:mod:`..ops.conv3x3`): the encoder's z-SAME convs and its fc conv with BN
 folded in, the decoder's (1, 2, 2)-padded convs after BN.  The stride-2 and
-transposed convs are cuDNN's, the 1^3 convs matmuls.  Everything runs in
-float32.
+transposed convs are cuDNN's, the 1^3 convs matmuls.  ``train()`` uses BN
+batch statistics (the running ones chain over the structures' passes, in
+call order), ``eval()`` the running ones.  The volumes run in
+``compute_dtype`` (float32 or bfloat16; float64 on the CPU) from the
+encoder's and the decoder's entry on; parameters, BN statistics and the
+sigmoid's output stay float32.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from torch import nn
 from stroke_prediction_tpu_torch.core.dto import (
     BRANCH_GTRUTH, CaeBranches, CaeDto)
 from stroke_prediction_tpu_torch.models.layers import (
-    BatchNorm, BnConvActBlock, Conv3d, ConvTranspose3d, Dense)
+    BatchNorm, BnConvActBlock, Conv3d, ConvTranspose3d, Dense,
+    check_compute_dtype)
 from stroke_prediction_tpu_torch.ops.conv3x3 import activation
 
 
@@ -74,8 +79,11 @@ class EncoderStack(nn.Module):
     z-SAME pairs between stride-2 convs (padding 1, 1, then VALID) and a
     VALID 3^3 fc conv."""
 
-    def __init__(self, channels: Sequence[int], alpha: float = 1.0):
+    def __init__(self, channels: Sequence[int], alpha: float = 1.0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_compute_dtype(compute_dtype)
+        self.compute_dtype = compute_dtype
         c_in, origin, d2, d4, d8, fc = channels[:6]
         zpad, down = (1, 0, 0), (2, 2, 2)
         layers = [(c_in, origin, {"padding": zpad}),
@@ -90,7 +98,7 @@ class EncoderStack(nn.Module):
             for ci, co, kw in layers])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
+        x = x.to(self.compute_dtype)
         for block in self.blocks:
             x = block(x)
         return x
@@ -108,11 +116,13 @@ class DecoderStack(nn.Module):
              ("conv", 2), ("conv", 3), ("ct", 3), ("conv", 4), ("conv", 5),
              ("conv", 6), ("conv", 7))
 
-    def __init__(self, channels: Sequence[int], alpha: float = 1.0):
+    def __init__(self, channels: Sequence[int], alpha: float = 1.0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_compute_dtype(compute_dtype)
         _, origin, d2, d4, d8, fc = channels[:6]
         n_classes = channels[-1]
-        self.alpha = alpha
+        self.alpha, self.compute_dtype = alpha, compute_dtype
         pad = {"padding": (1, 2, 2)}
         self.cts = nn.ModuleList([
             ConvTranspose3d(fc, d8, (3, 3, 3), (1, 1, 1)),
@@ -131,7 +141,7 @@ class DecoderStack(nn.Module):
             for kind, i in self.ORDER])
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = z.float()
+        x = z.to(self.compute_dtype)
         last = len(self.ORDER) - 1
         for n, ((kind, i), bn) in enumerate(zip(self.ORDER, self.bns)):
             x = bn(x)
@@ -140,7 +150,8 @@ class DecoderStack(nn.Module):
             else:
                 x = self.convs[i](x, "none" if n == last else "elu",
                                   self.alpha)
-        return torch.sigmoid(x)
+        return torch.sigmoid(x.to(torch.promote_types(x.dtype,
+                                                      torch.float32)))
 
 
 class Enc3D(nn.Module):
@@ -148,11 +159,12 @@ class Enc3D(nn.Module):
 
     def __init__(self, channels: Sequence[int], n_ch_global: int = 5,
                  alpha: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.channels, self.n_ch_global = tuple(channels), n_ch_global
         self.alpha = alpha
-        self.encoder = EncoderStack(self.channels, alpha)
+        self.encoder = EncoderStack(self.channels, alpha, compute_dtype)
         self._build_head()
         _reset(self, generator)
 
@@ -212,8 +224,8 @@ class Enc3DStep(Enc3D):
                 raise ValueError("this Enc3DStep has no step head: give a "
                                  "time to treatment")
             g = dto.given_variables.globals
-            h = elu(self.reduce1(g.reshape(g.shape[0], -1).float()),
-                    self.alpha)
+            h = elu(self.reduce1(g.reshape(g.shape[0], -1).to(
+                self.reduce1.kernel.dtype)), self.alpha)
             h = elu(self.reduce2(h), self.alpha)
             step = torch.sigmoid(self.step_head(h))
         return step
@@ -224,10 +236,11 @@ class Dec3D(nn.Module):
 
     def __init__(self, channels: Sequence[int], n_ch_global: int = 5,
                  alpha: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.channels, self.n_ch_global = tuple(channels), n_ch_global
-        self.decoder = DecoderStack(self.channels, alpha)
+        self.decoder = DecoderStack(self.channels, alpha, compute_dtype)
         _reset(self, generator)
 
     def _decode_many(self, zs: List[Optional[torch.Tensor]]):

@@ -182,7 +182,7 @@ def save_unet_checkpoint(path: str, model) -> None:
     package's ``load_checkpoint`` / tester read (header as
     ``unet_learner.py`` writes it)."""
     save_checkpoint(path, unet_state_to_jax(model.state_dict()),
-                    {"kind": "unet3d", "channels": list(model.channels)})
+                    model.config)
 
 
 def save_cae_checkpoint(path: str, model) -> None:
@@ -195,8 +195,9 @@ def save_cae_checkpoint(path: str, model) -> None:
 
 def _param_paths(model) -> List[Tuple[Tuple[str, ...], torch.nn.Parameter]]:
     """(flax path under "params", parameter) in ``model.parameters()``
-    order, which is the order of the optimizer's state indices."""
-    path_of = {key: path[1:] for path, key in _unet_key_map()
+    order, which is the order of the optimizer's state indices; the
+    paths of the tree that ``model.config`` names (a U-Net or a CAE)."""
+    path_of = {key: path[1:] for path, key in _key_map(model.config)
                if path[0] == "params"}
     return [(path_of[name], p) for name, p in model.named_parameters()]
 

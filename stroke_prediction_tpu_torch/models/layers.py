@@ -30,6 +30,14 @@ from stroke_prediction_tpu_torch.ops.conv3x3 import (
     Conv3x3Fn, activation, fold_bn, fold_bn_zsame)
 
 
+def check_compute_dtype(compute_dtype: torch.dtype) -> None:
+    """A model's compute type: float32 or bfloat16, or float64 for the CPU
+    tests."""
+    if compute_dtype not in (torch.float32, torch.bfloat16, torch.float64):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16 "
+                         f"(float64 on the CPU), got {compute_dtype}")
+
+
 class _ConvParams(nn.Module):
     """A conv kernel ``(*kernel_size, C_in, C_out)`` and bias with the
     torch-0.3 init U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = C_in *

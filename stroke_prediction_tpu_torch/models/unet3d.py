@@ -21,7 +21,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from stroke_prediction_tpu_torch.models.layers import BnConvActBlock, Conv3d
+from stroke_prediction_tpu_torch.models.layers import (
+    BnConvActBlock, Conv3d, check_compute_dtype)
 from stroke_prediction_tpu_torch.ops.pooling import max_pool3d
 from stroke_prediction_tpu_torch.ops.resize import (
     center_crop, upsample2x_trilinear)
@@ -61,10 +62,7 @@ class Unet3D(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if compute_dtype not in (torch.float32, torch.bfloat16,
-                                 torch.float64):
-            raise ValueError(f"compute_dtype must be float32 or bfloat16 "
-                             f"(float64 on the CPU), got {compute_dtype}")
+        check_compute_dtype(compute_dtype)
         c_in, b1, b2, b3, b4, b5, b_c, n_classes = channels
         self.channels = tuple(channels)
         self.compute_dtype = compute_dtype
@@ -76,6 +74,12 @@ class Unet3D(nn.Module):
         for m in self.modules():
             if isinstance(m, Conv3d):
                 m.reset_parameters(generator)
+
+    @property
+    def config(self) -> dict:
+        """The ``.model`` header of this model, as the JAX learner writes
+        it."""
+        return {"kind": "unet3d", "channels": list(self.channels)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, D, H, W, n_in) -> segmentation (B, D', H', W', n_classes)

@@ -1,0 +1,228 @@
+"""CAE phase-1 learner: the shape-space reconstruction (port of
+train/cae_learners.py ``CaeReconstructionLearner``).
+
+Per training step: a random hemispheric flip and an elastic deformation of
+the labels (data/augment.py, from the learner's device generator), the CAE in training mode over the gtruth branch (three
+encodes, the latent interpolation at the case's time to treatment, four
+decodes), and the curriculum loss
+
+    (hinge(penu - interp) + hinge(penu - core) + Dice(core) + Dice(penu)
+     + Dice(lesion) + factor * mean|z_interp - z_lesion|) / (5 + factor),
+
+``factor = min(0.04 * max(0, epoch - 25), 1)``, then backward and Adam with
+the beta1 ramp over the first four epochs.  Validation steps run the CAE in
+evaluation mode on the unaugmented batch.  Per step the measures of the
+interpolation against the lesion and of the core and penumbra
+reconstructions, HD / ASSD on validation steps.  Console line, loss curve
+and the 6-sample x 15-panel time-sweep grid as in the JAX learner.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from stroke_prediction_tpu_torch.data.augment import random_cae_augment
+from stroke_prediction_tpu_torch.data.dataset import (
+    KEY_GLOBAL, KEY_IMAGES, KEY_LABELS)
+from stroke_prediction_tpu_torch.eval.metrics import (
+    batch_dice_loss, binary_measures, monotonicity_hinge)
+from stroke_prediction_tpu_torch.inference import (
+    IMSHOW_VMAX_CBV, IMSHOW_VMAX_TTD, cae_dto_from_batch)
+from stroke_prediction_tpu_torch.models.convert import (
+    state_from_jax, state_to_jax)
+from stroke_prediction_tpu_torch.train.learner import Learner
+from stroke_prediction_tpu_torch.train.unet_learner import _measures_dict
+
+
+def cae_loss(dto, factor: float) -> torch.Tensor:
+    """The phase-1 loss of a gtruth-branch CAE output at curriculum
+    ``factor``."""
+    rec, gt = dto.reconstructions.gtruth, dto.given_variables.gtruth
+    loss = monotonicity_hinge(rec.penu - rec.interpolation)
+    loss = loss + monotonicity_hinge(rec.penu - rec.core)
+    loss = loss + batch_dice_loss(rec.core, gt.core)
+    loss = loss + batch_dice_loss(rec.penu, gt.penu)
+    loss = loss + batch_dice_loss(rec.lesion, gt.lesion)
+    lat = dto.latents.gtruth
+    loss = loss + factor * torch.mean(torch.abs(lat.interpolation
+                                                - lat.lesion))
+    return loss / (5.0 + factor)
+
+
+class CaeReconstructionLearner(Learner):
+
+    FNB_MARKS = "_cae1"
+    FN_VIS_BASE = "_cae1_"
+    N_EPOCHS_ADAPT_BETA1 = 4
+    # the grid's columns: the case's own time, then fixed tA -> tR hours
+    VIS_STEPS = (None, -10, -1, 0, 1, 2, 3, 4, 5, 20)
+
+    def __init__(self, dataloader_training, dataloader_validation, cae_model,
+                 optimizer, lr_schedule, n_epochs,
+                 normalization_hours_penumbra: float = 10, **kw):
+        self._norm_hours = normalization_hours_penumbra
+        super().__init__(dataloader_training, dataloader_validation,
+                         cae_model, optimizer, lr_schedule, n_epochs, **kw)
+
+    def model_config(self) -> dict:
+        """The true encoder class: ``--steplearning`` trains an Enc3DStep
+        under this learner, and its checkpoint reloads with its head."""
+        return self._model.config
+
+    def state_tree(self) -> dict:
+        return state_to_jax(self._model.state_dict(), self.model_config())
+
+    def load_state_tree(self, state) -> None:
+        self._model.load_state_dict(state_from_jax(state,
+                                                   self.model_config()))
+
+    def loss_factor(self, epoch: int) -> float:
+        return min(0.04 * max(0, epoch - 25), 1)
+
+    # ------------------------------------------------------------ stepping
+
+    def make_dto(self, labels, clinical, step=None):
+        return cae_dto_from_batch(None, labels, clinical, step,
+                                  self._norm_hours)
+
+    def augment(self, batch):
+        """The training batch's labels after the random flip and elastic
+        deformation."""
+        return random_cae_augment(self._generator, batch[KEY_LABELS])
+
+    def forward_loss(self, labels, clinical, factor: float):
+        dto = self._model(self.make_dto(labels, clinical))
+        return cae_loss(dto, factor), dto
+
+    def _metrics(self, loss, dto, training: bool) -> dict:
+        wd = self._with_distances(training)
+        rec, gt = dto.reconstructions.gtruth, dto.given_variables.gtruth
+        out = {"loss": loss.detach()}
+        for name, got, want in (("lesion", rec.interpolation, gt.lesion),
+                                ("core", rec.core, gt.core),
+                                ("penu", rec.penu, gt.penu)):
+            out.update(_measures_dict(name, binary_measures(
+                got.detach(), want, with_distances=wd)))
+        return out
+
+    def train_step(self, batch, factor: float = 0.0):
+        labels = self.augment(batch)
+        self._model.train()
+        loss, dto = self.forward_loss(labels, batch[KEY_GLOBAL], factor)
+        self._optimizer.zero_grad(set_to_none=True)
+        # cuDNN reads its TF32 flag when the stride-2 and transposed convs'
+        # backward runs: float32 stays float32 there as in their forward
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            loss.backward()
+        # a parameter off the loss's path (Enc3DStep's head when the time is
+        # given) gets a zero gradient, as jax.grad gives it, so that Adam's
+        # L2 term moves it as optax does
+        for p in self._model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self._optimizer.step()
+        self.step_counts["train"] += 1
+        with torch.no_grad():
+            return self._metrics(loss, dto, training=True)
+
+    def eval_step(self, batch, factor: float = 0.0):
+        self._model.eval()
+        with torch.no_grad():
+            loss, dto = self.forward_loss(batch[KEY_LABELS],
+                                          batch[KEY_GLOBAL], factor)
+            self.step_counts["eval"] += 1
+            return self._metrics(loss, dto, training=False)
+
+    # --------------------------------------------------------- reporting
+
+    def print_epoch(self, epoch, phase, m):
+        print("\nEpoch {}/{} {} loss: {:.3} - DC:{:.3}, HD:{:.3}, ASSD:{:.3},"
+              " DC core:{:.3}, DC penu.:{:.3}".format(
+                  epoch + 1, self._n_epochs, phase, m.get("loss", 0.0),
+                  m.get("lesion_dc", 0.0), m.get("lesion_hd", np.inf),
+                  m.get("lesion_assd", np.inf), m.get("core_dc", 0.0),
+                  m.get("penu_dc", 0.0)), end=" ")
+
+    def plot_epoch(self, plot, epochs):
+        tr, va = self._metric_dtos["training"], self._metric_dtos["validate"]
+        plot.plot(epochs, [m["loss"] for m in tr], "r-")
+        plot.plot(epochs, [m["loss"] for m in va], "g-")
+        plot.plot(epochs, [m.get("lesion_dc", 0) for m in va], "k-")
+        plot.plot(epochs, [m.get("core_dc", 0) for m in va], "c+")
+        plot.plot(epochs, [m.get("penu_dc", 0) for m in va], "m+")
+        plot.set_ylabel("L Train.(red)/Val.(green) | "
+                        "Dice Val. Lesion(b), Core(c), Penu(m)")
+        plot.set_ylim(0, 1)
+        ax2 = plot.twinx()
+        ax2.plot(epochs, [min(m.get("lesion_assd", np.inf), 1e3)
+                          for m in va], "b-")
+        ax2.set_ylabel("Validation ASSD (blue)", color="b")
+        ax2.tick_params("y", colors="b")
+
+    def _vis_reconstructions(self, labels, clinical):
+        """The interpolation's reconstruction at each of ``VIS_STEPS``, (10,
+        D, H, W): one forward at the case's own time, one for the fixed
+        hours decoded as one batch."""
+        self._model.eval()
+        with torch.no_grad():
+            own = self._model(self.make_dto(labels, clinical))
+            fixed = self._model(self.make_dto(labels, clinical,
+                                              list(self.VIS_STEPS[1:])))
+        self.step_counts["visual"] += 2
+        return torch.cat([own.reconstructions.gtruth.interpolation,
+                          fixed.reconstructions.gtruth.interpolation])[..., 0]
+
+    def visualize_epoch(self, epoch):
+        """6-sample x 15-panel grid: CBV, TTD, lesion, p(own time), core, p
+        at -10, -1, 0, 1, 2, 3, 4, 5, 20 h, penumbra."""
+        plt = self.pyplot()
+        if plt is None:
+            return
+        samples = self._vis_samples()
+        if not samples:
+            return
+        f, axarr = plt.subplots(max(len(samples), 2), 15)
+        for inc, sample in enumerate(samples):
+            labels = torch.from_numpy(sample[KEY_LABELS][None]).to(
+                self.device)
+            clinical = torch.from_numpy(sample[KEY_GLOBAL][None]).to(
+                self.device)
+            rec = self._vis_reconstructions(labels, clinical).cpu().numpy()
+            zs = min(rec.shape[1] - 1, 14)
+            for col, r in zip((3,) + tuple(range(5, 14)), rec):
+                axarr[inc, col].imshow(r[zs], vmin=0, vmax=1, cmap="gray")
+            imgs, labs = sample.get(KEY_IMAGES), sample[KEY_LABELS]
+            zs = min(labs.shape[0] - 1, 14)
+            if imgs is not None:
+                axarr[inc, 0].imshow(imgs[zs, :, :, 0], vmin=0,
+                                     vmax=IMSHOW_VMAX_CBV, cmap="jet")
+                axarr[inc, 1].imshow(imgs[zs, :, :, 1], vmin=0,
+                                     vmax=IMSHOW_VMAX_TTD, cmap="jet")
+            for col, ch in ((2, 2), (4, 0), (14, 1)):
+                axarr[inc, col].imshow(labs[zs, :, :, ch], vmin=0, vmax=1,
+                                       cmap="gray")
+            time = float(sample[KEY_GLOBAL][1])
+            titles = ["CBV", "TTD", "Lesion", "p({:03.1f}h)".format(time),
+                      "Core", "p(-10h)", "p(-1h)", "p(0h)", "p(1h)", "p(2h)",
+                      "p(3h)", "p(4h)", "p(5h)", "p(20h)", "Penumbra"]
+            for ax, title in zip(axarr[inc], titles):
+                ax.set_title(title)
+        for ax in np.asarray(axarr).flatten():
+            ax.title.set_fontsize(3)
+            ax.xaxis.set_visible(False)
+            ax.yaxis.set_visible(False)
+        f.subplots_adjust(hspace=0.05)
+        f.savefig(self._path_outputs_base + self.FN_VIS_BASE
+                  + str(epoch + 1) + ".png", bbox_inches="tight", dpi=300)
+        plt.close(f)
+
+    def _vis_samples(self, n: int = 6):
+        """First 3 train + 3 valid samples."""
+        samples = []
+        for i in self._dataloader_training.indices[:n // 2]:
+            samples.append(self._dataloader_training.dataset.sample(i))
+        if self._dataloader_validation is not None:
+            for i in self._dataloader_validation.indices[:n - len(samples)]:
+                samples.append(self._dataloader_validation.dataset.sample(i))
+        return samples

@@ -1,9 +1,10 @@
 """The training engine (port of train/learner.py).
 
-The same epoch protocol as the JAX learner: adapt lr -> train pass ->
-validation pass -> on a new validation minimum save ``.model``, ``.optim``
-and ``.json`` (the resume snapshot) -> the visual grid every 50 epochs and on
-an optimum -> the loss-curve plot from epoch 1 -> the final model.  File
+The same epoch protocol as the JAX learner: adapt lr and beta1 -> train
+pass -> validation pass -> on a new validation minimum save ``.model``,
+``.optim`` and ``.json`` (the resume snapshot) -> the visual grid every 50
+epochs and on an optimum -> the loss-curve plot from epoch 1 -> the final
+model.  File
 names ``<base><FNB_MARKS><suffix>.{model,optim,json,png}``; checkpoints in
 the JAX package's formats, so a run can resume in either package.
 
@@ -30,7 +31,8 @@ from stroke_prediction_tpu_torch.data.dataset import (
 from stroke_prediction_tpu_torch.device import resolve_device
 from stroke_prediction_tpu_torch.models.convert import (
     adam_state_from_jax, adam_state_to_jax)
-from stroke_prediction_tpu_torch.train.optim import set_learning_rate
+from stroke_prediction_tpu_torch.train.optim import (
+    beta1_ramp, set_beta1, set_learning_rate)
 from stroke_prediction_tpu_torch.utils import checkpoint as ckpt
 
 
@@ -43,6 +45,8 @@ class Learner:
     EXT_OPTIM = ".optim"
     EXT_TRAIN = ".json"
     EXT_IMAGE = ".png"
+
+    N_EPOCHS_ADAPT_BETA1: Optional[int] = None    # set by the CAE learners
 
     def __init__(self, dataloader_training, dataloader_validation, model,
                  optimizer, lr_schedule, n_epochs: int,
@@ -58,6 +62,8 @@ class Learner:
         self._dataloader_validation = dataloader_validation
         self._model = model
         self._optimizer = optimizer
+        # the ramp's end point: the optimizer's betas as it was built
+        self._base_betas = tuple(optimizer.param_groups[0]["betas"])
         self._lr_schedule = lr_schedule
         self._n_epochs = n_epochs
         self._path_outputs_base = path_outputs_base
@@ -103,12 +109,15 @@ class Learner:
 
     # ------------------------------------------------------- subclass hooks
 
-    def train_step(self, batch: Dict[str, torch.Tensor]) -> dict:
-        """One optimizer step on a device batch; returns 0-d metric
-        tensors (still on the device)."""
+    def train_step(self, batch: Dict[str, torch.Tensor],
+                   factor: float = 0.0) -> dict:
+        """One optimizer step on a device batch at the epoch's
+        :meth:`loss_factor`; returns 0-d metric tensors (still on the
+        device)."""
         raise NotImplementedError
 
-    def eval_step(self, batch: Dict[str, torch.Tensor]) -> dict:
+    def eval_step(self, batch: Dict[str, torch.Tensor],
+                  factor: float = 0.0) -> dict:
         raise NotImplementedError
 
     def model_config(self) -> Dict[str, Any]:
@@ -136,6 +145,21 @@ class Learner:
         """MultiStepLR step at epoch start."""
         if self._lr_schedule is not None:
             set_learning_rate(self._optimizer, self._lr_schedule(epoch))
+
+    def adapt_betas(self, epoch):
+        """The beta1 warm ramp over the first ``N_EPOCHS_ADAPT_BETA1``
+        epochs; none unless that is set."""
+        if self.N_EPOCHS_ADAPT_BETA1 is None:
+            return
+        b1 = beta1_ramp(self._base_betas[0], epoch, self.N_EPOCHS_ADAPT_BETA1)
+        set_beta1(self._optimizer, b1)
+        if epoch <= self.N_EPOCHS_ADAPT_BETA1:
+            print("Momentum betas have been set to:",
+                  (b1, self._base_betas[1]), end=" ")
+
+    def loss_factor(self, epoch: int) -> float:
+        """Curriculum weight of epoch-dependent loss terms (subclasses)."""
+        return 0.0
 
     # --------------------------------------------------------- resume hooks
 
@@ -194,13 +218,14 @@ class Learner:
         rows = [torch.tensor([rowmap[i] for i in chunk], dtype=torch.int64,
                              device=self.device)
                 for chunk in loader.epoch_chunks()]
+        factor = self.loss_factor(epoch)
         t0 = time.perf_counter()
         results = []
         for r in rows:
             batch = {k: (None if v is None else v.index_select(0, r))
                      for k, v in data.items()}
-            results.append(self.train_step(batch) if training
-                           else self.eval_step(batch))
+            results.append(self.train_step(batch, factor) if training
+                           else self.eval_step(batch, factor))
         # ONE device -> host fetch per epoch phase
         keys = sorted(results[0]) if results else []
         host = (torch.stack([torch.stack([m[k].float() for k in keys])
@@ -224,6 +249,7 @@ class Learner:
         epoch = self.get_start_epoch()
         for epoch in range(self.get_start_epoch(), self._n_epochs):
             self.adapt_lr(epoch)
+            self.adapt_betas(epoch)
 
             m_train = self._run_epoch(self._dataloader_training, epoch,
                                       training=True)

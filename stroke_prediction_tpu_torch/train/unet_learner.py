@@ -47,7 +47,7 @@ class UnetSegmentationLearner(Learner):
                          unet_model, optimizer, lr_schedule, n_epochs, **kw)
 
     def model_config(self) -> dict:
-        return {"kind": "unet3d", "channels": list(self._model.channels)}
+        return self._model.config
 
     def state_tree(self) -> dict:
         return unet_state_to_jax(self._model.state_dict())
@@ -85,7 +85,7 @@ class UnetSegmentationLearner(Learner):
             "penu", binary_measures(penu, penu_gt, with_distances=wd)))
         return out
 
-    def train_step(self, batch):
+    def train_step(self, batch, factor: float = 0.0):
         images, labels = self.crop(batch)
         self._model.train()
         loss, outs = self.forward_loss(images, labels)
@@ -97,7 +97,7 @@ class UnetSegmentationLearner(Learner):
             return self._metrics(loss, *(o.detach() for o in outs),
                                  training=True)
 
-    def eval_step(self, batch):
+    def eval_step(self, batch, factor: float = 0.0):
         images, labels = self.crop(batch)
         self._model.eval()
         with torch.no_grad():

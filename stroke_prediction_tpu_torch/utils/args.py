@@ -1,8 +1,9 @@
-"""CLI flags (port of utils/args.py: the U-Net parsers and the shape-testing
-parser).
+"""CLI flags (port of utils/args.py: the U-Net parsers, the CAE training
+parser and the shape-testing parser).
 
 The same flags and defaults as the JAX package's ``ExpParser`` /
-``UnetParser`` / ``get_args_shape_testing``, plus ``--device {cuda,cpu}``
+``UnetParser`` / ``CAEParser`` / ``get_args_shape_training`` /
+``get_args_shape_testing``, plus ``--device {cuda,cpu}``
 (default ``cuda``).
 ``--dtype`` picks the training compute type (bfloat16 by default; the tester
 runs float32) and ``--distances`` computes HD/ASSD on training batches too.
@@ -109,8 +110,34 @@ class UnetParser(ExpParser):
         self.add_argument("--batchsize", type=int, default=6)
 
 
+class CAEParser(ExpParser):
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.add_argument("--epochs", type=int, default=300)
+        self.add_argument("--batchsize", type=int, default=4)
+        self.add_argument("--globals", type=int, default=5,
+                          help="Number of global variables")
+        self.add_argument("--normalize", type=int, default=10,
+                          help="Normalization corresponding to penumbra (hours)")
+        self.add_argument("--inbasepath", type=str, default=None,
+                          help="Path and filename base for loading")
+        self.add_argument("--outbasepath", type=str, default="/tmp/tmp_out",
+                          help="Path and filename base for saving")
+        self.add_argument("--steplearning", action="store_true",
+                          default=False,
+                          help="Also learn interpolation step from clinical data")
+
+
 def get_args_unet_training(argv: Optional[Sequence[str]] = None):
     return UnetParser().parse_args(argv)
+
+
+def get_args_shape_training(argv: Optional[Sequence[str]] = None):
+    parser = CAEParser()
+    parser.add_argument("--channelscae", type=int, nargs="+",
+                        default=[1, 16, 24, 32, 100, 200, 1],
+                        help="CAE channels")
+    return parser.parse_args(argv)
 
 
 def get_args_shape_testing(argv: Optional[Sequence[str]] = None):
