@@ -79,7 +79,11 @@ non-zero without one.  Phases:
 6. one float32 training step (batch 2, full width and patch) on the card
    and on the CPU from the same weights and crop: loss, every parameter
    gradient and the running statistics compared; the same step in float64
-   on the CPU as a third witness of which side is further off.
+   on the CPU as a third witness of which side is further off; the same
+   step in bfloat16 on the card against the CPU's bfloat16 step at the CAE
+   bfloat16 step's limits (float64 the witness), with two controls (the
+   entry conv's K4 output zeroed, the entry BN's gradients zeroed) that
+   must fail the gradient limit.
 7. CAE training phase: the port's CAE training CLI
    (``cli.train_shape_reconstruction``: no ``--device``, ``--dtype`` or
    ``--channelscae``, so the card, bfloat16 and channels 1 16 24 32 100 200
@@ -95,6 +99,24 @@ non-zero without one.  Phases:
    and a torch.profiler trace of one; one float32 and one bfloat16 step
    (batch 2, same weights, batch, flips and fields) on the card against
    the CPU, float32 also against a float64 CPU step.
+8. CAE learners phase: the step learner's CLI
+   (``cli.train_interpolationstep_after_reconstruction``) and phase 2's
+   (``cli.train_shape_prediction --initbycae``) on phase 7's best-valid
+   ``_cae1.model`` (the card, bfloat16, channels 1 16 24 32 100 200 1, the
+   eight cases, batch 4, one epoch each); K1-K5 launches by route against
+   :func:`learner_launches` (a frozen conv's backward is K3 alone: 45 K1 +
+   6 K3 a step-learner step; 14 K1, 2 K2, 10 K3, 12 K4 in bfloat16 and 63
+   K1 + 18 K3 in float32 a phase-2 step; 45 / 77 K1 and 6 edt_sites a
+   validation batch); every K1-K4 and edt_sites call of one training step
+   and one validation batch of each on its own inputs against plain,
+   counted by kernel and type; the frozen parameters after the runs as
+   ``_cae1.model``'s, the step learner's BN statistics moved,
+   ``_cae2.model`` the phase-1 CAE byte for byte; K1-K4 per layer of a
+   step beside cuDNN; 20 timed steps and a profile of one each; a float32
+   step of each on the card against the CPU with a control that must fail
+   (a float64 CPU step, where it fails, says which side is off); the
+   three CAE learners' visual forward (ten
+   reconstructions of one case) against one forward a step.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero.
@@ -348,27 +370,54 @@ def edt_bound(shape):
     return bound_ms(EDT_OPS_PER_VOXEL * voxels, 5.0 * voxels)
 
 
-def device_ms(torch, fn, reps):
-    """Device time per call and kernels per call, from the kernels' self
-    device time in a torch.profiler trace of ``reps`` calls after a warm-up
-    call, and {kernel name: device ms per call}."""
+def profiled(torch, run, what):
+    """``run()`` under torch.profiler (CPU and CUDA activity), then
+    synchronized; run and traced once more when the trace holds no device
+    time, as a session on the card's machine now and then records none ->
+    the profiler (its trace may still hold no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA and e.self_device_time_total
+               for e in prof.key_averages()):
+            break
+        print(f"{what}: no device time in the trace"
+              + (", profiling again" if attempt == 0 else ""))
+    return prof
+
+
+def device_ms(torch, fn, reps):
+    """Device time per call and kernels per call, from the kernels' device
+    time in a torch.profiler trace of ``reps`` calls after a warm-up call,
+    and {kernel name: device ms per call}.  A trace on the card's machine
+    now and then lacks a kernel's event (seen: 19 of 20 calls' kernel A of
+    ``edt_sites``; 38 of its 40 events): a kernel seen in most calls but
+    not in all counts round(count / reps) launches a call, each at its
+    mean time in the trace, and the shortfall is printed."""
+    from torch.autograd import DeviceType
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    prof = profiled(torch, lambda: [fn() for _ in range(reps)], "device_ms")
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in kernels)
-    if not total:
+    if not sum(e.self_device_time_total for e in kernels):
         raise AssertionError("no device time in the profiler's trace")
-    return (total / 1e3 / reps, sum(e.count for e in kernels) / reps,
-            {e.key: e.self_device_time_total / 1e3 / reps for e in kernels})
+    n_k, per = 0.0, {}
+    for e in kernels:
+        n = e.count / reps
+        if n >= 0.5 and n != round(n):
+            print(f"device_ms: {e.key[:60]} seen {e.count} times in {reps} "
+                  f"calls (events lost): {round(n)} a call")
+            n = round(n)
+        n_k += n
+        per[e.key] = e.self_device_time_total / e.count * n / 1e3
+    return sum(per.values()), n_k, per
 
 
 def edt_edge_masks(torch, gen, dev):
@@ -1061,8 +1110,8 @@ def cae_recorded(torch, run, grad=False):
     (float32) or BF16_REL of max|ref| (bfloat16), dW and db within DW_REL
     of max|ref|, each backward kernel run twice for a bit-identical result,
     edt_sites equal -> ({(kernel, N, D, H, W, C_in, C_out, mode, plane
-    table, act): calls}, {mask shape: edt_sites calls}, {kernel: largest
-    max|err|})."""
+    table, act, storage type): calls}, {mask shape: edt_sites calls},
+    {kernel: largest max|err|})."""
     from stroke_prediction_tpu_torch.ops import conv3x3 as cm
     from stroke_prediction_tpu_torch.ops import edt as edt_mod
 
@@ -1079,14 +1128,28 @@ def cae_recorded(torch, run, grad=False):
                                  f"max|ref| off plain")
         return float((got.float() - ref.float()).abs().max())
 
-    def sum_err(name, got, ref):
+    def sum_err(name, got, ref, ref64=None):
+        """``ref64``: the float64 result, computed on a failure to say
+        which side is off."""
         if rel_err(got, ref) > DW_REL:
+            far = "" if ref64 is None else (
+                f"; against float64 the kernel {rel_err(got, ref64()):.3e}, "
+                f"plain {rel_err(ref, ref64()):.3e}")
             raise AssertionError(f"{name}: {rel_err(got, ref):.3e} of "
-                                 f"max|ref| off plain")
+                                 f"max|ref| off plain{far}")
         return float((got - ref).abs().max())
 
-    def note(kernel, x_shape, co, mode, table, act, err):
-        key = (kernel, *x_shape, co, mode, table, act)
+    def dk64(x, g, y, act, alpha, mode):
+        """dW in float64 from the same g' (rounded as the kernels form
+        it)."""
+        gp = cm._masked_cotangent(g, y, act, alpha).double()
+        return lambda: torch.nn.grad.conv3d_weight(
+            cm._ncdhw(x.double()), (g.shape[-1], x.shape[-1], 3, 3, 3),
+            cm._ncdhw(gp), padding=(cm.MODES[mode], 0, 0)
+        ).permute(2, 3, 4, 1, 0)
+
+    def note(kernel, x_shape, co, mode, table, act, err, dtype):
+        key = (kernel, *x_shape, co, mode, table, act, str(dtype)[6:])
         calls[key] = calls.get(key, 0) + 1
         worst[kernel] = max(worst[kernel], err)
 
@@ -1098,7 +1161,8 @@ def cae_recorded(torch, run, grad=False):
         y = real["K1"](x, kernel, bias, act, alpha, mode)
         err = out_err("K1", y, cm.conv3x3_plain(x, kernel, bias, act, alpha,
                                                 mode))
-        note("K1", x.shape, kernel.shape[-1], mode, bias.ndim == 2, act, err)
+        note("K1", x.shape, kernel.shape[-1], mode, bias.ndim == 2, act, err,
+             x.dtype)
         return y
 
     def k2(x, g, y, kernel, act="none", alpha=0.01, mode="v",
@@ -1108,8 +1172,11 @@ def cae_recorded(torch, run, grad=False):
         same(f"K2 {tuple(x.shape)}", out, real["K2"](*a))
         rdx, rdk, rdb = cm.conv3x3_bwd_fused_plain(*a)
         err = max(out_err("K2 dx", out[0], rdx),
-                  sum_err("K2 dk", out[1], rdk), sum_err("K2 db", out[2], rdb))
-        note("K2", x.shape, kernel.shape[-1], mode, bias_table, act, err)
+                  sum_err(f"K2 dk {tuple(x.shape)}", out[1], rdk,
+                          dk64(x, g, y, act, alpha, mode)),
+                  sum_err("K2 db", out[2], rdb))
+        note("K2", x.shape, kernel.shape[-1], mode, bias_table, act, err,
+             x.dtype)
         return out
 
     def k3(g, y, kernel, x_shape, act="none", alpha=0.01, mode="v"):
@@ -1117,7 +1184,7 @@ def cae_recorded(torch, run, grad=False):
         dx = real["K3"](*a)
         same(f"K3 {tuple(x_shape)}", (dx,), (real["K3"](*a),))
         err = out_err("K3 dx", dx, cm.conv3x3_bwd_dx_plain(*a))
-        note("K3", x_shape, kernel.shape[-1], mode, False, act, err)
+        note("K3", x_shape, kernel.shape[-1], mode, False, act, err, y.dtype)
         return dx
 
     def k4(x, g, y, act="none", alpha=0.01, mode="v", bias_table=False):
@@ -1125,9 +1192,10 @@ def cae_recorded(torch, run, grad=False):
         out = real["K4"](*a)
         same(f"K4 {tuple(x.shape)}", out, real["K4"](*a))
         rdk, rdb = cm.conv3x3_bwd_dw_plain(*a)
-        err = max(sum_err("K4 dk", out[0], rdk),
+        err = max(sum_err(f"K4 dk {tuple(x.shape)}", out[0], rdk,
+                          dk64(x, g, y, act, alpha, mode)),
                   sum_err("K4 db", out[1], rdb))
-        note("K4", x.shape, g.shape[-1], mode, bias_table, act, err)
+        note("K4", x.shape, g.shape[-1], mode, bias_table, act, err, x.dtype)
         return out
 
     def edt(mask):
@@ -1194,7 +1262,8 @@ def cae_kernel_phase(torch, calls, per):
     print(f"\nK1 at the CAE's layers {per} (float32, ELU 1.0, 3xTF32; x n = "
           f"calls; bias a plane table or a vector; cuDNN with the vector "
           f"bias, no activation):")
-    for (kern, nb, d, h, w, ci, co, mode, table, act), n in calls.items():
+    for (kern, nb, d, h, w, ci, co, mode, table, act, _), n in \
+            calls.items():
         if kern != "K1":
             continue
         d_out = d if mode == "s" else d - 2
@@ -1368,13 +1437,10 @@ def cae_profile(torch, tester, batch, infer_ms, reps=3):
     """Device time per CAE tester case by kernel (torch.profiler) and its
     share of the unprofiled ms per case."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            tester.infer_batch(batch)
-        torch.cuda.synchronize()
+    with torch.inference_mode():
+        prof = profiled(torch, lambda: [tester.infer_batch(batch)
+                                        for _ in range(reps)], "cae profile")
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
@@ -1690,12 +1756,8 @@ def trace_kernels(torch, run, what, wall_ms):
     fifteen -> (busy ms, kernels, {group: (ms, count)}); (0, 0, {}) when
     the trace holds no device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    prof = profiled(torch, run, what)
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
@@ -1721,12 +1783,15 @@ def step_vs_cpu(torch, learner):
     """One float32 training step (forward, loss, backward; no optimizer
     step) at full width and patch, batch 2, on the card and on the CPU from
     the same weights and crop; the same step in float64 on the CPU says
-    which float32 side is further off, and by which gradient."""
+    which float32 side is further off, and by which gradient.  The same
+    step in bfloat16 on the card and on the CPU, with two controls
+    (:func:`unet_bf16_step_check`)."""
     from stroke_prediction_tpu_torch.data.augment import (
         crop_patch, random_offsets)
     from stroke_prediction_tpu_torch.data.dataset import (
         KEY_IMAGES, KEY_LABELS)
     from stroke_prediction_tpu_torch.models.unet3d import Unet3D
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
 
     data, _ = learner.device_data(learner._dataloader_training)
     images = data[KEY_IMAGES][:2].cpu()
@@ -1736,18 +1801,37 @@ def step_vs_cpu(torch, learner):
     imgs, labs = crop_patch(images, labels, offsets, PATCH_DHW[::-1],
                             (20, 20, 20))
     model = Unet3D(CHANNELS, generator=torch.Generator().manual_seed(3))
+    real_dw = cm.conv3x3_bwd_dw
+
+    def entry_dw_zeroed(x, *args):
+        """K4 with the entry conv's (data input) dW and db zeroed."""
+        out = real_dw(x, *args)
+        return (tuple(torch.zeros_like(t) for t in out)
+                if x.shape[-1] == CHANNELS[0] else out)
+
+    entry_dw_zeroed.launches = 0
     out = {}
     for side, dev, dtype in (("card", "cuda", torch.float32),
                              ("CPU", "cpu", torch.float32),
-                             ("CPU float64", "cpu", torch.float64)):
-        m = copy.deepcopy(model).to(dev, dtype).train()
+                             ("CPU float64", "cpu", torch.float64),
+                             ("card bfloat16", "cuda", torch.bfloat16),
+                             ("card bfloat16, entry K4 zeroed", "cuda",
+                              torch.bfloat16),
+                             ("CPU bfloat16", "cpu", torch.bfloat16)):
+        wide = torch.promote_types(dtype, torch.float32)
+        m = copy.deepcopy(model).to(dev, wide).train()
         m.compute_dtype = dtype
         t0 = time.perf_counter()
         seg = m(imgs.to(dev))
-        labs_d = labs.to(dev, dtype)
+        labs_d = labs.to(dev, wide)
         loss = learner.loss(seg[..., 0:1], seg[..., 1:2], labs_d[..., 0:1],
                             labs_d[..., 1:2])
-        loss.backward()
+        if "zeroed" in side:
+            cm.conv3x3_bwd_dw = entry_dw_zeroed
+        try:
+            loss.backward()
+        finally:
+            cm.conv3x3_bwd_dw = real_dw
         if dev == "cuda":
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -1779,9 +1863,114 @@ def step_vs_cpu(torch, learner):
     if loss_rel > STEP_LOSS_REL or grad[0] > STEP_GRAD_REL or \
             stats_err > STEP_STATS_ATOL:
         raise AssertionError("card and CPU training steps differ")
+    bf16 = unet_bf16_step_check(out)
     return dict(loss_rel=loss_rel, grad_rel=grad[0], worst_grad=grad[1],
                 stats_err=stats_err, card_vs_f64=card64[1][0],
-                cpu_vs_f64=cpu64[1][0])
+                cpu_vs_f64=cpu64[1][0], bfloat16=bf16)
+
+
+def unet_layer_of(key):
+    """A U-Net parameter's layer: a block's layer (its BN and conv) or a
+    head conv."""
+    parts = key.split(".")
+    return ".".join(parts[:4] if parts[0] == "blocks" else parts[:2])
+
+
+def unet_bf16_step_check(out):
+    """The bfloat16 U-Net step (same weights and crop) on the card against
+    the CPU's bfloat16 step by the CAE bfloat16 step's limits
+    (:func:`bf16_step_check`, stated before this check's first run), with
+    its two controls: the entry conv's K4 output zeroed on the card, and
+    the card's entry BN gradients zeroed."""
+    entry = "blocks.0.layers.0.bn."
+    card = out["card bfloat16"]
+    out["card bfloat16, entry BN zeroed"] = (card[0], {
+        k: g.new_zeros(g.shape) if k.startswith(entry) else g
+        for k, g in card[1].items()}) + card[2:]
+    return bf16_step_check(out, unet_layer_of, "U-Net step (batch 2)", (
+        "card bfloat16, entry K4 zeroed", "card bfloat16, entry BN zeroed"))
+
+
+def grad_compare(out, a, b, layer_of, what):
+    """Side ``a`` of a training step against side ``b`` (``out``: {side:
+    (loss, {parameter: gradient}, {buffer: value}, seconds)}) -> (loss
+    rel, (worst gradient's |err| / its layer's largest |grad| of ``b``, its
+    name), running statistics max|err|, {layer: |g_a - g_b| / |g_b| over
+    the layer's gradients}), ``layer_of`` naming a parameter's layer."""
+    (l_a, g_a, b_a, _), (l_b, g_b, b_b, _) = out[a], out[b]
+    if set(g_a) != set(g_b):
+        raise AssertionError(f"{what} {a} vs {b}: gradients of "
+                             f"{sorted(set(g_a) ^ set(g_b))}")
+    scale, diff2, ref2 = {}, {}, {}
+    for k, g in g_b.items():
+        lay = layer_of(k)
+        scale[lay] = max(scale.get(lay, 0.0), float(g.abs().max()))
+        diff2[lay] = diff2.get(lay, 0.0) + float(((g_a[k] - g) ** 2).sum())
+        ref2[lay] = ref2.get(lay, 0.0) + float((g ** 2).sum())
+    grad = max((float((g_a[k] - g_b[k]).abs().max()) / scale[layer_of(k)],
+                k) for k in g_b)
+    norm = {lay: (diff2[lay] / ref2[lay]) ** 0.5 for lay in scale}
+    stats = max(float((b_a[k] - b_b[k]).abs().max()) for k in b_b)
+    worst = max(norm, key=norm.get)
+    loss_rel = abs(l_a - l_b) / abs(l_b)
+    print(f"{what} {a} vs {b} ({len(g_b)} gradients): loss {l_a:.9f} / "
+          f"{l_b:.9f} (rel {loss_rel:.2e}); max grad err {grad[0]:.2e} of "
+          f"its layer's max|grad| at {grad[1]}; per layer |err| / |grad| at "
+          f"most {norm[worst]:.2e} ({worst}); running stats max|err| "
+          f"{stats:.2e}")
+    return loss_rel, grad, stats, norm
+
+
+def bf16_step_check(out, layer_of, what, controls):
+    """The card's bfloat16 step ("card bfloat16") against the CPU's ("CPU
+    bfloat16"), the float64 CPU step the witness: the loss and the running
+    statistics within CAE_BF16_LOSS_REL and CAE_BF16_STATS_ATOL of the
+    CPU's, each gradient within CAE_BF16_GRAD_REL of its layer's largest
+    CPU gradient, and per layer against float64 (|err| / |grad| over the
+    layer) no further off than CAE_BF16_GRAD_FACTOR times the CPU's
+    bfloat16 step plus CAE_BF16_GRAD_FLOOR.  Each of ``controls`` (sides of
+    ``out``) must fail the gradient limit -> the card's readings, with the
+    controls'."""
+    cpu64 = grad_compare(out, "CPU bfloat16", "CPU float64", layer_of,
+                         what)[3]
+
+    def check(card):
+        loss_rel, grad, stats, _ = grad_compare(out, card, "CPU bfloat16",
+                                                layer_of, what)
+        card64 = grad_compare(out, card, "CPU float64", layer_of, what)[3]
+        excess = {lay: card64[lay] - (CAE_BF16_GRAD_FACTOR * cpu64[lay]
+                                      + CAE_BF16_GRAD_FLOOR)
+                  for lay in cpu64}
+        worst = max(excess, key=excess.get)
+        res = dict(loss_rel=loss_rel, grad_rel=grad[0], worst_grad=grad[1],
+                   stats_err=stats, card_vs_f64=max(card64.values()),
+                   cpu_vs_f64=max(cpu64.values()), worst_layer=worst,
+                   worst_layer_card_cpu_vs_f64=(card64[worst], cpu64[worst]))
+        failed = [name for name, bad in (
+            ("loss", loss_rel > CAE_BF16_LOSS_REL),
+            ("stats", stats > CAE_BF16_STATS_ATOL),
+            ("grad", grad[0] > CAE_BF16_GRAD_REL),
+            ("grad vs float64", excess[worst] > 0)) if bad]
+        print(f"{what} {card} vs float64, per layer |err| / |grad|: card "
+              f"{res['card_vs_f64']:.3e}, CPU {res['cpu_vs_f64']:.3e} at "
+              f"most; nearest its limit: {worst} card {card64[worst]:.3e} "
+              f"vs CPU {cpu64[worst]:.3e}; limits failed: {failed}")
+        return res, failed
+
+    res, failed = check("card bfloat16")
+    if failed:
+        raise AssertionError(f"{what} bfloat16: card and CPU differ beyond "
+                             f"the {failed} limits: {res}")
+    res["controls"] = {}
+    for card in controls:
+        r, failed = check(card)
+        res["controls"][card] = dict(grad_rel=r["grad_rel"],
+                                     worst_grad=r["worst_grad"],
+                                     failed=failed)
+        if "grad" not in failed:
+            raise AssertionError(f"{what} bfloat16: the {card} control "
+                                 f"passes the CAE_BF16_GRAD_REL limit: {r}")
+    return res
 
 
 # CAE phase-1 training at the reference width (--channelscae default) and
@@ -1949,7 +2138,7 @@ def cae_train_phase(torch, work):
                            sites, worst, per_step, {})
         recorded[dtype] = calls, worst
     set_cae_dtype(learner._model, torch.bfloat16)
-    times = {dtype: cae_step_kernel_times(torch, calls, dtype)
+    times = {dtype: cae_step_kernel_times(torch, calls)
              for dtype, (calls, _) in recorded.items()}
     mean, std, host = time_steps(torch, lambda: learner.train_step(batch),
                                  CAE_TIMED_STEPS,
@@ -1961,7 +2150,8 @@ def cae_train_phase(torch, work):
     return dict(launches=launches, per_step=per_step, steps=steps,
                 recorded={str(d)[6:]: r[1] for d, r in recorded.items()},
                 times={str(d)[6:]: t for d, t in times.items()},
-                step_ms=step_ms, busy=busy, vs_cpu=vs_cpu, wall=wall)
+                step_ms=step_ms, busy=busy, vs_cpu=vs_cpu, wall=wall,
+                learner=learner)
 
 
 def cae_layer_times(torch, key, dtype, gen):
@@ -2008,7 +2198,7 @@ def cae_layer_times(torch, key, dtype, gen):
                       lambda: conv3x3_bwd_fused_plain(x, g, y, k, act, 1.0,
                                                       mode, table),
                       lambda: (dgrad(), wgrad()))
-    if route == "split":
+    if route in ("split", "dx"):
         runs["K3"] = (lambda: conv3x3_bwd_dx(g, y, k, x.shape, act, 1.0,
                                              mode),
                       lambda: conv3x3_bwd_dx_plain(g, y, k, x.shape, act,
@@ -2032,65 +2222,94 @@ def cae_layer_times(torch, key, dtype, gen):
         out[kern] = dict(ms=cuda_ms(torch, fn, 5),
                          plain_ms=cuda_ms(torch, plain, 5),
                          library_ms=cuda_ms(torch, lib, 5), bound_ms=bms,
-                         bound_by=by, ops=ops[kern], bytes=nbytes[kern])
+                         bound_by=by, ops=ops[kern], bytes=nbytes[kern],
+                         t_ops=ops[kern] / PEAK_FLOPS[peak_key(kern, dname)]
+                         * 1e3, t_bytes=nbytes[kern] / PEAK_BYTES * 1e3)
     return out
 
 
-def cae_step_kernel_times(torch, calls, dtype):
+def cae_step_kernel_times(torch, calls, want=None, what="cae train"):
     """K1-K4 at each distinct layer of a recorded step (calls keyed by K1's
-    shapes), each layer's times times its calls -> {kernel: sums}."""
+    shapes and storage type), each layer's times times its calls ->
+    {kernel: sums}; the launches a step must be ``want`` (phase 1's by the
+    route rule when not given).  A layer's route is the one its backward
+    calls took: K2 fused, K3 + K4 split, K4 alone dw, K3 alone dx (frozen
+    parameters), none (no backward)."""
     from stroke_prediction_tpu_torch.ops.conv3x3 import bwd_route
 
-    dname = str(dtype)[6:]
     gen = torch.Generator(device="cuda").manual_seed(4)
     tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                   ops=0.0, bytes=0.0, launches=0) for k in CAE_KERNELS}
-    print(f"cae train: K1-K4 per distinct layer of one {dname} step (x n = "
+                   ops=0.0, bytes=0.0, t_ops=0.0, t_bytes=0.0, launches=0)
+           for k in CAE_KERNELS}
+    dtypes = sorted({key[-1] for key in calls})
+    print(f"{what}: K1-K4 per distinct layer of one step ({dtypes}; x n = "
           f"calls a step; ms kernel / plain / cuDNN (K2: dgrad + wgrad) / "
-          f"bound; TFLOP/s; bound in {peak_key('K1', dname)}):")
-    # each layer's route as the step took it: its backward kernels' calls
-    # have its shape
-    took = {(key[0], key[1:8]) for key in calls if key[0] != "K1"}
+          f"bound; TFLOP/s; bound in bf16, float32 in 3xTF32):")
+
+    # a layer: its shapes, mode and type.  K3's calls do not carry the
+    # bias form, so layers that differ only in it (an encoder's plane table
+    # and a decoder's vector at 7x29x29, 32 -> 32) are one group, whose
+    # backward calls the first of its K1 forms is timed with
+    groups = {}
+    for key, n in calls.items():
+        groups.setdefault(key[1:8] + key[-1:], {})[key[0]] = groups.get(
+            key[1:8] + key[-1:], {}).get(key[0], 0) + n
+    timed = set()
     for key, n in calls.items():
         if key[0] != "K1":
             continue
         nb, d, h, w, ci, co = key[1:7]
-        route = next((r for kern, r in (("K2", "fused"), ("K3", "split"),
-                                        ("K4", "dw"))
-                      if (kern, key[1:8]) in took), None)
-        if route != bwd_route(ci, co, route != "dw"):
-            raise AssertionError(f"cae train: {key} took route {route}")
-        times = cae_layer_times(torch, key[1:] + (route,), dtype, gen)
+        group = key[1:8] + key[-1:]
+        bwd = {k: groups[group].get(k, 0) for k in ("K2", "K3", "K4")}
+        route = {frozenset({"K2"}): "fused", frozenset({"K3", "K4"}): "split",
+                 frozenset({"K4"}): "dw", frozenset({"K3"}): "dx",
+                 frozenset(): "none"}[frozenset(k for k, c in bwd.items()
+                                                if c)]
+        if route != "none" and route != bwd_route(ci, co, route != "dw",
+                                                  route != "dx"):
+            raise AssertionError(f"{what}: {key} took route {route}")
+        if route == "split" and bwd["K3"] != bwd["K4"]:
+            raise AssertionError(f"{what}: {key}: K3 x{bwd['K3']}, K4 "
+                                 f"x{bwd['K4']}")
+        if group in timed:
+            route = "none"          # its backward timed with the first form
+        timed.add(group)
+        times = cae_layer_times(torch, key[1:-1] + (route,),
+                                getattr(torch, key[-1]), gen)
         parts = []
         for kern, t in times.items():
+            n_kern = n if kern == "K1" else bwd[kern]
             for f in ("ms", "plain_ms", "library_ms", "bound_ms", "ops",
-                      "bytes"):
-                tot[kern][f] += n * t[f]
-            tot[kern]["launches"] += n
-            parts.append(f"{kern} {t['ms']:.4f}/{t['plain_ms']:.4f}/"
-                         f"{t['library_ms']:.4f}/{t['bound_ms']:.4f}"
+                      "bytes", "t_ops", "t_bytes"):
+                tot[kern][f] += n_kern * t[f]
+            tot[kern]["launches"] += n_kern
+            parts.append(f"{kern} x{n_kern} {t['ms']:.4f}/{t['plain_ms']:.4f}"
+                         f"/{t['library_ms']:.4f}/{t['bound_ms']:.4f}"
                          f"({t['bound_by'][0]}) "
                          f"{t['ops'] / t['ms'] / 1e9:.1f}")
-        print(f"  in {nb}x{d}x{h}x{w} {ci:>3}->{co:<3} '{key[7]}' "
-              f"{'table ' if key[8] else 'vector'} x{n} route {route:5s} "
-              + "  ".join(parts))
+        print(f"  {key[-1]:8s} in {nb}x{d}x{h}x{w} {ci:>3}->{co:<3} "
+              f"'{key[7]}' {'table ' if key[8] else 'vector'} route "
+              f"{route:5s} " + "  ".join(parts))
     for kern, t in tot.items():
-        t["bound_by"] = bound_ms(t["ops"], t["bytes"],
-                                 peak_key(kern, dname))[1]
+        t["bound_by"] = ("operations" if t["t_ops"] >= t["t_bytes"]
+                         else "bytes")
         t["gflop"] = t["ops"] / 1e9
-        print(f"  per step {kern} ({t['launches']} launches): "
-              f"{t['gflop']:.2f} GFLOP  kernel {t['ms']:.4f} ms "
-              f"({t['ops'] / t['ms'] / 1e9:.1f} TFLOP/s)  plain "
-              f"{t['plain_ms']:.4f} ms  cuDNN {t['library_ms']:.4f} ms  "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
-    if {k: t["launches"] for k, t in tot.items()} != cae_step_launches():
-        raise AssertionError(f"cae train: the timed layers give "
-                             f"{tot} launches a step")
+        if t["launches"]:
+            print(f"  per step {kern} ({t['launches']} launches): "
+                  f"{t['gflop']:.2f} GFLOP  kernel {t['ms']:.4f} ms "
+                  f"({t['ops'] / t['ms'] / 1e9:.1f} TFLOP/s)  plain "
+                  f"{t['plain_ms']:.4f} ms  cuDNN {t['library_ms']:.4f} ms  "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    want = cae_step_launches() if want is None else want
+    got = {k: t["launches"] for k, t in tot.items()}
+    if got != {k: want.get(k, 0) for k in CAE_KERNELS}:
+        raise AssertionError(f"{what}: the timed layers give {got} "
+                             f"launches a step, expected {want}")
     return tot
 
 
-def cae_profile_step(torch, learner, batch):
-    """One bfloat16 CAE training step under torch.profiler: device busy,
+def cae_profile_step(torch, learner, batch, what="cae train"):
+    """One CAE learner's training step under torch.profiler: device busy,
     the hand kernels' share, the number of kernels."""
     learner.train_step(batch)
     torch.cuda.synchronize()
@@ -2099,13 +2318,12 @@ def cae_profile_step(torch, learner, batch):
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     busy_ms, n_kernels, groups = trace_kernels(
-        torch, lambda: learner.train_step(batch), "cae train profile",
+        torch, lambda: learner.train_step(batch), f"{what} profile",
         wall_ms)
     if not busy_ms:
-        raise AssertionError("cae train profile: no device time in the "
-                             "trace")
+        raise AssertionError(f"{what} profile: no device time in the trace")
     hand = sum(ms for g, (ms, _) in groups.items() if g.startswith("K"))
-    print(f"cae train profile: one step {wall_ms:.2f} ms (host clock, "
+    print(f"{what} profile: one step {wall_ms:.2f} ms (host clock, "
           f"unprofiled); K1-K5 {hand:.3f} ms ({100 * hand / busy_ms:.1f}% "
           f"of device busy)")
     return dict(busy_ms=busy_ms, wall_ms=wall_ms, kernels=n_kernels,
@@ -2212,35 +2430,13 @@ def cae_steps_vs_cpu(torch, learner):
                 else g for k, g in out["card bfloat16"][1].items()}
     out["card bfloat16, entry BN zeroed"] = (out["card bfloat16"][0],
                                              entry_bn) + out["card bfloat16"][2:]
-    layers = sorted({cae_layer_of(k) for k in out["CPU float64"][1]})
+    n_params = len(list(seeded.parameters()))
+    if any(len(v[1]) != n_params for v in out.values()):
+        raise AssertionError(f"cae step: {n_params} gradients expected")
+    what = f"cae step (batch {CAE_VS_CPU_BATCH})"
 
     def compare(a, b):
-        """(loss rel, (worst grad err / its layer's max|grad|, its name),
-        stats err, {layer: |g_a - g_b| / |g_b| over the layer's
-        gradients})."""
-        (l_a, g_a, b_a, _), (l_b, g_b, b_b, _) = out[a], out[b]
-        if set(g_a) != set(g_b) or len(g_b) != len(list(seeded.parameters())):
-            raise AssertionError(f"cae step {a} vs {b}: gradients of "
-                                 f"{sorted(set(g_a) ^ set(g_b))}")
-        scale, diff2, ref2 = {}, {}, {}
-        for k, g in g_b.items():
-            lay = cae_layer_of(k)
-            scale[lay] = max(scale.get(lay, 0.0), float(g.abs().max()))
-            diff2[lay] = diff2.get(lay, 0.0) + float(
-                ((g_a[k] - g) ** 2).sum())
-            ref2[lay] = ref2.get(lay, 0.0) + float((g ** 2).sum())
-        grad = max((float((g_a[k] - g_b[k]).abs().max())
-                    / scale[cae_layer_of(k)], k) for k in g_b)
-        norm = {lay: (diff2[lay] / ref2[lay]) ** 0.5 for lay in layers}
-        stats = max(float((b_a[k] - b_b[k]).abs().max()) for k in b_b)
-        worst = max(norm, key=norm.get)
-        print(f"cae step {a} vs {b} (batch {CAE_VS_CPU_BATCH}, {len(g_b)} "
-              f"gradients): loss {l_a:.9f} / {l_b:.9f} (rel "
-              f"{abs(l_a - l_b) / abs(l_b):.2e}); max grad err {grad[0]:.2e} "
-              f"of its layer's max|grad| at {grad[1]}; per layer |err| / "
-              f"|grad| at most {norm[worst]:.2e} ({worst}); running stats "
-              f"max|err| {stats:.2e}")
-        return abs(l_a - l_b) / abs(l_b), grad, stats, norm
+        return grad_compare(out, a, b, cae_layer_of, what)
 
     def f32_check(card, cpu, f64, witness):
         """The card's float32 step against ``witness`` within the STEP_*
@@ -2262,47 +2458,423 @@ def cae_steps_vs_cpu(torch, learner):
     f32_trained = f32_check("trained card float32", "trained CPU float32",
                             "trained CPU float64", "trained CPU float64")
 
-    cpu64 = compare("CPU bfloat16", "CPU float64")[3]
-
-    def bf16_check(card):
-        """-> (the card's bfloat16 step's readings, its failed limits)."""
-        loss_rel, grad, stats, _ = compare(card, "CPU bfloat16")
-        card64 = compare(card, "CPU float64")[3]
-        excess = {lay: card64[lay] - (CAE_BF16_GRAD_FACTOR * cpu64[lay]
-                                      + CAE_BF16_GRAD_FLOOR)
-                  for lay in layers}
-        worst = max(excess, key=excess.get)
-        res = dict(loss_rel=loss_rel, grad_rel=grad[0], worst_grad=grad[1],
-                   stats_err=stats, card_vs_f64=max(card64.values()),
-                   cpu_vs_f64=max(cpu64.values()), worst_layer=worst,
-                   worst_layer_card_cpu_vs_f64=(card64[worst], cpu64[worst]))
-        failed = [name for name, bad in (
-            ("loss", loss_rel > CAE_BF16_LOSS_REL),
-            ("stats", stats > CAE_BF16_STATS_ATOL),
-            ("grad", grad[0] > CAE_BF16_GRAD_REL),
-            ("grad vs float64", excess[worst] > 0)) if bad]
-        print(f"cae step {card} vs float64, per layer |err| / |grad|: card "
-              f"{res['card_vs_f64']:.3e}, CPU {res['cpu_vs_f64']:.3e} at "
-              f"most; nearest its limit: {worst} card {card64[worst]:.3e} "
-              f"vs CPU {cpu64[worst]:.3e}; limits failed: {failed}")
-        return res, failed
-
-    bf16, failed = bf16_check("card bfloat16")
-    if failed:
-        raise AssertionError(f"cae step bfloat16: card and CPU differ beyond "
-                             f"the {failed} limits: {bf16}")
-    controls = {}
-    for card in ("card bfloat16, entry K4 zeroed",
-                 "card bfloat16, entry BN zeroed"):
-        res, failed = bf16_check(card)
-        controls[card] = dict(grad_rel=res["grad_rel"],
-                              worst_grad=res["worst_grad"], failed=failed)
-        if "grad" not in failed:
-            raise AssertionError(f"cae step bfloat16: the {card} control "
-                                 f"passes the CAE_BF16_GRAD_REL limit: {res}")
-    bf16["controls"] = controls
+    bf16 = bf16_step_check(out, cae_layer_of, what, (
+        "card bfloat16, entry K4 zeroed", "card bfloat16, entry BN zeroed"))
     return {"float32": f32, "float32 trained": f32_trained,
             "bfloat16": bf16}
+
+
+# The two learners on a frozen phase-1 CAE: the CAE training phase's
+# best-valid _cae1.model, the same eight cases, batch 4, the reference
+# width, bfloat16 (the CLIs' default), one epoch each (the script's wall
+# grew by ~155 s with two, and epochs are what a new phase cuts first);
+# phase 2 with --initbycae
+CAE_LEARNER_EPOCHS = 1
+STEP_HEAD = ("reduce1", "reduce2", "step_head")
+# the visual forward (ten interpolation reconstructions of one case, the
+# fixed hours decoded as one batch) against one forward a step: float32
+# within CAE_ATOL; bfloat16 within VIS_BF16_ATOL (stated before the first
+# run: a batch of 9 may take another cuDNN algorithm or matmul kernel in
+# the transposed and 1^3 convs than a batch of 1, whose float32 sums may
+# round to the neighbouring bfloat16 value, carried through the decoder's
+# last layers to the probabilities)
+VIS_BF16_ATOL = 2e-2
+
+
+def learner_launches(kind, channels=CAE_CHANNELS):
+    """K1-K4 launches by (kernel, storage type) of one training step and of
+    one validation batch (or visual forward) of the step learner (the
+    whole CAE in bfloat16, frozen but the head) or of phase 2 (a bfloat16
+    encoder on two inputs; a frozen float32 CAE: three inputs decodes,
+    three encodes and four decodes on the gtruth branch), by the route
+    rule: a frozen conv whose input needs a gradient takes 'dx' (K3)."""
+    from stroke_prediction_tpu_torch.ops.conv3x3 import bwd_route
+
+    encode, decode = cae_conv_layers(channels)
+    kernels = {"fused": ("K2",), "split": ("K3", "K4"), "dw": ("K4",),
+               "dx": ("K3",)}
+    step, valid = {}, {}
+
+    def add(counts, key, n):
+        if n:
+            counts[key] = counts.get(key, 0) + n
+
+    def backward(dtype, layers, n, frozen):
+        for ci, co, input_grad in layers:
+            for k in kernels[bwd_route(ci, co, input_grad, not frozen)]:
+                add(step, (k, dtype), n)
+
+    if kind == "step":
+        for counts in (step, valid):
+            add(counts, ("K1", "bfloat16"), 3 * len(encode) + 4 * len(decode))
+        # hinge and Dice reach the head through the interpolation's decode
+        backward("bfloat16", decode, 1, frozen=True)
+    else:
+        for counts in (step, valid):
+            add(counts, ("K1", "bfloat16"), 2 * len(encode))
+            add(counts, ("K1", "float32"),
+                3 * len(decode) + 3 * len(encode) + 4 * len(decode))
+        backward("bfloat16", encode, 2, frozen=False)
+        backward("float32", decode, 3, frozen=True)
+    return step, valid
+
+
+def by_kernel(counts):
+    out = {}
+    for (k, _), n in counts.items():
+        out[k] = out.get(k, 0) + n
+    return out
+
+
+def learner_check_recorded(what, calls, sites, worst, want, edt_shapes):
+    """The recorded calls of a learner's step or validation batch by
+    (kernel, storage type) against ``want``; edt_sites at
+    ``edt_shapes``."""
+    got = {}
+    for key, n in calls.items():
+        got[(key[0], key[-1])] = got.get((key[0], key[-1]), 0) + n
+    print(f"{what}: calls by (kernel, type) {got} on their own inputs "
+          f"against plain (y, dx: float32 {K1_TOL}, bfloat16 {BF16_REL} of "
+          f"max|ref|; dW, db {DW_REL} of max|ref|; K2-K4 bit-identical on "
+          f"repeat), max|err| {worst}; edt_sites {sites} equal to plain")
+    if got != want or sites != edt_shapes:
+        raise AssertionError(f"{what}: expected calls {want} and edt_sites "
+                             f"at {edt_shapes}")
+
+
+def cae_learners_phase(torch, work, phase1):
+    """The step learner and phase 2 on the card against the CAE training
+    phase's best-valid ``_cae1.model``: each CLI in bfloat16 at the
+    reference width (launches by route against :func:`learner_launches`,
+    finite losses, artifacts), every K1-K4 and edt_sites call of one
+    training step and one validation batch on its own inputs, the launches
+    by kernel and type, the frozen parts after the runs (parameters as the
+    _cae1.model's, the step learner's BN statistics moved, _cae2.model the
+    phase-1 CAE bit for bit), K1-K4 per layer of a step beside cuDNN, 20
+    timed steps and a profile of one, a float32 step each on the card
+    against the CPU with a control that must fail, and the three CAE
+    learners' visual forward against one forward a step."""
+    from stroke_prediction_tpu_torch.cli import (
+        train_interpolationstep_after_reconstruction as step_cli)
+    from stroke_prediction_tpu_torch.cli import train_shape_prediction
+    from stroke_prediction_tpu_torch.models.convert import state_to_jax
+    from stroke_prediction_tpu_torch.utils.args import (
+        get_args_shape_prediction_training, get_args_step_training)
+    from stroke_prediction_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cae1 = os.path.join(work, "shape_train_cae1.model")
+    with open(cae1, "rb") as f:
+        cae1_bytes = f.read()
+    cae1_tree, _ = load_checkpoint(cae1)
+    width = [*map(str, CAE_CHANNELS)]
+    common = ["--synthetic", "--fold", *map(str, TRAIN_FOLD),
+              "--validsetsize", "0.25", "--batchsize", str(CAE_TRAIN_BATCH),
+              "--epochs", str(CAE_LEARNER_EPOCHS)]
+    runs = {
+        "step": (step_cli, get_args_step_training,
+                 ["--channelscae", *width],
+                 ["_cae1step.model", "_cae1step.optim", "_cae1step.json",
+                  "_cae1step_final.model"],
+                 ["_cae1step_1.png", "_cae1step_plots.png"]),
+        "prediction": (train_shape_prediction,
+                       get_args_shape_prediction_training,
+                       ["--channelsenc", *width, "--initbycae"],
+                       ["_cae2.model", "_cae2_enc.model", "_cae2.optim",
+                        "_cae2.json", "_cae2_final.model",
+                        "_cae2_enc_final.model"],
+                       ["_cae2_1.png", "_cae2_plots.png"])}
+    res = {}
+    for kind, (cli, parse, extra, files, pngs) in runs.items():
+        what = f"cae {kind}"
+        base = os.path.join(work, kind)
+        args = parse([cae1, *common, *extra, "--outbasepath", base])
+        if args.dtype != "bfloat16" or args.device != "cuda":
+            raise AssertionError(f"{what}: the CLI's defaults {args.dtype}, "
+                                 f"{args.device}")
+        reset_launches()
+        t0 = time.perf_counter()
+        learner = cli.train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        steps = dict(learner.step_counts)
+        per_step, per_valid = learner_launches(kind)
+        step_k, valid_k = by_kernel(per_step), by_kernel(per_valid)
+        n_train, n_eval, n_vis = steps["train"], steps["eval"], \
+            steps["visual"]
+        want = {"conv3x3": step_k["K1"] * n_train
+                + valid_k["K1"] * (n_eval + n_vis),
+                "conv3x3_bwd_fused": step_k.get("K2", 0) * n_train,
+                "conv3x3_bwd_dx": step_k.get("K3", 0) * n_train,
+                "conv3x3_bwd_dw": step_k.get("K4", 0) * n_train,
+                "edt_sites": CAE_EDT_PER_CASE * n_eval, "edt_parabola": 0}
+        print(f"\n{what}: CLI, {CAE_LEARNER_EPOCHS} epochs in {wall:.2f} s; "
+              f"steps {steps}; launches {launches}; per training step "
+              f"{per_step}, per validation batch and visual forward "
+              f"{per_valid} and {CAE_EDT_PER_CASE} edt_sites; training "
+              f"passes (s, steps) {learner.train_pass_seconds}")
+        if (learner.device.type != "cuda"
+                or n_train != 2 * CAE_LEARNER_EPOCHS
+                or n_eval != CAE_LEARNER_EPOCHS):
+            raise AssertionError(f"{what}: steps {steps} on "
+                                 f"{learner.device}")
+        for name, n in want.items():
+            if launches[name] != n:
+                raise AssertionError(f"{what}: {name} launched "
+                                     f"{launches[name]} times, expected {n}")
+        for phase in ("training", "validate"):
+            curve = learner._metric_dtos[phase]
+            losses = [m["loss"] for m in curve]
+            print(f"{what}: {phase} losses {losses}; lesion Dice "
+                  f"{[round(m['lesion_dc'], 4) for m in curve]}")
+            if len(losses) != CAE_LEARNER_EPOCHS or not all(
+                    math.isfinite(v) and v >= 0.0 for v in losses):
+                raise AssertionError(f"{what}: {phase} losses {losses}")
+        check_artifacts(base, files, pngs, what)
+
+        data, _ = learner.device_data(learner._dataloader_training)
+        rows = torch.arange(CAE_TRAIN_BATCH, device="cuda")
+        batch = {k: None if v is None else v.index_select(0, rows)
+                 for k, v in data.items()}
+        vdata, _ = learner.device_data(learner._dataloader_validation)
+        v_calls, v_sites, v_worst = cae_recorded(
+            torch, lambda: learner.eval_step(vdata))
+        learner_check_recorded(f"{what}: one validation batch", v_calls,
+                               v_sites, v_worst, per_valid,
+                               {EDT_CAE_VALID: CAE_EDT_PER_CASE})
+        calls, sites, worst = cae_recorded(
+            torch, lambda: learner.train_step(batch), grad=True)
+        learner_check_recorded(f"{what}: one training step", calls, sites,
+                               worst, per_step, {})
+        times = cae_step_kernel_times(torch, calls, step_k, what)
+        mean, std, host = time_steps(
+            torch, lambda: learner.train_step(batch), CAE_TIMED_STEPS,
+            f"{what} (bfloat16, batch {CAE_TRAIN_BATCH})")
+        busy = cae_profile_step(torch, learner, batch, what)
+        res[kind] = dict(learner=learner, launches=launches, steps=steps,
+                         per_step=step_k, per_valid=valid_k,
+                         per_step_by_type=per_step, worst=worst,
+                         valid_worst=v_worst, times=times,
+                         step_ms=dict(mean=mean, std=std, host=host),
+                         busy=busy, wall=wall)
+
+    # the frozen parts after the runs, the recorded and timed steps
+    # included
+    step_l, pred_l = res["step"]["learner"], res["prediction"]["learner"]
+    step_tree = state_to_jax(step_l._model.state_dict(),
+                             step_l._model.config)
+    final_tree, _ = load_checkpoint(os.path.join(
+        work, "step_cae1step_final.model"))
+    moved = 0
+    for tree, name in ((step_tree, "the step learner's CAE"),
+                       (final_tree, "_cae1step_final.model")):
+        for kind_, sub in cae1_tree.items():
+            for path, leaf in flat_items(sub):
+                got = tree[kind_]
+                for p_ in path:
+                    got = got[p_]
+                if kind_ == "params":
+                    if not (got == leaf).all():
+                        raise AssertionError(f"{name}: frozen {path} moved")
+                elif (got == leaf).all():
+                    raise AssertionError(f"{name}: BN statistic {path} did "
+                                         f"not move")
+                else:
+                    moved += 1
+    for suffix in ("_cae2.model", "_cae2_final.model"):
+        with open(os.path.join(work, "prediction" + suffix), "rb") as f:
+            if f.read() != cae1_bytes:
+                raise AssertionError(f"{suffix} is not the phase-1 CAE")
+    pred_tree = state_to_jax(pred_l._cae.state_dict(), pred_l._cae.config)
+    for kind_, sub in cae1_tree.items():
+        for path, leaf in flat_items(sub):
+            got = pred_tree[kind_]
+            for p_ in path:
+                got = got[p_]
+            if not (got == leaf).all():
+                raise AssertionError(f"phase 2's frozen CAE: {kind_} {path} "
+                                     f"changed")
+    print(f"cae learners: after the runs the step learner's frozen "
+          f"parameters (and its _cae1step_final.model's) equal "
+          f"_cae1.model's, its {moved // 2} BN statistics all moved; "
+          f"_cae2.model and _cae2_final.model equal _cae1.model byte for "
+          f"byte, phase 2's frozen CAE (parameters and statistics) "
+          f"unchanged")
+
+    vs_cpu = {kind: learner_step_vs_cpu(torch, res[kind]["learner"], kind)
+              for kind in ("step", "prediction")}
+    vis = {name: vis_vs_serial(torch, learner, name) for name, learner in (
+        ("reconstruction", phase1["learner"]), ("step", step_l),
+        ("prediction", pred_l))}
+    for kind in ("step", "prediction"):
+        res[kind].pop("learner")
+    return dict(res, vs_cpu=vs_cpu, vis=vis)
+
+
+def flat_items(tree, path=()):
+    """(path, leaf) of a nested dict's leaves."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat_items(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def learner_layer_of(key):
+    """A trained parameter's layer: an encoder block (its BN and conv) or a
+    dense layer of the step head."""
+    parts = key.split(".")
+    return ".".join(parts[:3] if "blocks" in parts else parts[:-1])
+
+
+def learner_step_vs_cpu(torch, learner, kind):
+    """One float32 step of a learner (forward, loss, backward; no optimizer
+    step, no augmentation) at batch 2 from its trained weights, on the card
+    and on the CPU: the loss, every trained gradient relative to its
+    layer's largest, the running statistics that the step moves, at the
+    STEP_* limits; a control (the step head's kernel gradient, or phase
+    2's entry BN gradients, zeroed on the card) must fail the gradient
+    limit.  Where the limits fail, a float64 CPU step says which side is
+    off before the phase stops."""
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_GLOBAL, KEY_IMAGES, KEY_LABELS)
+    from stroke_prediction_tpu_torch.inference import cae_enc_inference
+
+    data, _ = learner.device_data(learner._dataloader_training)
+    batch = {k: None if v is None else v[:CAE_VS_CPU_BATCH].cpu()
+             for k, v in data.items()}
+    models = ((learner._model,) if kind == "step"
+              else (learner._cae, learner._model))
+    out = {}
+
+    def run(side, dev, dt):
+        ms = [copy.deepcopy(m).to(dev) for m in models]
+        if dt == torch.float64:
+            for m in ms:
+                m.double()
+        if kind == "step":
+            set_cae_dtype(ms[0], dt)
+        else:
+            set_cae_dtype(ms[0], torch.promote_types(dt, torch.float32))
+            ms[1].encoder.compute_dtype = dt
+        wide = torch.promote_types(dt, torch.float32)
+        b = {k: None if v is None else v.to(dev, wide)
+             for k, v in batch.items()}
+        t0 = time.perf_counter()
+        dto = learner.make_dto(b[KEY_LABELS], b[KEY_GLOBAL],
+                               images=b[KEY_IMAGES])
+        if kind == "step":
+            dto = ms[0].train()(dto)
+        else:
+            dto = cae_enc_inference(ms[0], ms[1], dto, True)
+        loss = learner.loss(dto, 0.0)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        trained = ms[-1]
+        out[side] = (float(loss.detach()),
+                     {k: p.grad.cpu().double()
+                      for k, p in trained.named_parameters()
+                      if p.requires_grad},
+                     {k: v.cpu().double() for k, v in trained.named_buffers()},
+                     time.perf_counter() - t0)
+
+    run("card float32", "cuda", torch.float32)
+    run("CPU float32", "cpu", torch.float32)
+    control = ("enc.step_head.kernel",) if kind == "step" else tuple(
+        f"encoder.blocks.0.bn.{n}" for n in ("scale", "bias"))
+    card = out["card float32"]
+    out["card float32, control"] = (card[0], {
+        k: torch.zeros_like(g) if k in control else g
+        for k, g in card[1].items()}) + card[2:]
+    what = f"cae {kind} step (batch {CAE_VS_CPU_BATCH})"
+    print(f"\n{what} seconds: " + ", ".join(
+        f"{side} {v[3]:.2f} s" for side, v in out.items()))
+
+    def compare(a, b):
+        loss_rel, grad, stats, _ = grad_compare(out, a, b, learner_layer_of,
+                                                what)
+        return dict(loss_rel=loss_rel, grad_rel=grad[0], worst_grad=grad[1],
+                    stats_err=stats)
+
+    def failed(r):
+        return [name for name, bad in (
+            ("loss", r["loss_rel"] > STEP_LOSS_REL),
+            ("grad", r["grad_rel"] > STEP_GRAD_REL),
+            ("stats", r["stats_err"] > STEP_STATS_ATOL)) if bad]
+
+    res = compare("card float32", "CPU float32")
+    ctrl = compare("card float32, control", "CPU float32")
+    res["control"] = dict(zeroed=control, grad_rel=ctrl["grad_rel"],
+                          failed=failed(ctrl))
+    print(f"{what}: limits failed {failed(res)}; the control ({control} "
+          f"zeroed) failed {res['control']['failed']}")
+    if failed(res):
+        run("CPU float64", "cpu", torch.float64)
+        res["card_vs_f64"] = compare("card float32", "CPU float64")[
+            "grad_rel"]
+        res["cpu_vs_f64"] = compare("CPU float32", "CPU float64")[
+            "grad_rel"]
+        raise AssertionError(f"{what}: card and CPU beyond the STEP_* "
+                             f"limits: {res}")
+    if "grad" not in res["control"]["failed"]:
+        raise AssertionError(f"{what}: the control passes the gradient "
+                             f"limit: {ctrl}")
+    return res
+
+
+def vis_vs_serial(torch, learner, name):
+    """A CAE learner's visual forward (``_vis_reconstructions``: the ten
+    interpolation reconstructions of one validation case, the fixed hours
+    decoded as one batch) against one forward a step, in bfloat16 (as
+    trained; VIS_BF16_ATOL) and float32 (CAE_ATOL).  How far the columns
+    lie apart (the largest distance from the first) is printed beside: a
+    step read for all would show as that much off."""
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_GLOBAL, KEY_IMAGES, KEY_LABELS)
+
+    valid = learner._dataloader_validation
+    sample = valid.dataset.sample(valid.indices[0])
+    batch = {k: None if sample.get(k) is None else torch.from_numpy(
+        sample[k][None]).to("cuda") for k in (KEY_IMAGES, KEY_LABELS,
+                                              KEY_GLOBAL)}
+    trained = (learner._model.encoder.compute_dtype
+               if name == "prediction"
+               else learner._model.enc.encoder.compute_dtype)
+    res = {}
+    for dt, limit in ((torch.bfloat16, VIS_BF16_ATOL),
+                      (torch.float32, CAE_ATOL)):
+        if name == "prediction":
+            learner._model.encoder.compute_dtype = dt
+        else:
+            set_cae_dtype(learner._model, dt)
+        with torch.inference_mode():
+            rec = learner._vis_reconstructions(batch)
+            serial = [learner.forward(learner.make_dto(
+                batch[KEY_LABELS], batch[KEY_GLOBAL],
+                None if s is None else [s], batch[KEY_IMAGES])
+            ).reconstructions.gtruth.interpolation[0, ..., 0]
+                for s in learner.VIS_STEPS]
+        torch.cuda.synchronize()
+        if tuple(rec.shape) != (len(learner.VIS_STEPS), *CAE_DHW):
+            raise AssertionError(f"{name} visual forward: {rec.shape}")
+        err = max(float((r - s_).abs().max()) for r, s_ in zip(rec, serial))
+        moved = max(float((s_ - serial[0]).abs().max()) for s_ in serial)
+        dname = str(dt)[6:]
+        print(f"cae {name} visual forward ({dname}): ten reconstructions "
+              f"vs one forward a step max|err| {err:.3e} (limit {limit}); "
+              f"the steps' largest distance from the own time's "
+              f"{moved:.3e}")
+        res[dname] = dict(max_abs_err=err, moved=moved)
+        if err > limit:
+            raise AssertionError(f"{name} visual forward ({dname}): {err} "
+                                 f"off one forward a step")
+    if name == "prediction":
+        learner._model.encoder.compute_dtype = trained
+    else:
+        set_cae_dtype(learner._model, trained)
+    return res
 
 
 # torch.cuda._sleep's kernel: launched just before and just after each EDT
@@ -2344,20 +2916,15 @@ def profile_cases(torch, tester, batch, infer_ms, reps=3):
     column (where an outward scan along D could stop early).  Returns
     {what: (device ms, kernels) per case} and those shares."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from stroke_prediction_tpu_torch.data.dataset import KEY_LABELS
     from stroke_prediction_tpu_torch.eval import metrics
     from stroke_prediction_tpu_torch.ops import edt
 
     def trace(fn, n=reps):
-        with torch.inference_mode(), profile(
-                activities=[ProfilerActivity.CPU,
-                            ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        return prof
+        with torch.inference_mode():
+            return profiled(torch, lambda: [fn() for _ in range(n)],
+                            "profile")
 
     prof = trace(lambda: tester.infer_batch(batch))
     kernels = sorted((e for e in prof.key_averages()
@@ -2492,6 +3059,7 @@ def main():
         launches, step_ms, learner = train_phase(torch, work)
         step = step_vs_cpu(torch, learner)
         cae_tr = cae_train_phase(torch, work)
+        cae_ln = cae_learners_phase(torch, work, cae_tr)
 
     def per_step(key, dtype="bfloat16"):
         """Sums over the layers whose route runs ``key`` in one step."""
@@ -2547,6 +3115,34 @@ def main():
                        f"its own inputs vs plain; bound_ms in bf16 or "
                        f"3xTF32; launches: the CLI run's {cae_tr['steps']}"}
 
+    def learner_use(key, kind):
+        """A kernel's use on a CAE learner's path (step learning or phase
+        2): its launches in the CLI run and a step, and per step the
+        layers' sums (both storage types)."""
+        r = cae_ln[kind]
+        t = r["times"][key]
+        return {"launches": r["launches"][wrapper_of[key]],
+                "launches_per_step": r["per_step"].get(key, 0),
+                "launches_per_step_by_type": {
+                    dt: n for (k, dt), n in r["per_step_by_type"].items()
+                    if k == key},
+                **{f: t[f] for f in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "gflop")},
+                "max_abs_err": r["worst"][key],
+                "per": f"one {kind} training step (batch "
+                       f"{CAE_TRAIN_BATCH}, channels 1 16 24 32 100 200 1, "
+                       f"28x128x128; "
+                       + ("the whole CAE bfloat16, frozen but the step "
+                          "head: K3 alone at the interpolation decode"
+                          if kind == "step" else
+                          "a bfloat16 encoder on two inputs, the frozen "
+                          "float32 CAE: K3 alone at its three inputs "
+                          "decodes")
+                       + "): each layer's time times its calls; "
+                       f"max_abs_err: every call of one step on its own "
+                       f"inputs vs plain; launches: the CLI run's "
+                       f"{r['steps']}"}
+
     csrc = "stroke_prediction_tpu_torch/ops/csrc/"
     s2d = "stroke_prediction_tpu/ops/pallas/s2d.py:"
     step_per = (f"one training step (bfloat16, batch {TRAIN_BATCH}, patch "
@@ -2592,27 +3188,33 @@ def main():
                                "and 11 interpolations decoded as one "
                                "batch each); each layer's time times its "
                                "calls; bound_ms in 3xTF32"},
-             cae_train=cae_train_use("K1")),
+             cae_train=cae_train_use("K1"),
+             cae_step=learner_use("K1", "step"),
+             cae_prediction=learner_use("K1", "prediction")),
         dict({"name": "conv3x3_bwd_fused", "route": "cuda",
               "source": csrc + "conv3x3_bwd_tc.cu", "replaces": s2d + "491",
               "launches": launches["conv3x3_bwd_fused"]}, **per_step("K2"),
              source_float32=csrc + "conv3x3_bwd_f32_tc.cu", per=step_per,
              float32=dict(per_step("K2", "float32"), per=f32_step_per),
-             cae_train=cae_train_use("K2")),
+             cae_train=cae_train_use("K2"),
+             cae_prediction=learner_use("K2", "prediction")),
         dict({"name": "conv3x3_bwd_dx", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dx_tc.cu",
               "replaces": s2d + "589",
               "launches": launches["conv3x3_bwd_dx"]}, **per_step("K3"),
              source_float32=csrc + "conv3x3_bwd_dx_f32_tc.cu", per=step_per,
              float32=dict(per_step("K3", "float32"), per=f32_step_per),
-             cae_train=cae_train_use("K3")),
+             cae_train=cae_train_use("K3"),
+             cae_step=learner_use("K3", "step"),
+             cae_prediction=learner_use("K3", "prediction")),
         dict({"name": "conv3x3_bwd_dw", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dw_tc.cu",
               "replaces": s2d + "623",
               "launches": launches["conv3x3_bwd_dw"]}, **per_step("K4"),
              source_float32=csrc + "conv3x3_bwd_dw_f32_tc.cu", per=step_per,
              float32=dict(per_step("K4", "float32"), per=f32_step_per),
-             cae_train=cae_train_use("K4")),
+             cae_train=cae_train_use("K4"),
+             cae_prediction=learner_use("K4", "prediction")),
         {"name": "edt_sites", "route": "cuda",
          "source": csrc + "edt_sites.cu",
          "replaces": "stroke_prediction_tpu/ops/edt.py:80",
@@ -2654,6 +3256,13 @@ def main():
                               f"{CAE_EDT_PER_CASE} calls on their own "
                               f"masks vs plain (equal); launches: the CLI "
                               f"run's validation batches"},
+         "cae_learners": {kind: {
+             "launches": cae_ln[kind]["launches"]["edt_sites"],
+             "launches_per_validation_batch": CAE_EDT_PER_CASE,
+             "max_abs_err": 0.0,
+             "per": f"the {kind} CLI run's validation batches; every call "
+                    f"of one batch on its own masks vs plain (equal)"}
+             for kind in ("step", "prediction")},
          "single_pass": {"name": "edt_parabola",
                          "launches": launches["edt_parabola"],
                          "ms": k5[(3584, 64)]["ms"],
@@ -2685,6 +3294,22 @@ def main():
           f"{cae_tr['step_ms']['host']:.3f}); device busy "
           f"{cae_tr['busy']['busy_ms']:.3f} ms in {cae_tr['busy']['kernels']}"
           f" kernels a step; card vs CPU CAE step {cae_tr['vs_cpu']}")
+    for kind in ("step", "prediction"):
+        r = cae_ln[kind]
+        print(f"CAE {kind} learner ms per step (card, bfloat16, batch "
+              f"{CAE_TRAIN_BATCH}, mean of {CAE_TIMED_STEPS} back to back, "
+              f"CUDA events): {r['step_ms']['mean']:.3f} (std "
+              f"{r['step_ms']['std']:.3f}, host {r['step_ms']['host']:.3f}); "
+              f"device busy {r['busy']['busy_ms']:.3f} ms in "
+              f"{r['busy']['kernels']} kernels a step; K1-K4 per step "
+              + "; ".join(f"{k} x{t['launches']} {t['ms']:.4f} ms (plain "
+                          f"{t['plain_ms']:.4f}, cuDNN {t['library_ms']:.4f},"
+                          f" bound {t['bound_ms']:.4f})"
+                          for k, t in r["times"].items() if t["launches"])
+              + f"; card vs CPU float32 step {cae_ln['vs_cpu'][kind]}")
+    print(f"CAE learners' visual forward vs one forward a step: "
+          f"{cae_ln['vis']}; U-Net bfloat16 step card vs CPU "
+          f"{step['bfloat16']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,10 @@ offsets.  The flip and the elastic deformation are split the same way:
 :func:`hemispheric_flip` and :func:`elastic_deform_batch` are the cores,
 which take explicit flip masks and displacement fields;
 :func:`random_flip_mask` and :func:`ops.warp.elastic_noise` the samplers.
+The CAE learners' draws: :func:`random_cae_augment` (phase 1 and step
+learning: the labels alone) and :func:`random_cae_augment_images` (phase 2:
+the images flipped and deformed with the labels, by the same mask and
+fields).
 
 Layouts: batch volumes ``(B, D, H, W, C)``; patch and pad are given in the
 reference's (x, y, z) = (W, H, D) order.
@@ -87,13 +91,22 @@ def elastic_deform_batch(labels: torch.Tensor,
                          fields: torch.Tensor) -> torch.Tensor:
     """(B, D, H, W, C) labels warped by the (B, 3, D, H, W) displacement
     fields of :func:`ops.warp.elastic_fields`, one field shared by a
-    sample's channels (the CAE learners deform the labels alone): each
-    voxel p reads ``labels(p + field(p))`` trilinearly, zero outside."""
+    sample's channels: each voxel p reads ``labels(p + field(p))``
+    trilinearly, zero outside.  Phase 2 warps its images by the same call
+    on the same fields (the JAX ``apply_to_images=True``)."""
     _, d, h, w, _ = labels.shape
     grid = torch.meshgrid(*(torch.arange(n, dtype=fields.dtype,
                                          device=fields.device)
                             for n in (d, h, w)), indexing="ij")
     return map_coordinates_batch(labels, torch.stack(grid)[None] + fields)
+
+
+def _cae_draws(generator: torch.Generator, labels: torch.Tensor):
+    """One flip mask and one displacement field per sample."""
+    flip = random_flip_mask(generator, labels.shape[0])
+    noise = elastic_noise(generator, labels.shape[0],
+                          tuple(labels.shape[1:4]), labels.dtype)
+    return flip, elastic_fields(noise)
 
 
 def random_cae_augment(generator: torch.Generator,
@@ -102,8 +115,16 @@ def random_cae_augment(generator: torch.Generator,
     hemispheric flip, then an elastic deformation (alpha 100, sigma 4,
     depth scaled by 0.22).  (The JAX learner flips its images too, which
     phase-1 training never reads.)"""
-    labels = hemispheric_flip(labels, random_flip_mask(generator,
-                                                       labels.shape[0]))
-    noise = elastic_noise(generator, labels.shape[0],
-                          tuple(labels.shape[1:4]), labels.dtype)
-    return elastic_deform_batch(labels, elastic_fields(noise))
+    flip, fields = _cae_draws(generator, labels)
+    return elastic_deform_batch(hemispheric_flip(labels, flip), fields)
+
+
+def random_cae_augment_images(generator: torch.Generator,
+                              images: torch.Tensor, labels: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase 2's training augmentation: the same draws as
+    :func:`random_cae_augment`, the images flipped and deformed with the
+    labels by the same mask and per-sample fields -> (images, labels)."""
+    flip, fields = _cae_draws(generator, labels)
+    return (elastic_deform_batch(hemispheric_flip(images, flip), fields),
+            elastic_deform_batch(hemispheric_flip(labels, flip), fields))

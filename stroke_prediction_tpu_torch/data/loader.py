@@ -75,6 +75,18 @@ def get_stroke_shape_training_data(dataset: StrokeDataset3D,
     return train, valid
 
 
+def get_stroke_prediction_training_data(dataset: StrokeDataset3D,
+                                        fold_indices: Sequence[int],
+                                        ratio: float, seed: int = 4,
+                                        batchsize: int = 2,
+                                        split: bool = True):
+    """Phase 2's loaders (U-Net segmentations as images): the same split
+    and order as :func:`get_stroke_shape_training_data`, as in the JAX
+    package."""
+    return get_stroke_shape_training_data(dataset, fold_indices, ratio,
+                                          seed, batchsize, split)
+
+
 def get_testdata(dataset, indices, seed=None, shuffle=True) -> BatchLoader:
     """Batch-size-1 loader for per-case test metrics."""
     items = sorted(set(range(len(dataset))).intersection(set(indices)))

@@ -1,6 +1,5 @@
 """Inference adapters: batch tensors -> DTO -> model forward (port of
-inference.py; the phase-2 two-model ``cae_enc_inference`` is not ported
-yet).
+inference.py).
 
 ``clinical`` is ``(B, n_globals)`` with clinical[:, 0] = tO_to_tA and
 clinical[:, 1] = tA_to_tR, in hours."""
@@ -13,7 +12,8 @@ from typing import Optional, Sequence, Union
 import torch
 
 from stroke_prediction_tpu_torch.core.dto import (
-    BRANCH_GTRUTH, CaeBranches, CaeDto, UnetDto, init_cae_dto, init_unet_dto)
+    BRANCH_GTRUTH, BRANCH_INPUTS, CaeBranches, CaeDto, UnetDto, init_cae_dto,
+    init_unet_dto)
 
 # colour scale limits of the CBV / TTD panels in the learners' PNG grids
 IMSHOW_VMAX_CBV = 12
@@ -91,3 +91,18 @@ def cae_inference(model: torch.nn.Module, dto: CaeDto,
                   branches: CaeBranches = BRANCH_GTRUTH) -> CaeDto:
     """The whole CAE forward over the given branches."""
     return model(dto, branches)
+
+
+def cae_enc_inference(cae_model: torch.nn.Module, enc_model: torch.nn.Module,
+                      dto: CaeDto, train: bool = False) -> CaeDto:
+    """Phase 2's two-model forward: the new encoder over the inputs branch
+    (in training mode when ``train``), the frozen CAE's decoder over those
+    latents, then the frozen full CAE over the gtruth branch, which gives
+    the supervision targets.  The CAE runs in evaluation mode, and its
+    gtruth branch under ``torch.no_grad()``: nothing of it reaches a
+    trainable parameter."""
+    enc_model.train(train)
+    cae_model.eval()
+    dto = cae_model.dec(enc_model(dto, BRANCH_INPUTS), BRANCH_INPUTS)
+    with torch.no_grad():
+        return cae_model(dto, BRANCH_GTRUTH)

@@ -157,6 +157,8 @@ class DecoderStack(nn.Module):
 class Enc3D(nn.Module):
     """The CAE encoder over the given branches (cae3d.py ``Enc3D``)."""
 
+    KIND = "enc3d"              # the kind of its ``.model`` header
+
     def __init__(self, channels: Sequence[int], n_ch_global: int = 5,
                  alpha: float = 1.0,
                  generator: Optional[torch.Generator] = None,
@@ -167,6 +169,13 @@ class Enc3D(nn.Module):
         self.encoder = EncoderStack(self.channels, alpha, compute_dtype)
         self._build_head()
         _reset(self, generator)
+
+    @property
+    def config(self) -> dict:
+        """The ``.model`` header of the encoder alone, as the JAX phase-2
+        learner writes it (``enc_config``)."""
+        return {"kind": self.KIND, "channels": list(self.channels),
+                "n_ch_global": self.n_ch_global}
 
     def _build_head(self) -> None:
         pass
@@ -204,6 +213,8 @@ class Enc3D(nn.Module):
 class Enc3DStep(Enc3D):
     """Enc3D with the clinical-scalar step head (cae3d.py ``Enc3DStep``):
     used when ``time_to_treatment`` is None."""
+
+    KIND = "enc3d_step"
 
     def _build_head(self) -> None:
         g = self.n_ch_global

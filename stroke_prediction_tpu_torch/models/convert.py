@@ -31,6 +31,15 @@ writes to ``.optim`` (``optax.inject_hyperparams`` around ``add_decayed_weights
 (the two empty ``EmptyState`` slots serialise as empty maps) maps onto
 ``torch.optim.Adam``'s state dict: one ``count`` (int32) for torch's
 per-parameter ``step``, ``mu`` / ``nu`` for ``exp_avg`` / ``exp_avg_sq``.
+A model with frozen parameters (``requires_grad`` False, the optimizer
+over the others: ``train.optim.trainable_by_path``) has the layout of the
+JAX learner's masked chain (``optax.masked(inner, mask)``, then
+``masked(set_to_zero(), ~mask)``):
+
+  inner_state/{0: {inner_state: {0: {}, 1: {count, mu, nu}, 2: {}}},
+               1: {inner_state: {}}}
+
+with each frozen leaf of ``mu`` and ``nu`` an empty map.
 """
 
 from __future__ import annotations
@@ -204,12 +213,19 @@ def _param_paths(model) -> List[Tuple[Tuple[str, ...], torch.nn.Parameter]]:
 
 def adam_state_to_jax(optimizer: torch.optim.Adam, model) -> Dict[str, Any]:
     """The port's Adam state -> the optax state tree of the JAX learner
-    (numpy leaves), for ``{"opt_state": tree}`` in a ``.optim`` file."""
+    (numpy leaves), for ``{"opt_state": tree}`` in a ``.optim`` file; the
+    masked layout where ``model`` has frozen parameters."""
     group = optimizer.param_groups[0]
     count = 0
     mu: Dict[str, Any] = {}
     nu: Dict[str, Any] = {}
+    masked = False
     for path, p in _param_paths(model):
+        if not p.requires_grad:
+            masked = True
+            _tree_set(mu, path, {})
+            _tree_set(nu, path, {})
+            continue
         st = optimizer.state.get(p, {})
         if st:
             count = int(st["step"])
@@ -219,15 +235,17 @@ def adam_state_to_jax(optimizer: torch.optim.Adam, model) -> Dict[str, Any]:
             m = v = np.zeros(tuple(p.shape), np.float32)
         _tree_set(mu, path, m)
         _tree_set(nu, path, v)
+    adam = {"0": {}, "2": {},
+            "1": {"count": np.asarray(count, np.int32), "mu": mu, "nu": nu}}
+    if masked:
+        adam = {"0": {"inner_state": adam}, "1": {"inner_state": {}}}
     return {
         "count": np.asarray(count, np.int32),
         "hyperparams": {
             "learning_rate": np.asarray(group["lr"], np.float32),
             "b1": np.asarray(group["betas"][0], np.float32)},
         "hyperparams_states": {},
-        "inner_state": {"0": {}, "2": {},
-                        "1": {"count": np.asarray(count, np.int32),
-                              "mu": mu, "nu": nu}},
+        "inner_state": adam,
     }
 
 
@@ -235,14 +253,21 @@ def adam_state_from_jax(opt_state: Dict[str, Any], model,
                         optimizer: torch.optim.Adam) -> Dict[str, Any]:
     """An optax state tree (as read from a ``.optim`` file) -> a state dict
     for ``optimizer.load_state_dict``; the settings that the tree does not
-    hold (beta2, eps, weight decay) are the optimizer's own."""
+    hold (beta2, eps, weight decay) are the optimizer's own.  Reads the
+    masked layout too; the optimizer holds the trainable parameters."""
     sd = optimizer.state_dict()
-    adam = opt_state["inner_state"]["1"]
+    inner = opt_state["inner_state"]
+    adam = (inner["0"]["inner_state"]["1"] if "inner_state" in inner["0"]
+            else inner["1"])
     count = int(adam["count"])
+    index = {id(p): i for i, p in enumerate(optimizer.param_groups[0][
+        "params"])}
     state = {}
     if count:
-        for i, (path, p) in enumerate(_param_paths(model)):
-            state[i] = {
+        for path, p in _param_paths(model):
+            if id(p) not in index:
+                continue                # frozen: no Adam state
+            state[index[id(p)]] = {
                 "step": torch.tensor(float(count), dtype=torch.float32),
                 "exp_avg": torch.from_numpy(np.array(
                     _tree_get(adam["mu"], path), np.float32)),

@@ -20,7 +20,9 @@ channels-last volumes, float32 or bfloat16 (float32 accumulation).
   it, in both types.
 * :class:`Conv3x3Fn` — the autograd function: K1 forward; K2, or K3 + K4,
   backward (:func:`bwd_route`); K4 alone when the input needs no gradient
-  (the entry conv on data, s2d.py ``input_grad=False``).
+  (the entry conv on data, s2d.py ``input_grad=False``); K3 alone when the
+  kernel and bias need none (a frozen conv, which JAX closes over as a
+  constant, so XLA drops the split route's ``_dw_kernel``).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain PyTorch version (``*_plain``), which the tests and the
@@ -60,8 +62,13 @@ def _fused_fits(c_in: int, c_out: int) -> bool:
     return 27 * _pad16(c_in) * _pad16(c_out) * 4 <= FUSED_DW_BYTES
 
 
-def bwd_route(c_in: int, c_out: int, input_grad: bool = True) -> str:
-    """'fused' (K2), 'split' (K3 + K4) or 'dw' (K4 alone)."""
+def bwd_route(c_in: int, c_out: int, input_grad: bool = True,
+              weight_grad: bool = True) -> str:
+    """'fused' (K2), 'split' (K3 + K4), 'dw' (K4 alone: the input needs no
+    gradient) or 'dx' (K3 alone: neither the kernel nor the bias needs
+    one)."""
+    if not weight_grad:
+        return "dx"
     if not input_grad:
         return "dw"
     return "fused" if _fused_fits(c_in, c_out) else "split"
@@ -435,7 +442,8 @@ class Conv3x3Fn(torch.autograd.Function):
     bfloat16 compute, s2d.py ``_prep``); the gradients come back as x's
     type for x and float32 for kernel and bias.  The backward takes the
     route of :func:`bwd_route`: K2, or K3 + K4, when x needs a gradient; K4
-    alone when it does not (data input)."""
+    alone when it does not (data input); K3 alone, with no kernel and bias
+    gradients, when they need none (frozen parameters)."""
 
     @staticmethod
     def forward(ctx, x, kernel, bias, act="none", alpha=0.01, mode="v"):
@@ -450,8 +458,12 @@ class Conv3x3Fn(torch.autograd.Function):
         x, kc, y = ctx.saved_tensors
         act, alpha, mode, table = ctx.conf
         g = g.to(y.dtype).contiguous()
-        route = bwd_route(x.shape[-1], kc.shape[-1], ctx.needs_input_grad[0])
+        route = bwd_route(x.shape[-1], kc.shape[-1], ctx.needs_input_grad[0],
+                          any(ctx.needs_input_grad[1:3]))
         dx: Optional[torch.Tensor] = None
+        if route == "dx":
+            return (conv3x3_bwd_dx(g, y, kc, x.shape, act, alpha, mode),
+                    None, None, None, None, None)
         if route == "fused":
             dx, dk, db = conv3x3_bwd_fused(x, g, y, kc, act, alpha, mode,
                                            table)

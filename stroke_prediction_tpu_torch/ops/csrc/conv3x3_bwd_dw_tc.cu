@@ -37,9 +37,18 @@
 //         out-of-range voxels are zero, so ragged tiles add nothing.
 //   * Warp w owns the taps (tz, ty) = (w / 3, w % 3), tx = 0..2, and keeps
 //     their 3 x 2 accumulator fragments (24 floats a thread) in registers
-//     for the whole item.  Per row of the tile (one k step of 16 voxels) it fetches g'
-//     (B) and x at each tx shift (A) with ldmatrix.trans and issues
-//     mma.sync.m16n8k16 (the PTX helpers of mma_bf16.cuh).
+//     for one tile.  Per row of the tile (one k step of 16 voxels) it
+//     fetches g' (B) and x at each tx shift (A) with ldmatrix.trans and
+//     issues mma.sync.m16n8k16 (the PTX helpers of mma_bf16.cuh).  After
+//     the tile each thread adds its fragments, in IEEE float32, to its own
+//     running sums in shared memory (24 floats, as 6 float4 columns of the
+//     block, conflict-free) and starts the next tile from zero.  mma.sync's
+//     float32 accumulation truncates: over a whole item's chain (~850 mma
+//     at a 4 x 28 x 128^2 entry conv) dk of phase-2 training's entry conv
+//     on U-Net probabilities came out 1.4e-4 of max|dk| off cuDNN's
+//     float32 wgrad, and on random inputs such chains sit 0.8e-5 to 2e-5
+//     of max|dk| off float64, 9-mma chains 3e-7 to 8e-7
+//     (bench/conv_bwd_dw.py).  A tile's chain is 9 mma.
 //   * Each block writes its sums once, to part[chunk][t][ci][co] for its
 //     slice; dw_finalize_kernel sums the S chunks in chunk order.  db: the
 //     blocks of C_in slice 0 write each tile's g' sums to dbp[tile][co],
@@ -97,9 +106,11 @@ constexpr int kVecG = 2;    // 16-byte loads of g and y (C_out % 8 == 0)
 constexpr int kC = 16;       // channels of a slice (C_in and C_out)
 constexpr int kCS = kC + 8;  // staged voxel stride (elements)
 
+constexpr int kAcc = 3 * 2 * 4;        // a thread's dW fragment floats
 constexpr size_t kSmemBytes =
     sizeof(bf16) * ((size_t)kRegion + kTile) * kCS  // x region, g' tile
-    + sizeof(float) * kWarps * 32;                  // db row sums
+    + sizeof(float) * kWarps * 32                   // db row sums
+    + sizeof(float) * kAcc * kThreads;              // running dW sums
 
 __global__ void __launch_bounds__(kThreads, 2)
 conv3x3_bwd_dw_tc_kernel(const bf16* __restrict__ x,
@@ -135,13 +146,14 @@ conv3x3_bwd_dw_tc_kernel(const bf16* __restrict__ x,
   const int bt_k = ((lane / 8) % 2) * 8 + lane % 8, bt_n = (lane / 16) * 8;
 
   const int tz = warp / 3, ty = warp % 3;  // this warp's taps
+  // this thread's running dW sums: column j of the 6 float4 columns holds
+  // accw[j / 2][j % 2][0..3]; each thread reads and writes only its own
+  float4* tot = reinterpret_cast<float4*>(dbs + kWarps * 32);
+#pragma unroll
+  for (int j = 0; j < kAcc / 4; ++j) {
+    tot[j * kThreads + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   float accw[3][2][4];
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) accw[a][n][q] = 0.f;
 
   for (long long tile = chunk; tile < geo.n_tiles; tile += n_chunks) {
     long long r = tile;
@@ -241,7 +253,13 @@ conv3x3_bwd_dw_tc_kernel(const bf16* __restrict__ x,
     }
 
     // dW of taps (tz, ty, 0..2) over the tile's voxels, one row of 16
-    // voxels per k step
+    // voxels per k step, from zero
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) accw[a][n][q] = 0.f;
 #pragma unroll 1
     for (int ly = 0; ly < kTH; ++ly) {
       unsigned bq[4];
@@ -253,6 +271,19 @@ conv3x3_bwd_dw_tc_kernel(const bf16* __restrict__ x,
             a, xs + ((tz * kRH + ly + ty) * kRW + at_k + sx) * kCS + at_m);
         mma_bf16(accw[sx][0], a, bq[0], bq[1]);
         mma_bf16(accw[sx][1], a, bq[2], bq[3]);
+      }
+    }
+    // the tile's sums join the running sums in IEEE float32
+#pragma unroll
+    for (int sx = 0; sx < 3; ++sx) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float4 t = tot[(sx * 2 + n) * kThreads + tid];
+        t.x += accw[sx][n][0];
+        t.y += accw[sx][n][1];
+        t.z += accw[sx][n][2];
+        t.w += accw[sx][n][3];
+        tot[(sx * 2 + n) * kThreads + tid] = t;
       }
     }
 
@@ -274,12 +305,14 @@ conv3x3_bwd_dw_tc_kernel(const bf16* __restrict__ x,
     const int t = tz * 9 + ty * 3 + sx;
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
+      const float4 v = tot[(sx * 2 + n) * kThreads + tid];
+      const float sum[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int ci = ci0 + lane / 4 + 8 * (q / 2);
         const int co = co0 + n * 8 + (lane % 4) * 2 + q % 2;
         if (ci < c_in && co < c_out) {
-          my_part[((long long)t * c_in + ci) * c_out + co] = accw[sx][n][q];
+          my_part[((long long)t * c_in + ci) * c_out + co] = sum[q];
         }
       }
     }

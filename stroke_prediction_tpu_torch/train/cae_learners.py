@@ -1,10 +1,13 @@
-"""CAE phase-1 learner: the shape-space reconstruction (port of
-train/cae_learners.py ``CaeReconstructionLearner``).
+"""The CAE learners (port of train/cae_learners.py): phase-1 shape-space
+reconstruction (``CaeReconstructionLearner``), step learning on a frozen
+phase-1 CAE (``CaeStepLearner``) and phase-2 prediction against a frozen
+phase-1 CAE (``CaePredictionLearner``).
 
-Per training step: a random hemispheric flip and an elastic deformation of
-the labels (data/augment.py, from the learner's device generator), the CAE in training mode over the gtruth branch (three
-encodes, the latent interpolation at the case's time to treatment, four
-decodes), and the curriculum loss
+Phase 1, per training step: a random hemispheric flip and an elastic
+deformation of the labels (data/augment.py, from the learner's device
+generator), the CAE in training mode over the gtruth branch (three encodes,
+the latent interpolation at the case's time to treatment, four decodes),
+and the curriculum loss
 
     (hinge(penu - interp) + hinge(penu - core) + Dice(core) + Dice(penu)
      + Dice(lesion) + factor * mean|z_interp - z_lesion|) / (5 + factor),
@@ -15,6 +18,22 @@ evaluation mode on the unaugmented batch.  Per step the measures of the
 interpolation against the lesion and of the core and penumbra
 reconstructions, HD / ASSD on validation steps.  Console line, loss curve
 and the 6-sample x 15-panel time-sweep grid as in the JAX learner.
+
+Step learning: the same step on an ``Enc3DStep`` CAE whose step head
+regresses the interpolation step from the clinical vector (in training and
+validation; the grid's fixed hours give it), loss
+``(hinge(penu - interp) + Dice(interp, lesion)) / 2``; the CLI freezes all
+but the head (``train.optim.trainable_by_path``), and the whole CAE runs in
+training mode, so the frozen trunk's BN statistics move.
+
+Phase 2: a new encoder over the inputs branch (the U-Net segmentations,
+flipped and deformed with the labels), the frozen CAE's decoder over its
+latents and the frozen CAE over the gtruth branch, both in evaluation mode
+(``inference.cae_enc_inference``); loss ``(hinge(penu_in - interp_in) +
+hinge(penu_in - core_in) + Dice(interp_in, lesion) + the three latents'
+mean |z_gt - z_in|) / 6``, no beta1 ramp; the frozen CAE is saved under the
+main name, the encoder under ``_enc``.  Its measures are the frozen CAE's
+gtruth-branch reconstructions', as the JAX learner's are.
 """
 
 from __future__ import annotations
@@ -22,17 +41,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stroke_prediction_tpu_torch.data.augment import random_cae_augment
+from stroke_prediction_tpu_torch.data.augment import (
+    random_cae_augment, random_cae_augment_images)
 from stroke_prediction_tpu_torch.data.dataset import (
     KEY_GLOBAL, KEY_IMAGES, KEY_LABELS)
 from stroke_prediction_tpu_torch.eval.metrics import (
     batch_dice_loss, binary_measures, monotonicity_hinge)
 from stroke_prediction_tpu_torch.inference import (
-    IMSHOW_VMAX_CBV, IMSHOW_VMAX_TTD, cae_dto_from_batch)
+    IMSHOW_VMAX_CBV, IMSHOW_VMAX_TTD, cae_dto_from_batch, cae_enc_inference)
 from stroke_prediction_tpu_torch.models.convert import (
     state_from_jax, state_to_jax)
 from stroke_prediction_tpu_torch.train.learner import Learner
 from stroke_prediction_tpu_torch.train.unet_learner import _measures_dict
+from stroke_prediction_tpu_torch.utils import checkpoint as ckpt
 
 
 def cae_loss(dto, factor: float) -> torch.Tensor:
@@ -48,6 +69,28 @@ def cae_loss(dto, factor: float) -> torch.Tensor:
     loss = loss + factor * torch.mean(torch.abs(lat.interpolation
                                                 - lat.lesion))
     return loss / (5.0 + factor)
+
+
+def step_loss(dto) -> torch.Tensor:
+    """The step learner's loss of a gtruth-branch CAE output."""
+    rec, gt = dto.reconstructions.gtruth, dto.given_variables.gtruth
+    loss = monotonicity_hinge(rec.penu - rec.interpolation)
+    loss = loss + batch_dice_loss(rec.interpolation, gt.lesion)
+    return loss / 2.0
+
+
+def prediction_loss(dto) -> torch.Tensor:
+    """Phase 2's loss: the inputs branch's reconstructions and latents
+    against the frozen CAE's gtruth branch."""
+    rec_in, gt = dto.reconstructions.inputs, dto.given_variables.gtruth
+    lat_gt, lat_in = dto.latents.gtruth, dto.latents.inputs
+    loss = monotonicity_hinge(rec_in.penu - rec_in.interpolation)
+    loss = loss + monotonicity_hinge(rec_in.penu - rec_in.core)
+    loss = loss + batch_dice_loss(rec_in.interpolation, gt.lesion)
+    for name in ("interpolation", "core", "penu"):
+        loss = loss + torch.mean(torch.abs(getattr(lat_gt, name)
+                                           - getattr(lat_in, name)))
+    return loss / 6.0
 
 
 class CaeReconstructionLearner(Learner):
@@ -71,29 +114,40 @@ class CaeReconstructionLearner(Learner):
         return self._model.config
 
     def state_tree(self) -> dict:
-        return state_to_jax(self._model.state_dict(), self.model_config())
+        """The trained model's tree (phase 2: the encoder's)."""
+        return state_to_jax(self._model.state_dict(), self._model.config)
 
     def load_state_tree(self, state) -> None:
         self._model.load_state_dict(state_from_jax(state,
-                                                   self.model_config()))
+                                                   self._model.config))
 
     def loss_factor(self, epoch: int) -> float:
         return min(0.04 * max(0, epoch - 25), 1)
 
     # ------------------------------------------------------------ stepping
 
-    def make_dto(self, labels, clinical, step=None):
+    def make_dto(self, labels, clinical, step=None, images=None):
+        """The step is the case's time to treatment, or fixed ``step``
+        hours; ``images`` are read by phase 2 only."""
         return cae_dto_from_batch(None, labels, clinical, step,
                                   self._norm_hours)
 
     def augment(self, batch):
-        """The training batch's labels after the random flip and elastic
-        deformation."""
-        return random_cae_augment(self._generator, batch[KEY_LABELS])
+        """The training batch with its labels after the random flip and
+        elastic deformation."""
+        return dict(batch, **{KEY_LABELS: random_cae_augment(
+            self._generator, batch[KEY_LABELS])})
 
-    def forward_loss(self, labels, clinical, factor: float):
-        dto = self._model(self.make_dto(labels, clinical))
-        return cae_loss(dto, factor), dto
+    def forward(self, dto):
+        return self._model(dto)
+
+    def loss(self, dto, factor: float) -> torch.Tensor:
+        return cae_loss(dto, factor)
+
+    def forward_loss(self, batch, factor: float):
+        dto = self.forward(self.make_dto(batch[KEY_LABELS], batch[KEY_GLOBAL],
+                                         images=batch.get(KEY_IMAGES)))
+        return self.loss(dto, factor), dto
 
     def _metrics(self, loss, dto, training: bool) -> dict:
         wd = self._with_distances(training)
@@ -107,19 +161,19 @@ class CaeReconstructionLearner(Learner):
         return out
 
     def train_step(self, batch, factor: float = 0.0):
-        labels = self.augment(batch)
+        batch = self.augment(batch)
         self._model.train()
-        loss, dto = self.forward_loss(labels, batch[KEY_GLOBAL], factor)
+        loss, dto = self.forward_loss(batch, factor)
         self._optimizer.zero_grad(set_to_none=True)
         # cuDNN reads its TF32 flag when the stride-2 and transposed convs'
         # backward runs: float32 stays float32 there as in their forward
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             loss.backward()
-        # a parameter off the loss's path (Enc3DStep's head when the time is
-        # given) gets a zero gradient, as jax.grad gives it, so that Adam's
-        # L2 term moves it as optax does
+        # a trainable parameter off the loss's path (Enc3DStep's head when
+        # the time is given) gets a zero gradient, as jax.grad gives it, so
+        # that Adam's L2 term moves it as optax does
         for p in self._model.parameters():
-            if p.grad is None:
+            if p.requires_grad and p.grad is None:
                 p.grad = torch.zeros_like(p)
         self._optimizer.step()
         self.step_counts["train"] += 1
@@ -129,8 +183,7 @@ class CaeReconstructionLearner(Learner):
     def eval_step(self, batch, factor: float = 0.0):
         self._model.eval()
         with torch.no_grad():
-            loss, dto = self.forward_loss(batch[KEY_LABELS],
-                                          batch[KEY_GLOBAL], factor)
+            loss, dto = self.forward_loss(batch, factor)
             self.step_counts["eval"] += 1
             return self._metrics(loss, dto, training=False)
 
@@ -160,15 +213,18 @@ class CaeReconstructionLearner(Learner):
         ax2.set_ylabel("Validation ASSD (blue)", color="b")
         ax2.tick_params("y", colors="b")
 
-    def _vis_reconstructions(self, labels, clinical):
-        """The interpolation's reconstruction at each of ``VIS_STEPS``, (10,
-        D, H, W): one forward at the case's own time, one for the fixed
+    def _vis_reconstructions(self, batch):
+        """The gtruth branch's interpolation reconstruction of a one-case
+        batch at each of ``VIS_STEPS``, (10, D, H, W): one forward at the
+        case's own time (the step learner's: its head's), one for the fixed
         hours decoded as one batch."""
+        labels, clinical = batch[KEY_LABELS], batch[KEY_GLOBAL]
+        images = batch.get(KEY_IMAGES)
         self._model.eval()
         with torch.no_grad():
-            own = self._model(self.make_dto(labels, clinical))
-            fixed = self._model(self.make_dto(labels, clinical,
-                                              list(self.VIS_STEPS[1:])))
+            own = self.forward(self.make_dto(labels, clinical, images=images))
+            fixed = self.forward(self.make_dto(
+                labels, clinical, list(self.VIS_STEPS[1:]), images))
         self.step_counts["visual"] += 2
         return torch.cat([own.reconstructions.gtruth.interpolation,
                           fixed.reconstructions.gtruth.interpolation])[..., 0]
@@ -184,11 +240,10 @@ class CaeReconstructionLearner(Learner):
             return
         f, axarr = plt.subplots(max(len(samples), 2), 15)
         for inc, sample in enumerate(samples):
-            labels = torch.from_numpy(sample[KEY_LABELS][None]).to(
-                self.device)
-            clinical = torch.from_numpy(sample[KEY_GLOBAL][None]).to(
-                self.device)
-            rec = self._vis_reconstructions(labels, clinical).cpu().numpy()
+            batch = {k: (None if sample.get(k) is None else torch.from_numpy(
+                sample[k][None]).to(self.device))
+                     for k in (KEY_IMAGES, KEY_LABELS, KEY_GLOBAL)}
+            rec = self._vis_reconstructions(batch).cpu().numpy()
             zs = min(rec.shape[1] - 1, 14)
             for col, r in zip((3,) + tuple(range(5, 14)), rec):
                 axarr[inc, col].imshow(r[zs], vmin=0, vmax=1, cmap="gray")
@@ -226,3 +281,80 @@ class CaeReconstructionLearner(Learner):
             for i in self._dataloader_validation.indices[:n - len(samples)]:
                 samples.append(self._dataloader_validation.dataset.sample(i))
         return samples
+
+
+class CaeStepLearner(CaeReconstructionLearner):
+    """Trains an ``Enc3DStep`` CAE's clinical step head (and whatever else
+    the optimizer holds): the time to treatment is not given, so the head
+    regresses the step in training and validation."""
+
+    FNB_MARKS = "_cae1step"
+    FN_VIS_BASE = "_cae1step_"
+
+    def make_dto(self, labels, clinical, step=None, images=None):
+        # fixed hours (the grid's sweeps) give the step; else the head
+        return cae_dto_from_batch(None, labels, clinical, step,
+                                  self._norm_hours, learn_step=step is None)
+
+    def loss(self, dto, factor: float) -> torch.Tensor:
+        return step_loss(dto)
+
+
+class CaePredictionLearner(CaeReconstructionLearner):
+    """Phase 2: trains ``enc_model`` (an ``Enc3D``) on the images (U-Net
+    segmentations) against ``cae_model``, a phase-1 CAE that this learner
+    freezes (``requires_grad`` False: its convs' backward is dx alone) and
+    runs in evaluation mode.  The optimizer holds the encoder's
+    parameters."""
+
+    FNB_MARKS = "_cae2"
+    FN_VIS_BASE = "_cae2_"
+    N_EPOCHS_ADAPT_BETA1 = None        # no beta1 ramp
+
+    def __init__(self, dataloader_training, dataloader_validation, cae_model,
+                 enc_model, optimizer, lr_schedule, n_epochs, **kw):
+        self._cae = cae_model.eval()
+        for p in self._cae.parameters():
+            p.requires_grad_(False)
+        super().__init__(dataloader_training, dataloader_validation,
+                         enc_model, optimizer, lr_schedule, n_epochs, **kw)
+
+    def model_config(self) -> dict:
+        """The frozen CAE's header, written without a step head as the JAX
+        learner writes it."""
+        return dict(self._cae.config, step=False)
+
+    def enc_config(self) -> dict:
+        return self._model.config
+
+    def make_dto(self, labels, clinical, step=None, images=None):
+        return cae_dto_from_batch(images, labels, clinical, step,
+                                  self._norm_hours, inputs_from_images=True)
+
+    def augment(self, batch):
+        """The training batch with its images and labels flipped and
+        deformed together."""
+        images, labels = random_cae_augment_images(
+            self._generator, batch[KEY_IMAGES], batch[KEY_LABELS])
+        return dict(batch, **{KEY_IMAGES: images, KEY_LABELS: labels})
+
+    def forward(self, dto):
+        return cae_enc_inference(self._cae, self._model, dto,
+                                 self._model.training)
+
+    def loss(self, dto, factor: float) -> torch.Tensor:
+        return prediction_loss(dto)
+
+    def save_model(self, suffix: str = ""):
+        """The frozen CAE under the main name, the encoder under
+        ``_enc``."""
+        ckpt.save_checkpoint(
+            self.path("save", "model", suffix),
+            state_to_jax(self._cae.state_dict(), self._cae.config),
+            self.model_config())
+        ckpt.save_checkpoint(self.path("save", "model", "_enc" + suffix),
+                             self.state_tree(), self.enc_config())
+
+    def load_model(self):
+        state, _ = ckpt.load_checkpoint(self.path("load", "model", "_enc"))
+        self.load_state_tree(state)

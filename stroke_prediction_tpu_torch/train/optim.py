@@ -7,12 +7,14 @@ scale_by_adam -> scale_by_learning_rate(lr)`` chain (the formula pinned by
 tests/test_optim.py).  The learning rate is a ``param_groups`` entry that
 the learner sets at each epoch start, as the JAX learner sets the injected
 hyperparameter; beta1 likewise (:func:`set_beta1`), the port's
-``set_hyperparams(opt_state, b1=...)``.
+``set_hyperparams(opt_state, b1=...)``.  :func:`trainable_by_path` freezes a
+model but for the parameters it names, the port's ``trainable_mask_by_path``
+and masked optax chain.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Sequence, Tuple
+from typing import Iterable, List, Sequence, Tuple
 
 import torch
 
@@ -24,6 +26,28 @@ def make_optimizer(params: Iterable[torch.nn.Parameter],
                    eps: float = 1e-8) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=learning_rate, betas=betas, eps=eps,
                             weight_decay=weight_decay)
+
+
+def trainable_by_path(model: torch.nn.Module,
+                      wanted_substrings: Sequence[str]
+                      ) -> List[torch.nn.Parameter]:
+    """Freeze every parameter of ``model`` but those where a component of
+    its name contains one of ``wanted_substrings`` (e.g. ``('reduce1',
+    'reduce2', 'step_head')``): those get ``requires_grad_(False)``.
+    Returns the trainable ones in ``model.parameters()`` order, for
+    :func:`make_optimizer`, so that a frozen parameter gets neither an update
+    nor the L2 term, as under the JAX package's ``optax.masked(inner, mask)``
+    + ``masked(set_to_zero(), ~mask)``.  The names' components are the
+    port's (``enc.reduce1.kernel``); for the step head's names they are the
+    flax path's."""
+    trainable = []
+    for name, p in model.named_parameters():
+        keep = any(s in part for part in name.split(".")
+                   for s in wanted_substrings)
+        p.requires_grad_(keep)
+        if keep:
+            trainable.append(p)
+    return trainable
 
 
 def multistep_lr(base_lr: float, milestones: Sequence[int],

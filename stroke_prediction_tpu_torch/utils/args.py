@@ -1,8 +1,9 @@
 """CLI flags (port of utils/args.py: the U-Net parsers, the CAE training
-parser and the shape-testing parser).
+parsers and the shape-testing parser).
 
 The same flags and defaults as the JAX package's ``ExpParser`` /
 ``UnetParser`` / ``CAEParser`` / ``get_args_shape_training`` /
+``get_args_step_training`` / ``get_args_shape_prediction_training`` /
 ``get_args_shape_testing``, plus ``--device {cuda,cpu}``
 (default ``cuda``).
 ``--dtype`` picks the training compute type (bfloat16 by default; the tester
@@ -137,6 +138,29 @@ def get_args_shape_training(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--channelscae", type=int, nargs="+",
                         default=[1, 16, 24, 32, 100, 200, 1],
                         help="CAE channels")
+    return parser.parse_args(argv)
+
+
+def get_args_step_training(argv: Optional[Sequence[str]] = None):
+    """Step learning on a phase-1 CAE: its ``.model`` path first."""
+    parser = CAEParser()
+    parser.add_argument("caepath", type=str,
+                        help="Path to previously trained cae phase1 model")
+    parser.add_argument("--channelscae", type=int, nargs="+",
+                        default=[1, 16, 24, 32, 100, 200, 1])
+    return parser.parse_args(argv)
+
+
+def get_args_shape_prediction_training(
+        argv: Optional[Sequence[str]] = None):
+    """Phase-2 training against a phase-1 CAE: its ``.model`` path first."""
+    parser = CAEParser()
+    parser.add_argument("caepath", type=str,
+                        help="Path to previously trained cae phase1 model")
+    parser.add_argument("--channelsenc", type=int, nargs="+",
+                        default=[1, 16, 24, 32, 100, 200, 1])
+    parser.add_argument("--initbycae", action="store_true", default=False,
+                        help="Init enc weights by cae's enc")
     return parser.parse_args(argv)
 
 
