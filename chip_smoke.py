@@ -117,6 +117,26 @@ non-zero without one.  Phases:
    (a float64 CPU step, where it fails, says which side is off); the
    three CAE learners' visual forward (ten
    reconstructions of one case) against one forward a step.
+9. CTP CAE phase: the CTP-conditioned CAE's training CLI
+   (``cli.train_shape_reconstruction_with_ctp``: the card, bfloat16, channels
+   3 16 24 32 100 200 1, so the entry conv at C_in 3 on the mask, CBV and
+   TTD, the images padded by 20 to 68x168x168) on the eight cases, batch
+   4, two epochs; launches per step and validation batch; finite losses,
+   the artifacts, the ``cae3d_ctp`` header; every K1-K4 and edt_sites call
+   of one bfloat16 and one float32 step and of one validation batch against
+   plain (K1 and K4 at C_in 3 among them); K1-K4 per layer beside cuDNN, the
+   entry conv apart; 20 timed steps and a profile; one float32 step (batch
+   2, seeded weights) card vs CPU at the STEP_* limits with two controls,
+   the entry BN and entry kernel gradients against a float64 step (the
+   plain versions, run on the card).
+10. SDM phase: the SDM baseline tester's CLI (``cli.test_sdm_resampling``,
+   the card) on three cases with the labels, one with the U-Net
+   segmentations (``--groundtruth 0``) and one without the latent resample
+   (``--downsample 0``): edt_sites launches per case, the results lines and
+   the dumps; every edt_sites call of each case against plain; each case
+   card vs CPU (thresholded reconstructions equal, DC / HD / ASSD within
+   1e-6); ms a case to the measures and with the dumps; a case's device
+   time and kernels, its edt_sites time against plain and the bound.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero.
@@ -1108,7 +1128,8 @@ def cae_recorded(torch, run, grad=False):
     K1-K4 and edt_sites recorded as the CAE path calls them, each call held
     on its own inputs against its plain version: y and dx within K1_TOL
     (float32) or BF16_REL of max|ref| (bfloat16), dW and db within DW_REL
-    of max|ref|, each backward kernel run twice for a bit-identical result,
+    of max|ref| (of float64 where the kernel is nearer to it than plain),
+    each backward kernel run twice for a bit-identical result,
     edt_sites equal -> ({(kernel, N, D, H, W, C_in, C_out, mode, plane
     table, act, storage type): calls}, {mask shape: edt_sites calls},
     {kernel: largest max|err|})."""
@@ -1129,12 +1150,25 @@ def cae_recorded(torch, run, grad=False):
         return float((got.float() - ref.float()).abs().max())
 
     def sum_err(name, got, ref, ref64=None):
-        """``ref64``: the float64 result, computed on a failure to say
-        which side is off."""
+        """``ref64``: the float64 result, computed where the kernel is off
+        plain: a kernel within DW_REL of float64 and nearer to it than its
+        plain version is held to float64 instead (float32 sums over ~1.8M
+        CT voxels at the CTP entry conv put cuDNN's wgrad 0.95e-4 to
+        1.05e-4 of max|dk| off float64, the 3xTF32 K4 4.8e-6 to 5.8e-6);
+        otherwise the pair's errors against float64 say which side is
+        off."""
         if rel_err(got, ref) > DW_REL:
-            far = "" if ref64 is None else (
-                f"; against float64 the kernel {rel_err(got, ref64()):.3e}, "
-                f"plain {rel_err(ref, ref64()):.3e}")
+            far = ""
+            if ref64 is not None:
+                r64 = ref64()
+                k64, p64 = rel_err(got, r64), rel_err(ref, r64)
+                if k64 <= DW_REL and k64 < p64:
+                    print(f"cae: {name}: {rel_err(got, ref):.3e} of "
+                          f"max|ref| off plain; plain {p64:.3e} off "
+                          f"float64, the kernel {k64:.3e}: held to float64")
+                    return float((got.double() - r64).abs().max())
+                far = (f"; against float64 the kernel {k64:.3e}, plain "
+                       f"{p64:.3e}")
             raise AssertionError(f"{name}: {rel_err(got, ref):.3e} of "
                                  f"max|ref| off plain{far}")
         return float((got - ref).abs().max())
@@ -2228,13 +2262,15 @@ def cae_layer_times(torch, key, dtype, gen):
     return out
 
 
-def cae_step_kernel_times(torch, calls, want=None, what="cae train"):
+def cae_step_kernel_times(torch, calls, want=None, what="cae train",
+                          layers=None):
     """K1-K4 at each distinct layer of a recorded step (calls keyed by K1's
     shapes and storage type), each layer's times times its calls ->
     {kernel: sums}; the launches a step must be ``want`` (phase 1's by the
     route rule when not given).  A layer's route is the one its backward
     calls took: K2 fused, K3 + K4 split, K4 alone dw, K3 alone dx (frozen
-    parameters), none (no backward)."""
+    parameters), none (no backward).  ``layers``, where given, receives
+    each K1 key's {kernel: times}."""
     from stroke_prediction_tpu_torch.ops.conv3x3 import bwd_route
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -2276,6 +2312,8 @@ def cae_step_kernel_times(torch, calls, want=None, what="cae train"):
         timed.add(group)
         times = cae_layer_times(torch, key[1:-1] + (route,),
                                 getattr(torch, key[-1]), gen)
+        if layers is not None:
+            layers[key] = times
         parts = []
         for kern, t in times.items():
             n_kern = n if kern == "K1" else bwd[kern]
@@ -2877,6 +2915,464 @@ def vis_vs_serial(torch, learner, name):
     return res
 
 
+# CTP-conditioned CAE phase-1 training at the reference width with the
+# entry conv at C_in 3 (the mask, CBV and TTD): the CLI's defaults (bfloat16,
+# batch 4, images padded by 20) on the eight cases, two epochs; one float32
+# step at batch 2 card vs CPU at the STEP_* limits, with the entry gradients
+# against a float64 step within CTP_ENTRY_F64_REL of their own max|ref|
+# (stated before the first run: the CPU's float32 entry gradients were
+# 2.4e-6 to 2e-5 of their max off JAX's float64 in the CPU tests, and the
+# folded BN's ``dk' s + t db'`` cancels at the CT channels' means)
+CTP_CHANNELS = (3, 16, 24, 32, 100, 200, 1)
+CTP_PAD = (20, 20, 20)
+CTP_EPOCHS = 2
+CTP_ENTRY_F64_REL = 1e-4
+# the card-vs-CPU step's loss has the latent L1 term off: its gradient,
+# sign(z_interp - z_lesion), jumps where the two latents nearly coincide,
+# as they do here (the three encodes share the CBV and TTD channels): at
+# 0.4 one latent element of 40000 took the other sign on the card than in
+# float64 and put the fc kernel's gradient 1.43e-3 of its layer's largest
+# off (the CPU's 2.6e-4); at 0 the card read 3.3e-4 (NVIDIA H100 80GB
+# HBM3, 700 W)
+CTP_VS_CPU_FACTOR = 0.0
+CTP_ENTRY = ("enc.encoder.blocks.0.bn.scale", "enc.encoder.blocks.0.bn.bias",
+             "enc.encoder.blocks.0.conv.kernel")
+
+
+def cae_ctp_phase(torch, work):
+    """The CTP-conditioned CAE's phase-1 training on the card: the port's
+    CLI (``cli.train_shape_reconstruction_with_ctp``: no ``--device`` or
+    ``--dtype``, so the card and bfloat16) at channels 3 16 24 32 100 200
+    1; launches per step and validation batch against the route rule;
+    finite losses, the artifacts, the ``cae3d_ctp`` header and the
+    best-valid model loaded; every K1-K4 and edt_sites call of one bfloat16
+    and one float32 step and of one validation batch on its own inputs
+    against plain, K1 and K4 at the entry conv at C_in 3 among them; K1-K4
+    per layer beside cuDNN; 20 timed steps and a profile; one float32 step
+    card vs CPU (:func:`ctp_step_vs_cpu`)."""
+    from stroke_prediction_tpu_torch.cli import (
+        train_shape_reconstruction_with_ctp as ctp_cli)
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_GLOBAL, KEY_IMAGES, KEY_LABELS)
+    from stroke_prediction_tpu_torch.inference import cae_dto_from_batch
+    from stroke_prediction_tpu_torch.models.factory import load_model
+    from stroke_prediction_tpu_torch.utils.args import (
+        get_args_shape_training)
+
+    what = "cae ctp"
+    base = os.path.join(work, "ctp")
+    args = get_args_shape_training(
+        ["--synthetic", "--fold", *map(str, TRAIN_FOLD), "--validsetsize",
+         "0.25", "--batchsize", str(CAE_TRAIN_BATCH), "--epochs",
+         str(CTP_EPOCHS), "--channelscae", *map(str, CTP_CHANNELS),
+         "--outbasepath", base])
+    if (args.dtype != "bfloat16" or args.device != "cuda"
+            or tuple(args.padding) != CTP_PAD):
+        raise AssertionError(f"{what}: the CLI's defaults {args.dtype}, "
+                             f"{args.device}, {args.padding}")
+    reset_launches()
+    t0 = time.perf_counter()
+    learner = ctp_cli.train(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    steps = dict(learner.step_counts)
+    per_step = cae_step_launches(CTP_CHANNELS)
+    fwd = per_step["K1"]
+    n_train, n_eval, n_vis = steps["train"], steps["eval"], steps["visual"]
+    want = {"conv3x3": fwd * (n_train + n_eval + n_vis),
+            "conv3x3_bwd_fused": per_step["K2"] * n_train,
+            "conv3x3_bwd_dx": per_step["K3"] * n_train,
+            "conv3x3_bwd_dw": per_step["K4"] * n_train,
+            "edt_sites": CAE_EDT_PER_CASE * n_eval, "edt_parabola": 0}
+    print(f"\n{what}: CLI, {CTP_EPOCHS} epochs in {wall:.2f} s; steps "
+          f"{steps}; launches {launches}; per training step {per_step}, per "
+          f"validation batch K1 {fwd} and {CAE_EDT_PER_CASE} edt_sites; "
+          f"training passes (s, steps) {learner.train_pass_seconds}")
+    if (learner.device.type != "cuda" or n_train != 2 * CTP_EPOCHS
+            or n_eval != CTP_EPOCHS
+            or learner._base_betas != (0.99, 0.999)):
+        raise AssertionError(f"{what}: steps {steps} on {learner.device}, "
+                             f"betas {learner._base_betas}")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{what}: {name} launched {launches[name]} "
+                                 f"times, expected {n}")
+    for phase in ("training", "validate"):
+        curve = learner._metric_dtos[phase]
+        losses = [m["loss"] for m in curve]
+        print(f"{what}: {phase} losses {losses}; lesion Dice "
+              f"{[round(m['lesion_dc'], 4) for m in curve]}")
+        if len(losses) != CTP_EPOCHS or not all(
+                math.isfinite(v) and v >= 0.0 for v in losses):
+            raise AssertionError(f"{what}: {phase} losses {losses}")
+    check_artifacts(base, ["_cae1.model", "_cae1.optim", "_cae1.json",
+                           "_cae1_final.model"],
+                    ["_cae1_1.png", "_cae1_plots.png"], what)
+    model, config = load_model(base + "_cae1.model", "cuda")
+    header = {"kind": "cae3d_ctp", "channels": list(CTP_CHANNELS),
+              "n_ch_global": 5, "step": False, "padding": list(CTP_PAD)}
+    valid = learner._dataloader_validation
+    vdata, _ = learner.device_data(valid)
+    with torch.inference_mode():
+        dto = model(cae_dto_from_batch(
+            vdata[KEY_IMAGES][:1], vdata[KEY_LABELS][:1],
+            vdata[KEY_GLOBAL][:1], inputs_from_images=True))
+    rec = dto.reconstructions.gtruth.interpolation
+    if (config != header or tuple(rec.shape) != (1, *CAE_DHW, 1)
+            or not torch.isfinite(rec).all()):
+        raise AssertionError(f"{what}: best-valid model {config}, "
+                             f"{tuple(rec.shape)}")
+    print(f"{what}: best-valid _cae1.model {config} runs: interpolation "
+          f"{tuple(rec.shape)}, images {tuple(vdata[KEY_IMAGES].shape)}")
+
+    data, _ = learner.device_data(learner._dataloader_training)
+    rows = torch.arange(CAE_TRAIN_BATCH, device="cuda")
+    batch = {k: None if v is None else v.index_select(0, rows)
+             for k, v in data.items()}
+    if len(valid.indices) != EDT_CAE_VALID[0]:
+        raise AssertionError(f"{what}: {len(valid.indices)} validation "
+                             f"cases")
+    v_calls, v_sites, v_worst = cae_recorded(
+        torch, lambda: learner.eval_step(vdata))
+    cae_check_recorded(f"{what}: one bfloat16 validation batch", v_calls,
+                       v_sites, v_worst, {"K1": fwd},
+                       {EDT_CAE_VALID: CAE_EDT_PER_CASE})
+    recorded = {}
+    # (N, D, H, W, C_in, C_out) of the entry conv
+    entry_layer = (CAE_TRAIN_BATCH, *CAE_DHW, *CTP_CHANNELS[:2])
+    for dtype in (torch.bfloat16, torch.float32):
+        set_cae_dtype(learner._model, dtype)
+        calls, sites, worst = cae_recorded(
+            torch, lambda: learner.train_step(batch, CAE_VS_CPU_FACTOR),
+            grad=True)
+        dname = str(dtype)[6:]
+        cae_check_recorded(f"{what}: one {dname} training step", calls,
+                           sites, worst, per_step, {})
+        entry = sorted({k[0] for k in calls if k[1:7] == entry_layer})
+        print(f"{what}: {dname} step: kernels at the entry conv (C_in "
+              f"{CTP_CHANNELS[0]}): {entry}")
+        if entry != ["K1", "K4"]:
+            raise AssertionError(f"{what}: the entry conv ran {entry}")
+        recorded[dname] = calls, worst
+    set_cae_dtype(learner._model, torch.bfloat16)
+    layers = {}
+    times = {dname: cae_step_kernel_times(torch, calls, per_step, what,
+                                          layers)
+             for dname, (calls, _) in recorded.items()}
+    entry_times = {key[-1]: t for key, t in layers.items()
+                   if key[1:7] == entry_layer}
+    mean, std, host = time_steps(
+        torch, lambda: learner.train_step(batch), CAE_TIMED_STEPS,
+        f"{what} (bfloat16, batch {CAE_TRAIN_BATCH})")
+    busy = cae_profile_step(torch, learner, batch, what)
+    vs_cpu = ctp_step_vs_cpu(torch, learner)
+    return dict(launches=launches, per_step=per_step, steps=steps,
+                recorded={d: r[1] for d, r in recorded.items()},
+                valid_worst=v_worst, times=times, entry_times=entry_times,
+                step_ms=dict(mean=mean, std=std, host=host), busy=busy,
+                vs_cpu=vs_cpu, wall=wall)
+
+
+def ctp_step_vs_cpu(torch, learner):
+    """One float32 CTP training step (forward, loss at CTP_VS_CPU_FACTOR,
+    backward; no optimizer step) at batch 2 from seeded weights, on the
+    same masks, images, flips and displacement fields, on the card and on
+    the CPU: the loss, every gradient (relative to its layer's largest)
+    and the running statistics at the STEP_* limits; two controls (the
+    entry conv's K4 output zeroed on the card, the card's entry BN
+    gradients zeroed) must fail the gradient limit; the entry BN's scale
+    and bias and the entry kernel's gradients, card and CPU, against a
+    float64 step (the plain versions, run on the card) within
+    CTP_ENTRY_F64_REL of their own max|ref|."""
+    from stroke_prediction_tpu_torch.data.augment import (
+        elastic_deform_batch, hemispheric_flip)
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_GLOBAL, KEY_IMAGES, KEY_LABELS)
+    from stroke_prediction_tpu_torch.models.cae3d import (
+        Cae3DCtp, Dec3D, Enc3DCtp)
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+    from stroke_prediction_tpu_torch.ops.warp import (
+        elastic_fields, elastic_noise)
+    from stroke_prediction_tpu_torch.train.cae_learners import cae_loss
+
+    data, _ = learner.device_data(learner._dataloader_training)
+    nb = CAE_VS_CPU_BATCH
+    labels = data[KEY_LABELS][:nb].cpu()
+    images = data[KEY_IMAGES][:nb].cpu()
+    clinical = data[KEY_GLOBAL][:nb].cpu()
+    noise = elastic_noise(torch.Generator().manual_seed(5), nb, CAE_DHW)
+    flip = torch.tensor([True, False])
+    gen = torch.Generator().manual_seed(3)
+    seeded = Cae3DCtp(Enc3DCtp(CTP_CHANNELS, padding=CTP_PAD, generator=gen),
+                      Dec3D(CTP_CHANNELS, generator=gen))
+    real_dw = cm.conv3x3_bwd_dw
+
+    def entry_dw_zeroed(x, *args):
+        """K4 with the entry conv's (data input) dW and db zeroed."""
+        out = real_dw(x, *args)
+        return (tuple(torch.zeros_like(t) for t in out)
+                if x.shape[-1] == CTP_CHANNELS[0] else out)
+
+    entry_dw_zeroed.launches = 0
+    names = ("conv3x3", "conv3x3_bwd_fused", "conv3x3_bwd_dx",
+             "conv3x3_bwd_dw")
+    real = {n: getattr(cm, n) for n in names}
+    plain = {n: getattr(cm, n + "_plain") for n in names}
+    out, signs = {}, {}
+    # the float64 witness runs the plain versions (the CPU's code) on the
+    # card: float64 convs there take seconds, on the CPU ~55 s
+    for side, dev, dt in (("card float32", "cuda", torch.float32),
+                          ("card float32, entry K4 zeroed", "cuda",
+                           torch.float32),
+                          ("CPU float32", "cpu", torch.float32),
+                          ("float64 (plain, on the card)", "cuda",
+                           torch.float64)):
+        m = copy.deepcopy(seeded).to(dev).train()
+        if dt == torch.float64:
+            m.double()
+        set_cae_dtype(m, dt)
+        swap = (plain if dt == torch.float64 else
+                dict(real, conv3x3_bwd_dw=entry_dw_zeroed)
+                if "zeroed" in side else real)
+        t0 = time.perf_counter()
+        try:
+            for n in names:
+                setattr(cm, n, swap[n])
+            f = flip.to(dev)
+            labs = elastic_deform_batch(
+                hemispheric_flip(labels.to(dev, dt), f),
+                elastic_fields(noise.to(dev, dt)))
+            imgs = hemispheric_flip(images.to(dev, dt), f)
+            dto = m(learner.make_dto(labs, clinical.to(dev, dt),
+                                     images=imgs))
+            lat = dto.latents.gtruth
+            signs[side] = torch.sign(lat.interpolation - lat.lesion).cpu()
+            loss = cae_loss(dto, CTP_VS_CPU_FACTOR)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                loss.backward()
+        finally:
+            for n in names:
+                setattr(cm, n, real[n])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[side] = (float(loss.detach()),
+                     {k: p.grad.cpu().double()
+                      for k, p in m.named_parameters() if p.grad is not None},
+                     {k: b.cpu().double() for k, b in m.named_buffers()},
+                     time.perf_counter() - t0)
+    print("\ncae ctp step seconds: " + ", ".join(
+        f"{side} {v[3]:.2f} s" for side, v in out.items()))
+    f64 = "float64 (plain, on the card)"
+    flips = {side: int((s_ != signs[f64]).sum()) for side, s_ in
+             signs.items() if side != f64}
+    print(f"cae ctp step (factor {CTP_VS_CPU_FACTOR}): latent elements "
+          f"where sign(z_interp - z_lesion), the L1 term's gradient, "
+          f"differs from float64's (of {signs[f64].numel()}): {flips}")
+    card = out["card float32"]
+    out["card float32, entry BN zeroed"] = (card[0], {
+        k: torch.zeros_like(g) if k in CTP_ENTRY[:2] else g
+        for k, g in card[1].items()}) + card[2:]
+    n_params = len(list(seeded.parameters()))
+    if any(len(v[1]) != n_params for v in out.values()):
+        raise AssertionError(f"cae ctp step: {n_params} gradients expected")
+    what = f"cae ctp step (batch {nb})"
+    loss_rel, grad, stats, _ = grad_compare(out, "card float32",
+                                            "CPU float32", cae_layer_of, what)
+    res = dict(loss_rel=loss_rel, grad_rel=grad[0], worst_grad=grad[1],
+               stats_err=stats,
+               card_vs_f64=grad_compare(out, "card float32", f64,
+                                        cae_layer_of, what)[1][0],
+               cpu_vs_f64=grad_compare(out, "CPU float32", f64,
+                                       cae_layer_of, what)[1][0],
+               controls={})
+    entry = {}
+    for k in CTP_ENTRY:
+        ref = out[f64][1][k]
+        entry[k] = {side: rel_err(out[side][1][k], ref)
+                    for side in ("card float32", "CPU float32")}
+    res["entry_vs_f64"] = entry
+    print(f"{what}: the entry's gradients against float64, of their own "
+          f"max|ref| (limit {CTP_ENTRY_F64_REL}): {entry}")
+    for side in ("card float32, entry K4 zeroed",
+                 "card float32, entry BN zeroed"):
+        g = grad_compare(out, side, "CPU float32", cae_layer_of, what)[1]
+        res["controls"][side] = dict(grad_rel=g[0], worst_grad=g[1])
+        if g[0] <= STEP_GRAD_REL:
+            raise AssertionError(f"{what}: the {side} control passes the "
+                                 f"STEP_GRAD_REL limit: {g}")
+    if (loss_rel > STEP_LOSS_REL or grad[0] > STEP_GRAD_REL
+            or stats > STEP_STATS_ATOL):
+        raise AssertionError(f"{what}: card vs CPU beyond the STEP_* "
+                             f"limits: {res}")
+    if any(e["card float32"] > CTP_ENTRY_F64_REL for e in entry.values()):
+        raise AssertionError(f"{what}: the card's entry gradients off "
+                             f"float64: {entry}")
+    return res
+
+
+# The SDM baseline tester on the card: its CLI on three cases with the
+# labels, on one with the U-Net segmentations and on one without the latent
+# resample; a case's four EDTs are one edt_sites call of four volumes, its
+# three measures' EDTs one call a direction of three
+SDM_FOLD = (0, 1, 2)
+SDM_EDT_PER_CASE = {(4, *CAE_DHW): 1, (3, *CAE_DHW): 2}
+SDM_MEASURES_ATOL = 1e-6     # card vs CPU: DC, HD, ASSD
+
+
+def sdm_case_inputs(torch, args, case_index):
+    """A case's (core, penu, lesion, time to treatment) as the SDM CLI reads
+    them -> {device: inputs} for the card and the CPU."""
+    from stroke_prediction_tpu_torch.cli.common import make_dataset
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_GLOBAL, KEY_IMAGES, KEY_LABELS, LABEL_CORE, LABEL_LESION,
+        LABEL_PENU, MOD_UNET_CORE, MOD_UNET_PENU)
+
+    ds = make_dataset(args, [MOD_UNET_CORE, MOD_UNET_PENU],
+                      [LABEL_CORE, LABEL_PENU, LABEL_LESION],
+                      flip_split_id=args.hemisflipid)
+    sample = ds.sample(case_index)
+    clinical = sample[KEY_GLOBAL]
+    ttt = float(clinical[1]) / (float(args.normalize) - float(clinical[0]))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        labels = torch.from_numpy(sample[KEY_LABELS]).to(dev)
+        src = labels if args.groundtruth else torch.from_numpy(
+            sample[KEY_IMAGES]).to(dev)
+        out[dev] = (src[..., 0], src[..., 1], labels[..., 2], ttt)
+    return out
+
+
+def sdm_phase(torch, work):
+    """The SDM baseline tester's CLI (``cli.test_sdm_resampling``, no
+    ``--device``: the card) on three cases with ``--groundtruth 1``, one
+    with ``--groundtruth 0`` and one with ``--downsample 0``: edt_sites
+    launches (SDM_EDT_PER_CASE; no conv kernel), the results lines and the
+    dumps; per case of each run, every edt_sites call on its own masks
+    equal to plain, and the case on the card against the port on the CPU
+    (the thresholded reconstructions equal, DC / HD / ASSD within
+    SDM_MEASURES_ATOL); ms a case to the measures and with the dumps; a
+    case's device time and kernels (torch.profiler), and its edt_sites
+    calls' device time against plain and the bytes bound."""
+    from stroke_prediction_tpu_torch.cli import test_sdm_resampling as sdm_cli
+    from stroke_prediction_tpu_torch.ops import edt as edt_mod
+    from stroke_prediction_tpu_torch.utils.args import get_args_sdm
+
+    runs = (("groundtruth 1", SDM_FOLD, []),
+            ("groundtruth 0", SDM_FOLD[:1], ["--groundtruth", "0"]),
+            ("downsample 0", SDM_FOLD[:1], ["--downsample", "0"]))
+    per_case_edt = sum(SDM_EDT_PER_CASE.values())
+    res = {}
+    for name, fold, extra in runs:
+        what = f"sdm ({name})"
+        base = os.path.join(work, "sdm_" + name.replace(" ", ""))
+        args = get_args_sdm(["--synthetic", "--fold", *map(str, fold),
+                             "--outbasepath", base, *extra])
+        if args.device != "cuda":
+            raise AssertionError(f"{what}: the CLI's default {args.device}")
+        reset_launches()
+        t0 = time.perf_counter()
+        seconds = sdm_cli.infer(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        with open(base + "_sdm_results.txt") as f:
+            lines = f.read().splitlines()
+        print(f"\n{what}: CLI on {len(seconds)} case(s) in {wall:.2f} s; "
+              f"launches {launches}; (case, s to measures, s with dumps) "
+              f"{seconds}; results lines {lines}")
+        if (len(seconds) != len(fold) or len(lines) != len(fold)
+                or launches["edt_sites"] != per_case_edt * len(fold)
+                or any(n for k, n in launches.items() if k != "edt_sites")):
+            raise AssertionError(f"{what}: launches {launches}, expected "
+                                 f"{per_case_edt} edt_sites a case and no "
+                                 f"other kernel")
+        for cid, _, _ in seconds:
+            for part in ("_lesion", "_fuctgt", "_core", "_penu"):
+                if not os.path.getsize(f"{base}_{cid}{part}.nii.gz"):
+                    raise AssertionError(f"{what}: empty {part} dump")
+        checks = []
+        for cid, _, _ in seconds:
+            inputs = sdm_case_inputs(torch, args, cid)
+            card_in, cpu_in = inputs["cuda"], inputs["cpu"]
+            got = []
+            calls, sites, _ = cae_recorded(torch, lambda: got.append(
+                sdm_cli.sdm_case(*card_in, bool(args.downsample))))
+            (card_out, card_m), = got
+            cpu_out, cpu_m = sdm_cli.sdm_case(*cpu_in, bool(args.downsample))
+            if calls or sites != SDM_EDT_PER_CASE:
+                raise AssertionError(f"{what}: case {cid}: calls {calls}, "
+                                     f"edt_sites {sites}")
+            masks = [(card_out[i].cpu() > 0, cpu_out[i] > 0) for i in (1, 2)]
+            masks.append((card_out[0].cpu() < 0, cpu_out[0] < 0))
+            m_err = max(0.0 if a == b else abs(a - b)
+                        for u, v in zip(card_m, cpu_m) for a, b in zip(u, v))
+            sdm_err = max(rel_err(card_out[i].cpu(), cpu_out[i])
+                          for i in range(6))
+            same = all(torch.equal(a, b) for a, b in masks)
+            checks.append(dict(case=cid, masks_equal=same, measures_err=m_err,
+                               sdm_rel_err=sdm_err, measures=card_m))
+            print(f"{what}: case {cid}: every edt_sites call {sites} equal "
+                  f"to plain; card vs CPU: thresholded masks equal {same}, "
+                  f"DC/HD/ASSD max|err| {m_err:.3e} (limit "
+                  f"{SDM_MEASURES_ATOL}), SDM values {sdm_err:.3e} of "
+                  f"max|ref|; [DC, HD, ASSD] x (lesion, core, penumbra) "
+                  f"{card_m}")
+            if not same or m_err > SDM_MEASURES_ATOL:
+                raise AssertionError(f"{what}: case {cid}: card and CPU "
+                                     f"differ: {checks[-1]}")
+        after = [s for s in seconds[1:]] or seconds
+        res[name] = dict(
+            launches=launches, cases=checks, wall=wall,
+            to_measures_ms=1e3 * sum(s[1] for s in after) / len(after),
+            with_dumps_ms=1e3 * sum(s[2] for s in after) / len(after))
+
+    # one case of the first run: device time and kernels, and its
+    # edt_sites calls (kept) timed against plain and the bound
+    args = get_args_sdm(["--synthetic", "--fold", "0"])
+    case_in = sdm_case_inputs(torch, args, SDM_FOLD[0])["cuda"]
+    kept, real = [], edt_mod.edt_sites
+
+    def keep(mask):
+        kept.append(mask.clone())
+        return real(mask)
+
+    keep.launches = 0
+    edt_mod.edt_sites = keep
+    try:
+        sdm_cli.sdm_case(*case_in)
+    finally:
+        edt_mod.edt_sites = real
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sdm_cli.sdm_case(*case_in)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy, n_kernels, groups = trace_kernels(
+        torch, lambda: sdm_cli.sdm_case(*case_in), "sdm case profile",
+        wall_ms)
+    if not busy:
+        raise AssertionError("sdm case profile: no device time in the trace")
+    # each call traced on its own: device_ms counts a kernel by its calls
+    timed_calls = [device_ms(torch, lambda m=m: real(m), 10) for m in kept]
+    k5_ms = sum(t[0] for t in timed_calls)
+    k5_kernels = sum(t[1] for t in timed_calls)
+    plain_ms = cuda_ms(torch, lambda: [edt_mod.edt_sites_plain(m)
+                                       for m in kept], 3)
+    bounds = [edt_bound(tuple(m.shape)) for m in kept]
+    bound = sum(b[0] for b in bounds)
+    k5 = dict(launches=len(kept), ms=k5_ms, kernels=k5_kernels,
+              plain_ms=plain_ms, bound_ms=bound, bound_by=bounds[0][1],
+              shapes=[tuple(m.shape) for m in kept])
+    print(f"sdm: per case {len(kept)} edt_sites calls at {k5['shapes']}: "
+          f"device {k5_ms:.4f} ms in {k5_kernels:g} kernels, plain "
+          f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({bounds[0][1]}; "
+          f"{100 * bound / k5_ms:.1f}% of it); the case: host {wall_ms:.2f} "
+          f"ms, device busy {busy:.3f} ms in {n_kernels} kernels")
+    return dict(runs=res, k5=k5, case=dict(wall_ms=wall_ms, busy_ms=busy,
+                                           kernels=n_kernels))
+
+
 # torch.cuda._sleep's kernel: launched just before and just after each EDT
 # call of a marked trace, it brackets that call's device work
 EDT_MARK = "spin_kernel"
@@ -3050,16 +3546,26 @@ def main():
     if log.exists():
         print(log.read_text().strip())
 
-    k1 = kernel_phase(torch)
-    k5 = edt_phase(torch)
-    train_k, s_err = train_kernel_phase(torch)
+    phase_s = {}
+
+    def timed(name, phase, *args):
+        t_phase = time.perf_counter()
+        out = phase(torch, *args)
+        phase_s[name] = round(time.perf_counter() - t_phase, 1)
+        return out
+
+    k1 = timed("kernels (tester)", kernel_phase)
+    k5 = timed("edt", edt_phase)
+    train_k, s_err = timed("kernels (training)", train_kernel_phase)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        t_launches, case_ms, edt_case = slice_phase(torch, work)
-        cae = cae_phase(torch, work)
-        launches, step_ms, learner = train_phase(torch, work)
-        step = step_vs_cpu(torch, learner)
-        cae_tr = cae_train_phase(torch, work)
-        cae_ln = cae_learners_phase(torch, work, cae_tr)
+        t_launches, case_ms, edt_case = timed("tester", slice_phase, work)
+        cae = timed("cae tester", cae_phase, work)
+        launches, step_ms, learner = timed("train", train_phase, work)
+        step = timed("train step vs cpu", step_vs_cpu, learner)
+        cae_tr = timed("cae train", cae_train_phase, work)
+        cae_ln = timed("cae learners", cae_learners_phase, work, cae_tr)
+        ctp = timed("cae ctp", cae_ctp_phase, work)
+        sdm = timed("sdm", sdm_phase, work)
 
     def per_step(key, dtype="bfloat16"):
         """Sums over the layers whose route runs ``key`` in one step."""
@@ -3114,6 +3620,32 @@ def main():
                        f"its calls; max_abs_err: every call of one step on "
                        f"its own inputs vs plain; bound_ms in bf16 or "
                        f"3xTF32; launches: the CLI run's {cae_tr['steps']}"}
+
+    def ctp_use(key):
+        """A kernel's use on the CTP training path: its launches in the CLI
+        run and a step, per step in each type the layers' sums, and at
+        the entry conv (C_in 3) its own times where it runs there."""
+        use = {"launches": ctp["launches"][wrapper_of[key]],
+               "launches_per_step": ctp["per_step"][key],
+               **{dname: dict({f: ctp["times"][dname][key][f] for f in (
+                   "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                   "gflop")}, max_abs_err=ctp["recorded"][dname][key])
+                  for dname in ("bfloat16", "float32")},
+               "per": f"one CTP training step (batch {CAE_TRAIN_BATCH}, "
+                      f"channels 3 16 24 32 100 200 1, 28x128x128 masks "
+                      f"with CBV and TTD cropped from 68x168x168): each "
+                      f"layer's time times its calls; max_abs_err: every "
+                      f"call of one step on its own inputs vs plain; "
+                      f"launches: the CLI run's {ctp['steps']}"}
+        entry = {dname: {f: t[key][f] for f in ("ms", "plain_ms",
+                                                 "library_ms", "bound_ms",
+                                                 "bound_by")}
+                 for dname, t in ctp["entry_times"].items() if key in t}
+        if entry:
+            use["entry_conv_c_in_3"] = dict(entry, per="the entry conv "
+                                            "(3 -> 16, 4x28x128x128, once a "
+                                            "step per encode: x3)")
+        return use
 
     def learner_use(key, kind):
         """A kernel's use on a CAE learner's path (step learning or phase
@@ -3190,14 +3722,16 @@ def main():
                                "calls; bound_ms in 3xTF32"},
              cae_train=cae_train_use("K1"),
              cae_step=learner_use("K1", "step"),
-             cae_prediction=learner_use("K1", "prediction")),
+             cae_prediction=learner_use("K1", "prediction"),
+             cae_ctp=ctp_use("K1")),
         dict({"name": "conv3x3_bwd_fused", "route": "cuda",
               "source": csrc + "conv3x3_bwd_tc.cu", "replaces": s2d + "491",
               "launches": launches["conv3x3_bwd_fused"]}, **per_step("K2"),
              source_float32=csrc + "conv3x3_bwd_f32_tc.cu", per=step_per,
              float32=dict(per_step("K2", "float32"), per=f32_step_per),
              cae_train=cae_train_use("K2"),
-             cae_prediction=learner_use("K2", "prediction")),
+             cae_prediction=learner_use("K2", "prediction"),
+             cae_ctp=ctp_use("K2")),
         dict({"name": "conv3x3_bwd_dx", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dx_tc.cu",
               "replaces": s2d + "589",
@@ -3206,7 +3740,8 @@ def main():
              float32=dict(per_step("K3", "float32"), per=f32_step_per),
              cae_train=cae_train_use("K3"),
              cae_step=learner_use("K3", "step"),
-             cae_prediction=learner_use("K3", "prediction")),
+             cae_prediction=learner_use("K3", "prediction"),
+             cae_ctp=ctp_use("K3")),
         dict({"name": "conv3x3_bwd_dw", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dw_tc.cu",
               "replaces": s2d + "623",
@@ -3214,7 +3749,8 @@ def main():
              source_float32=csrc + "conv3x3_bwd_dw_f32_tc.cu", per=step_per,
              float32=dict(per_step("K4", "float32"), per=f32_step_per),
              cae_train=cae_train_use("K4"),
-             cae_prediction=learner_use("K4", "prediction")),
+             cae_prediction=learner_use("K4", "prediction"),
+             cae_ctp=ctp_use("K4")),
         {"name": "edt_sites", "route": "cuda",
          "source": csrc + "edt_sites.cu",
          "replaces": "stroke_prediction_tpu/ops/edt.py:80",
@@ -3263,6 +3799,25 @@ def main():
              "per": f"the {kind} CLI run's validation batches; every call "
                     f"of one batch on its own masks vs plain (equal)"}
              for kind in ("step", "prediction")},
+         "cae_ctp": {"launches": ctp["launches"]["edt_sites"],
+                     "launches_per_validation_batch": CAE_EDT_PER_CASE,
+                     "max_abs_err": 0.0,
+                     "per": "the CTP CLI run's validation batches; every "
+                            "call of one batch on its own masks vs plain "
+                            "(equal)"},
+         "sdm": {"launches": sum(r["launches"]["edt_sites"]
+                                 for r in sdm["runs"].values()),
+                 "launches_per_case": sdm["k5"]["launches"],
+                 "max_abs_err": 0.0,
+                 **{key: sdm["k5"][key] for key in (
+                     "ms", "plain_ms", "bound_ms", "bound_by")},
+                 "library_ms": None,
+                 "per": f"one SDM tester case: the edt_sites calls at "
+                        f"{sdm['k5']['shapes']} (the SDM's four EDTs, the "
+                        f"three measures' two directions), device time; "
+                        f"max_abs_err: every call of the CLI runs' cases on "
+                        f"its own masks vs plain (equal); launches: the "
+                        f"three CLI runs' {len(SDM_FOLD) + 2} cases"},
          "single_pass": {"name": "edt_parabola",
                          "launches": launches["edt_parabola"],
                          "ms": k5[(3584, 64)]["ms"],
@@ -3307,6 +3862,27 @@ def main():
                           f" bound {t['bound_ms']:.4f})"
                           for k, t in r["times"].items() if t["launches"])
               + f"; card vs CPU float32 step {cae_ln['vs_cpu'][kind]}")
+    print(f"CTP CAE training ms per step (card, bfloat16, batch "
+          f"{CAE_TRAIN_BATCH}, mean of {CAE_TIMED_STEPS} back to back, CUDA "
+          f"events): {ctp['step_ms']['mean']:.3f} (std "
+          f"{ctp['step_ms']['std']:.3f}, host {ctp['step_ms']['host']:.3f}); "
+          f"device busy {ctp['busy']['busy_ms']:.3f} ms in "
+          f"{ctp['busy']['kernels']} kernels a step; K1-K4 per step "
+          + "; ".join(f"{k} x{t['launches']} {t['ms']:.4f} ms (plain "
+                      f"{t['plain_ms']:.4f}, cuDNN {t['library_ms']:.4f}, "
+                      f"bound {t['bound_ms']:.4f})"
+                      for k, t in ctp["times"]["bfloat16"].items()
+                      if t["launches"])
+          + f"; the entry conv (C_in 3) {ctp['entry_times']}; card vs CPU "
+          f"float32 step {ctp['vs_cpu']}")
+    print("SDM tester per case (card): " + "; ".join(
+        f"{name}: {r['to_measures_ms']:.2f} ms to the measures, "
+        f"{r['with_dumps_ms']:.2f} ms with the dumps"
+        for name, r in sdm["runs"].items())
+        + f"; one case device busy {sdm['case']['busy_ms']:.3f} ms in "
+        f"{sdm['case']['kernels']} kernels (host {sdm['case']['wall_ms']:.2f}"
+        f" ms); edt_sites {sdm['k5']}")
+    print(f"phase seconds: {phase_s}")
     print(f"CAE learners' visual forward vs one forward a step: "
           f"{cae_ln['vis']}; U-Net bfloat16 step card vs CPU "
           f"{step['bfloat16']}")

@@ -13,9 +13,10 @@ offsets.  The flip and the elastic deformation are split the same way:
 which take explicit flip masks and displacement fields;
 :func:`random_flip_mask` and :func:`ops.warp.elastic_noise` the samplers.
 The CAE learners' draws: :func:`random_cae_augment` (phase 1 and step
-learning: the labels alone) and :func:`random_cae_augment_images` (phase 2:
-the images flipped and deformed with the labels, by the same mask and
-fields).
+learning: the labels alone), :func:`random_cae_augment_ctp` (the CTP
+learner: the images flipped with the labels by the same mask, the labels
+alone deformed) and :func:`random_cae_augment_images` (phase 2: the images
+flipped and deformed with the labels, by the same mask and fields).
 
 Layouts: batch volumes ``(B, D, H, W, C)``; patch and pad are given in the
 reference's (x, y, z) = (W, H, D) order.
@@ -127,4 +128,16 @@ def random_cae_augment_images(generator: torch.Generator,
     labels by the same mask and per-sample fields -> (images, labels)."""
     flip, fields = _cae_draws(generator, labels)
     return (elastic_deform_batch(hemispheric_flip(images, flip), fields),
+            elastic_deform_batch(hemispheric_flip(labels, flip), fields))
+
+
+def random_cae_augment_ctp(generator: torch.Generator, images: torch.Tensor,
+                           labels: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CTP learner's training augmentation: the same draws as
+    :func:`random_cae_augment`; the (padded) images flipped with the labels
+    by the same mask, the labels alone deformed (the JAX learner's
+    ``AUGMENT_IMAGES = False``) -> (images, labels)."""
+    flip, fields = _cae_draws(generator, labels)
+    return (hemispheric_flip(images, flip),
             elastic_deform_batch(hemispheric_flip(labels, flip), fields))

@@ -7,8 +7,10 @@ models/cae3d.py).
   ``core + t * (penu - core)``.
 * :class:`Enc3DStep` — adds the clinical-scalar head that regresses the
   interpolation step when no time to treatment is given.
+* :class:`Enc3DCtp` — encodes each mask concatenated with the CBV and TTD
+  images (cropped back from their padding) on the channel axis.
 * :class:`Dec3D` — the 14-layer mirrored decoder.
-* :class:`Cae3D` — enc ∘ dec.
+* :class:`Cae3D` / :class:`Cae3DCtp` — enc ∘ dec.
 
 The channel list ``[in, origin, down2x, down4x, down8x, fc, ..., classes]``
 is the ``--channelscae`` contract.  Structures (core, penumbra, lesion,
@@ -20,8 +22,10 @@ transposed convs are cuDNN's, the 1^3 convs matmuls.  ``train()`` uses BN
 batch statistics (the running ones chain over the structures' passes, in
 call order), ``eval()`` the running ones.  The volumes run in
 ``compute_dtype`` (float32 or bfloat16; float64 on the CPU) from the
-encoder's and the decoder's entry on; parameters, BN statistics and the
-sigmoid's output stay float32.
+encoder's and the decoder's entry on (the encoder's entry BN takes its
+moments of the input as given, as the JAX package's ``BatchNorm`` does of
+its float32 input, and the entry conv its cast); parameters, BN statistics
+and the sigmoid's output stay float32.
 """
 
 from __future__ import annotations
@@ -98,7 +102,10 @@ class EncoderStack(nn.Module):
             for ci, co, kw in layers])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.compute_dtype)
+        # the entry BN's moments of x as given (float32: the mask, or CBV
+        # and TTD, whose bfloat16 rounding would reach them), then the cast
+        # to compute_dtype, as layers.py ``BatchNorm`` does
+        self.blocks[0].conv_dtype = self.compute_dtype
         for block in self.blocks:
             x = block(x)
         return x
@@ -242,6 +249,47 @@ class Enc3DStep(Enc3D):
         return step
 
 
+class Enc3DCtp(Enc3D):
+    """The CAE encoder over each mask concatenated with the CBV and TTD
+    images on the channel axis (cae3d.py ``Enc3DCtp``): ``given.inputs.core``
+    / ``.penu`` hold the images padded by ``padding`` (D, H, W), cropped
+    back to the masks' size here.  Gtruth branch only; channels[0] (the
+    entry conv's C_in) must be at least 3."""
+
+    def __init__(self, channels: Sequence[int], n_ch_global: int = 5,
+                 alpha: float = 1.0,
+                 padding: Tuple[int, int, int] = (20, 20, 20),
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: torch.dtype = torch.float32):
+        if channels[0] <= 2:
+            raise ValueError("At least 3 channels required")
+        self.padding = tuple(padding)
+        super().__init__(channels, n_ch_global, alpha, generator,
+                         compute_dtype)
+
+    def forward(self, dto: CaeDto,
+                branches: CaeBranches = BRANCH_GTRUTH) -> CaeDto:
+        pd, ph, pw = self.padding
+        given = dto.given_variables
+
+        def crop(v):
+            return v[:, pd:v.shape[1] - pd, ph:v.shape[2] - ph,
+                     pw:v.shape[3] - pw]
+
+        cbv, ttd = crop(given.inputs.core), crop(given.inputs.penu)
+        latents = dto.latents
+        if branches.gtruth:
+            core, penu, lesion = self._encode_many([
+                None if m is None else torch.cat([m, cbv, ttd], dim=-1)
+                for m in (given.gtruth.core, given.gtruth.penu,
+                          given.gtruth.lesion)])
+            latents = replace(latents, gtruth=replace(
+                latents.gtruth, core=core, penu=penu, lesion=lesion,
+                interpolation=interpolate_latent(
+                    core, penu, self._get_step(dto))))
+        return replace(dto, latents=latents)
+
+
 class Dec3D(nn.Module):
     """The CAE decoder over the given branches (cae3d.py ``Dec3D``)."""
 
@@ -294,3 +342,12 @@ class Cae3D(nn.Module):
     def forward(self, dto: CaeDto,
                 branches: CaeBranches = BRANCH_GTRUTH) -> CaeDto:
         return self.dec(self.enc(dto, branches), branches)
+
+
+class Cae3DCtp(Cae3D):
+    """Enc3DCtp ∘ Dec3D (cae3d.py ``Cae3DCtp``)."""
+
+    @property
+    def config(self) -> dict:
+        return dict(super().config, kind="cae3d_ctp",
+                    padding=list(self.enc.padding))

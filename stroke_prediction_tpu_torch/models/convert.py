@@ -12,8 +12,10 @@ mapping is by name only.  A BN -> conv block (``BnConvActBlock_{j}``):
 U-Net (``unet3d``): ``UnetBlock_{i}/BnConvActBlock_{j}`` ->
 ``blocks.{i}.layers.{j}``, ``Conv3d_{k}`` -> ``head.{k}``.
 
-CAE (``cae3d``; ``enc3d`` / ``enc3d_step`` are the encoder alone, its
-tree without the ``enc/`` level and its keys without ``enc.``):
+CAE (``cae3d``, and ``cae3d_ctp``, whose tree is ``cae3d``'s with the
+entry conv's C_in the mask's and the images' channels; ``enc3d`` /
+``enc3d_step`` are the encoder alone, its tree without the ``enc/`` level
+and its keys without ``enc.``):
 
   enc/encoder/BnConvActBlock_{j}  -> enc.encoder.blocks.{j}
   enc/{reduce1,reduce2,step_head}/{kernel,bias} -> enc.<same>  (step)
@@ -97,12 +99,13 @@ def _encoder_key_map(jax_pre, pre, step: bool) -> KeyMap:
 
 
 def _cae_key_map(config: Dict[str, Any]) -> KeyMap:
-    """The CAE tree of a ``cae3d``, ``enc3d`` or ``enc3d_step`` header."""
+    """The CAE tree of a ``cae3d``, ``cae3d_ctp``, ``enc3d`` or
+    ``enc3d_step`` header."""
     kind = config["kind"]
     if kind in ("enc3d", "enc3d_step"):
         yield from _encoder_key_map((), "", kind == "enc3d_step")
         return
-    if kind != "cae3d":
+    if kind not in ("cae3d", "cae3d_ctp"):
         raise NotImplementedError(f"model kind {kind!r}: not ported yet")
     yield from _encoder_key_map(("enc",), "enc.", bool(config.get("step")))
     dec, pre = ("dec", "decoder"), "dec.decoder."
@@ -195,8 +198,8 @@ def save_unet_checkpoint(path: str, model) -> None:
 
 
 def save_cae_checkpoint(path: str, model) -> None:
-    """Write the port's ``Cae3D`` as a ``.model`` file that the JAX
-    package's ``load_model`` / CAE testers read (header as
+    """Write the port's ``Cae3D`` or ``Cae3DCtp`` as a ``.model`` file that
+    the JAX package's ``load_model`` / CAE testers read (header as
     ``cae_learners.py`` writes it)."""
     save_checkpoint(path, state_to_jax(model.state_dict(), model.config),
                     model.config)

@@ -1,7 +1,7 @@
 """Model reconstruction from checkpoint config headers (port of
 models/factory.py): the kinds ``unet3d``, ``cae3d`` (``step`` false or
-true), ``enc3d`` and ``enc3d_step``.  ``cae3d_ctp`` and ``large_unet3d``
-are not ported yet."""
+true), ``cae3d_ctp`` (with its ``padding``), ``enc3d`` and ``enc3d_step``.
+``large_unet3d`` is not ported yet."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import torch
 
 from stroke_prediction_tpu_torch.device import resolve_device
 from stroke_prediction_tpu_torch.models.cae3d import (
-    Cae3D, Dec3D, Enc3D, Enc3DStep)
+    Cae3D, Cae3DCtp, Dec3D, Enc3D, Enc3DCtp, Enc3DStep)
 from stroke_prediction_tpu_torch.models.convert import state_from_jax
 from stroke_prediction_tpu_torch.models.unet3d import Unet3D
 from stroke_prediction_tpu_torch.utils.checkpoint import load_checkpoint
@@ -25,6 +25,9 @@ def build_model(config: Dict[str, Any]) -> torch.nn.Module:
     if kind == "cae3d":
         enc_cls = Enc3DStep if config.get("step") else Enc3D
         return Cae3D(enc=enc_cls(ch, ng), dec=Dec3D(ch, ng))
+    if kind == "cae3d_ctp":
+        pad = tuple(config.get("padding", (20, 20, 20)))
+        return Cae3DCtp(enc=Enc3DCtp(ch, ng, padding=pad), dec=Dec3D(ch, ng))
     if kind in ("enc3d", "enc3d_step"):
         return (Enc3DStep if kind == "enc3d_step" else Enc3D)(ch, ng)
     raise NotImplementedError(f"model kind {kind!r}: not ported yet")

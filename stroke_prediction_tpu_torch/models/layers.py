@@ -213,7 +213,11 @@ class BnConvActBlock(nn.Module):
     table, which is exact at the planes whose taps read the z padding) and
     the activation fused into K1 (:class:`Conv3x3Fn`).  Stride 2: BN applied
     to the input, whose zero padding then holds BN outputs, so it cannot
-    fold; then :class:`Conv3d`."""
+    fold; then :class:`Conv3d`.  ``conv_dtype``, where set, is the type the
+    conv runs in: BN's moments are taken of the input as given and the
+    input is cast after them (the JAX ``BatchNorm`` of an encoder's entry,
+    ``x.astype(float32)`` for the moments, ``x.astype(compute_dtype)`` for
+    the output)."""
 
     def __init__(self, in_features: int, features: int,
                  strides: Tuple[int, int, int] = (1, 1, 1), padding="VALID",
@@ -226,11 +230,15 @@ class BnConvActBlock(nn.Module):
             raise NotImplementedError(f"padding {padding}: BN folds into "
                                       f"z-SAME or VALID convs only")
         self.act, self.act_param = act, act_param
+        self.conv_dtype: Optional[torch.dtype] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.conv.strides != (1, 1, 1):
-            return self.conv(self.bn(x), self.act, self.act_param)
         s, t = self.bn.affine(x)
+        if self.conv_dtype is not None:
+            x = x.to(self.conv_dtype)
+        if self.conv.strides != (1, 1, 1):
+            return self.conv(x * s.to(x.dtype) + t.to(x.dtype), self.act,
+                             self.act_param)
         if self.conv.pads[0]:
             kernel, bias = fold_bn_zsame(self.conv.kernel, self.conv.bias,
                                          s, t, x.shape[1])

@@ -110,27 +110,37 @@ def parabola_pass(f2: torch.Tensor, axis: int,
     return torch.movedim(out.reshape(lead + (moved.shape[-1],)), -1, axis)
 
 
+def _squared_edt(sites: torch.Tensor, axes: Sequence[int],
+                 line_pass: Callable[[torch.Tensor], torch.Tensor]
+                 ) -> torch.Tensor:
+    first, *rest = axes
+    d = _nearest_site_dist1d(sites, first)
+    f2 = torch.clamp(d * d, max=_BIG)
+    for ax in rest:
+        f2 = parabola_pass(f2, ax, line_pass)
+    return f2
+
+
 def separable_edt(sites: torch.Tensor, axes: Sequence[int],
                   line_pass: Callable[[torch.Tensor], torch.Tensor]
                   ) -> torch.Tensor:
     """The transform as a composition: the nearest-site scan along
     ``axes[0]``, the clamp, one :func:`parabola_pass` with ``line_pass``
     along each further axis, the sqrt."""
-    first, *rest = axes
-    d = _nearest_site_dist1d(sites, first)
-    f2 = torch.clamp(d * d, max=_BIG)
-    for ax in rest:
-        f2 = parabola_pass(f2, ax, line_pass)
-    return torch.sqrt(f2)
+    return torch.sqrt(_squared_edt(sites, axes, line_pass))
 
 
 def edt_sites_plain(sites: torch.Tensor,
                     axes: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Plain version of :func:`edt_sites` (any ``axes``; by default the
-    last three) on any device."""
+    last three) on any device.  The square root is taken in float64 and
+    rounded once to float32, so it is correctly rounded on every device,
+    as the kernels' ``sqrtf`` and XLA's are (a CPU build of torch rounds
+    its float32 sqrt one ulp off for some integers, e.g. 267)."""
     if axes is None:
         axes = tuple(range(sites.ndim - 3, sites.ndim))
-    return separable_edt(sites, axes, edt_parabola_plain)
+    f2 = _squared_edt(sites, axes, edt_parabola_plain)
+    return torch.sqrt(f2.double()).to(f2.dtype)
 
 
 def edt_sites(sites: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,11 @@ interpolation against the lesion and of the core and penumbra
 reconstructions, HD / ASSD on validation steps.  Console line, loss curve
 and the 6-sample x 15-panel time-sweep grid as in the JAX learner.
 
+The CTP learner (``inputs_from_images``, an ``Enc3DCtp`` CAE): the same
+step with the padded CBV and TTD images in the inputs branch, which the
+encoder concatenates with each mask; the images are flipped with the labels
+and not deformed.
+
 Step learning: the same step on an ``Enc3DStep`` CAE whose step head
 regresses the interpolation step from the clinical vector (in training and
 validation; the grid's fixed hours give it), loss
@@ -42,7 +47,7 @@ import numpy as np
 import torch
 
 from stroke_prediction_tpu_torch.data.augment import (
-    random_cae_augment, random_cae_augment_images)
+    random_cae_augment, random_cae_augment_ctp, random_cae_augment_images)
 from stroke_prediction_tpu_torch.data.dataset import (
     KEY_GLOBAL, KEY_IMAGES, KEY_LABELS)
 from stroke_prediction_tpu_torch.eval.metrics import (
@@ -103,8 +108,10 @@ class CaeReconstructionLearner(Learner):
 
     def __init__(self, dataloader_training, dataloader_validation, cae_model,
                  optimizer, lr_schedule, n_epochs,
-                 normalization_hours_penumbra: float = 10, **kw):
+                 normalization_hours_penumbra: float = 10,
+                 inputs_from_images: bool = False, **kw):
         self._norm_hours = normalization_hours_penumbra
+        self._inputs_from_images = inputs_from_images
         super().__init__(dataloader_training, dataloader_validation,
                          cae_model, optimizer, lr_schedule, n_epochs, **kw)
 
@@ -128,13 +135,21 @@ class CaeReconstructionLearner(Learner):
 
     def make_dto(self, labels, clinical, step=None, images=None):
         """The step is the case's time to treatment, or fixed ``step``
-        hours; ``images`` are read by phase 2 only."""
-        return cae_dto_from_batch(None, labels, clinical, step,
-                                  self._norm_hours)
+        hours; ``images`` fill the inputs branch with
+        ``inputs_from_images`` (the CTP encoder's CBV and TTD)."""
+        return cae_dto_from_batch(
+            images if self._inputs_from_images else None, labels, clinical,
+            step, self._norm_hours,
+            inputs_from_images=self._inputs_from_images)
 
     def augment(self, batch):
         """The training batch with its labels after the random flip and
-        elastic deformation."""
+        elastic deformation, and with ``inputs_from_images`` its images
+        flipped by the same mask."""
+        if self._inputs_from_images:
+            images, labels = random_cae_augment_ctp(
+                self._generator, batch[KEY_IMAGES], batch[KEY_LABELS])
+            return dict(batch, **{KEY_IMAGES: images, KEY_LABELS: labels})
         return dict(batch, **{KEY_LABELS: random_cae_augment(
             self._generator, batch[KEY_LABELS])})
 

@@ -1,10 +1,10 @@
 """CLI flags (port of utils/args.py: the U-Net parsers, the CAE training
-parsers and the shape-testing parser).
+parsers, the shape-testing parser and the SDM baseline's parser).
 
 The same flags and defaults as the JAX package's ``ExpParser`` /
-``UnetParser`` / ``CAEParser`` / ``get_args_shape_training`` /
-``get_args_step_training`` / ``get_args_shape_prediction_training`` /
-``get_args_shape_testing``, plus ``--device {cuda,cpu}``
+``UnetParser`` / ``CAEParser`` / ``SDMParser`` / ``get_args_shape_training``
+/ ``get_args_step_training`` / ``get_args_shape_prediction_training`` /
+``get_args_shape_testing`` / ``get_args_sdm``, plus ``--device {cuda,cpu}``
 (default ``cuda``).
 ``--dtype`` picks the training compute type (bfloat16 by default; the tester
 runs float32) and ``--distances`` computes HD/ASSD on training batches too.
@@ -127,6 +127,27 @@ class CAEParser(ExpParser):
         self.add_argument("--steplearning", action="store_true",
                           default=False,
                           help="Also learn interpolation step from clinical data")
+
+
+class SDMParser(ExpParser):
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.add_argument("unet", type=str, nargs="?",
+                          default="/tmp/unet.model",
+                          help="Path to model of Segmentation Unet")
+        self.add_argument("--channels", type=int, nargs="+",
+                          default=[2, 16, 32, 64, 32, 16, 32, 2])
+        self.add_argument("--downsample", type=int, default=1,
+                          help="Downsampling to CAE latent representation size")
+        self.add_argument("--groundtruth", type=int, default=1,
+                          help="Use groundtruth instead of UNet segmentations")
+        self.add_argument("--visualinspection", type=int, default=0)
+        self.add_argument("--outbasepath", type=str, default="/tmp/sdm")
+        self.add_argument("--normalize", type=int, default=10)
+
+
+def get_args_sdm(argv: Optional[Sequence[str]] = None):
+    return SDMParser().parse_args(argv)
 
 
 def get_args_unet_training(argv: Optional[Sequence[str]] = None):

@@ -135,10 +135,58 @@ def test_port_unet_checkpoint_runs_in_jax(tmp_path):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("kind", ["cae3d_ctp", "large_unet3d"])
+@pytest.mark.parametrize("kind", ["large_unet3d"])
 def test_factory_refuses_unported_kinds(kind):
     with pytest.raises(NotImplementedError):
         build_model({"kind": kind, "channels": [1, 2, 3, 4, 5, 6, 1]})
+
+
+def test_factory_loads_a_jax_cae3d_ctp_checkpoint(tmp_path):
+    """A ``cae3d_ctp`` checkpoint written by the JAX package (random weights
+    and BN statistics, padding (2, 3, 4)) rebuilds in the port's factory as
+    a ``Cae3DCtp`` with that padding and gives JAX's latents and
+    reconstructions (evaluation mode, 1e-5)."""
+    from stroke_prediction_tpu.core.dto import BRANCH_GTRUTH
+    from stroke_prediction_tpu.inference import (
+        cae_dto_from_batch as jax_dto)
+    from stroke_prediction_tpu.models import cae3d as jax_cae3d
+    from stroke_prediction_tpu_torch.inference import cae_dto_from_batch
+    from stroke_prediction_tpu_torch.models.cae3d import Cae3DCtp
+
+    from test_torch_unet import _random_variables
+
+    channels, pad = (3, 2, 3, 4, 5, 6, 1), (2, 3, 4)
+    config = {"kind": "cae3d_ctp", "channels": list(channels),
+              "n_ch_global": 5, "step": False, "padding": list(pad)}
+    rs = np.random.RandomState(4)
+    labels = (rs.rand(1, 28, 64, 64, 3) > 0.6).astype(np.float32)
+    images = rs.uniform(0, 3, (1, 32, 70, 72, 2)).astype(np.float32)
+    clinical = np.array([[2.5, 3.0, 0.2, 0.4, 0.6]], np.float32)
+    model = jax_cae3d.Cae3DCtp(
+        enc=jax_cae3d.Enc3DCtp(channels=channels, padding=pad),
+        dec=jax_cae3d.Dec3D(channels=channels))
+    dto = jax_dto(jnp.asarray(images), jnp.asarray(labels),
+                  jnp.asarray(clinical), inputs_from_images=True)
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), dto,
+                                               BRANCH_GTRUTH, False))
+    variables = _random_variables(shapes, np.random.RandomState(6))
+    want = model.apply(variables, dto, BRANCH_GTRUTH, False)
+    path = str(tmp_path / "jax_ctp.model")
+    jax_checkpoint.save_checkpoint(path, variables, config)
+
+    port, got_config = load_model(path, "cpu")
+    assert got_config == config and isinstance(port, Cae3DCtp)
+    assert port.enc.padding == pad
+    with torch.inference_mode():
+        got = port(cae_dto_from_batch(
+            torch.from_numpy(images), torch.from_numpy(labels),
+            torch.from_numpy(clinical), inputs_from_images=True))
+    for part in ("latents", "reconstructions"):
+        for f in ("core", "penu", "lesion", "interpolation"):
+            np.testing.assert_allclose(
+                getattr(getattr(got, part).gtruth, f).numpy(),
+                np.asarray(getattr(getattr(want, part).gtruth, f)),
+                atol=1e-5, rtol=0, err_msg=f"{part} {f}")
 
 
 def test_bare_3x3_conv_refused():
