@@ -71,7 +71,9 @@ non-zero without one.  Phases:
    the measures, its first and last step required to differ;
 5. training phase: the port's training CLI at the reference width and
    patch in its default bfloat16 on eight full-size synthetic cases (six
-   train, two validate, batch 6, three epochs); the launch counts of K1-K5
+   train, two validate, batch 6, three epochs, ``--profile``: its trace of
+   the second epoch holds the ``train_step`` range and K1); the launch
+   counts of K1-K5
    per step against the fused / split rule; finite losses, the artifacts,
    the best-valid model loaded and run; then 30 more training steps back
    to back (mean and spread of ms per step) and a torch.profiler trace of
@@ -113,8 +115,9 @@ non-zero without one.  Phases:
    ``_cae1.model``'s, the step learner's BN statistics moved,
    ``_cae2.model`` the phase-1 CAE byte for byte; K1-K4 per layer of a
    step beside cuDNN; 20 timed steps and a profile of one each; a float32
-   step of each on the card against the CPU with a control that must fail
-   (a float64 CPU step, where it fails, says which side is off); the
+   step of each from its trained weights on the card against a float64 CPU
+   step, with a control that must fail (the CPU's float32 step printed
+   beside: the folded BN's kernel gradient can be ill-conditioned there); the
    three CAE learners' visual forward (ten
    reconstructions of one case) against one forward a step.
 9. CTP CAE phase: the CTP-conditioned CAE's training CLI
@@ -137,6 +140,23 @@ non-zero without one.  Phases:
    card vs CPU (thresholded reconstructions equal, DC / HD / ASSD within
    1e-6); ms a case to the measures and with the dumps; a case's device
    time and kernels, its edt_sites time against plain and the bound.
+11. large U-Net phase (``large_unet_phase``, lines prefixed ``large
+   unet``): the 4-scale U-Net (``LargeUnet3D``, kind ``large_unet3d``) at
+   channels 2 32 64 128 256 128 64 32 32 2 with seeded weights.  The
+   U-Net tester CLI on a ``large_unet3d`` checkpoint (BN statistics the
+   moments of the cases' images) on three cases at ``--xyoriginal 264
+   --padding 44 44 44`` (116x220x220 -> 28x132x132): 14 K1 and 4
+   edt_sites a case, the dumps, every K1 / edt_sites call of a case
+   against plain, K1 per layer against float64 and cuDNN, a case's dumps
+   with each NIfTI codec, a 92^3 forward card vs CPU.  Training through
+   ``UnetSegmentationLearner`` (bfloat16, batch 6, 116x124x124 patches, two
+   epochs, ``log_throughput`` and ``profile_dir``): 14 / 0 / 13 / 14
+   K1-K4 a step, the ``[throughput]`` line, the trace, every K1 / K3 / K4
+   call of a step in both types against plain, per layer beside cuDNN, 20
+   timed steps and a profile, a float32 step against float64 within twice
+   the CPU's distance, and a float64 step card vs CPU at the STEP_* limits
+   (``large_step_vs_cpu``).  The tester phases also read one dump each
+   through the native and the pure-Python NIfTI codec.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero.
@@ -390,15 +410,21 @@ def edt_bound(shape):
     return bound_ms(EDT_OPS_PER_VOXEL * voxels, 5.0 * voxels)
 
 
+# torch.profiler sessions on the card's machine now and then record no
+# device time: three times in one run of this script on an NVIDIA H100
+# 80GB HBM3, each once, and twice in a row for one SDM call in another
+PROFILE_ATTEMPTS = 4
+
+
 def profiled(torch, run, what):
     """``run()`` under torch.profiler (CPU and CUDA activity), then
-    synchronized; run and traced once more when the trace holds no device
-    time, as a session on the card's machine now and then records none ->
-    the profiler (its trace may still hold no device time)."""
+    synchronized; run and traced again, up to PROFILE_ATTEMPTS sessions in
+    all, while the trace holds no device time -> the profiler (its trace
+    may still hold no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(2):
+    for attempt in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run()
@@ -407,7 +433,8 @@ def profiled(torch, run, what):
                for e in prof.key_averages()):
             break
         print(f"{what}: no device time in the trace"
-              + (", profiling again" if attempt == 0 else ""))
+              + (", profiling again" if attempt + 1 < PROFILE_ATTEMPTS
+                 else ""))
     return prof
 
 
@@ -975,6 +1002,8 @@ def slice_phase(torch, work):
             if not (vol.min() >= 0.0 and vol.max() <= 1.0):
                 raise AssertionError(f"case {cid}{part}: values outside "
                                      f"[0, 1] or not finite")
+    check_dump_codecs(f"{out_base}_{tester.case_seconds[0][0]}_core.nii.gz",
+                      "slice")
 
     # one case again on the card and on the CPU (plain versions)
     loader = tester._dataloader
@@ -1259,13 +1288,14 @@ def cae_recorded(torch, run, grad=False):
     return calls, sites, worst
 
 
-def cae_check_recorded(name, calls, sites, worst, want, edt_shapes):
-    """The recorded calls of a CAE run: ``want`` ({kernel: calls}, no
-    call of a kernel it leaves out) and edt_sites called at ``edt_shapes``
-    ({mask shape: calls})."""
+def cae_check_recorded(name, calls, sites, worst, want, edt_shapes,
+                       prefix="cae"):
+    """The recorded calls of a CAE run (or another path's): ``want``
+    ({kernel: calls}, no call of a kernel it leaves out) and edt_sites
+    called at ``edt_shapes`` ({mask shape: calls})."""
     counts = {k: sum(n for key, n in calls.items() if key[0] == k)
               for k in CAE_KERNELS}
-    print(f"cae: {name}: calls {counts} on their own inputs against plain "
+    print(f"{prefix}: {name}: calls {counts} on their own inputs against plain "
           f"(y, dx: float32 {K1_TOL}, bfloat16 {BF16_REL} of max|ref|; dW, "
           f"db {DW_REL} of max|ref|; K2-K4 bit-identical on repeat), "
           f"max|err| {worst}; edt_sites {sites} equal to plain")
@@ -1275,11 +1305,11 @@ def cae_check_recorded(name, calls, sites, worst, want, edt_shapes):
                              f"at {edt_shapes}")
 
 
-def cae_kernel_phase(torch, calls, per):
+def cae_kernel_phase(torch, calls, per, alpha=1.0, what="the CAE's"):
     """The float32 K1 at every distinct layer of ``calls``' K1 calls (as
-    :func:`cae_recorded` gives them) against its plain version and a
-    float64 conv, timed beside cuDNN's conv; sums ``per`` (each layer times
-    its calls)."""
+    :func:`cae_recorded` gives them, each with its activation at
+    ``alpha``) against its plain version and a float64 conv, timed beside
+    cuDNN's conv; sums ``per`` (each layer times its calls)."""
     import torch.nn.functional as F
 
     from stroke_prediction_tpu_torch.ops.conv3x3 import (
@@ -1293,9 +1323,9 @@ def cae_kernel_phase(torch, calls, per):
 
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops=0.0,
                bytes=0.0, max_abs_err=0.0, max_rel_err_f64=0.0, launches=0)
-    print(f"\nK1 at the CAE's layers {per} (float32, ELU 1.0, 3xTF32; x n = "
-          f"calls; bias a plane table or a vector; cuDNN with the vector "
-          f"bias, no activation):")
+    print(f"\nK1 at {what} layers {per} (float32, activation at {alpha}, "
+          f"3xTF32; x n = calls; bias a plane table or a vector; cuDNN with "
+          f"the vector bias, no activation):")
     for (kern, nb, d, h, w, ci, co, mode, table, act, _), n in \
             calls.items():
         if kern != "K1":
@@ -1305,23 +1335,23 @@ def cae_kernel_phase(torch, calls, per):
         x = uniform((nb, d, h, w, ci), -1.0, 1.0)
         k = uniform((3, 3, 3, ci, co), -bnd, bnd)
         b = uniform((d_out, co) if table else (co,), -bnd, bnd)
-        y = conv3x3(x, k, b, act, 1.0, mode)
-        ref = conv3x3_plain(x, k, b, act, 1.0, mode)
-        ref64 = conv3x3_plain(x.double(), k.double(), b.double(), act, 1.0,
+        y = conv3x3(x, k, b, act, alpha, mode)
+        ref = conv3x3_plain(x, k, b, act, alpha, mode)
+        ref64 = conv3x3_plain(x.double(), k.double(), b.double(), act, alpha,
                               mode)
         torch.cuda.synchronize()
         err = float((y - ref).abs().max())
         torch.testing.assert_close(y, ref, **K1_TOL)
         f64 = rel_err(y.double(), ref64)
         if f64 > F64_REL:
-            raise AssertionError(f"K1 CAE layer {d}x{h}x{w} {ci}->{co}: "
+            raise AssertionError(f"K1 at {what} layer {d}x{h}x{w} {ci}->{co}: "
                                  f"{f64:.3e} of max|ref| off float64")
         del ref64
         x_lib = x.permute(0, 4, 1, 2, 3)
         w_lib = k.permute(4, 3, 0, 1, 2).contiguous()
         b_lib = b[0].contiguous() if table else b
-        ms = cuda_ms(torch, lambda: conv3x3(x, k, b, act, 1.0, mode), 10)
-        plain = cuda_ms(torch, lambda: conv3x3_plain(x, k, b, act, 1.0,
+        ms = cuda_ms(torch, lambda: conv3x3(x, k, b, act, alpha, mode), 10)
+        plain = cuda_ms(torch, lambda: conv3x3_plain(x, k, b, act, alpha,
                                                      mode), 10)
         lib = cuda_ms(torch, lambda: F.conv3d(
             x_lib, w_lib, b_lib, padding=(MODES[mode], 0, 0)), 10)
@@ -1413,6 +1443,8 @@ def cae_phase(torch, work):
                     vol.min() >= 0.0 and vol.max() <= 1.0):
                 raise AssertionError(f"case {cid}{part}: shape {vol.shape} "
                                      f"or values outside [0, 1]")
+    check_dump_codecs(f"{base}_{tester.case_seconds[0][0]}_pred.nii.gz",
+                      "cae")
 
     loader = tester._dataloader
     batch = loader.dataset.stack([loader.indices[0]])
@@ -1604,12 +1636,13 @@ def train_phase(torch, work):
     from stroke_prediction_tpu_torch.utils.args import get_args_unet_training
 
     base = os.path.join(work, "train")
+    prof = os.path.join(work, "train_profile")
     args = get_args_unet_training(
         [os.path.join(work, "unused.model"), "--synthetic",
          "--fold", *map(str, TRAIN_FOLD), "--validsetsize", "0.25",
          "--batchsize", str(TRAIN_BATCH), "--epochs", "3",
          "--outbasepath", base, "--device", "cuda",
-         "--channels", *map(str, CHANNELS)])
+         "--channels", *map(str, CHANNELS), "--profile", prof])
     if args.dtype != "bfloat16":
         raise AssertionError(f"the CLI's default dtype is {args.dtype}")
 
@@ -1664,6 +1697,7 @@ def train_phase(torch, work):
         raise AssertionError(f"best-valid model: output {tuple(seg.shape)}")
     print(f"train: best-valid model {config} runs: output "
           f"{tuple(seg.shape)}")
+    check_trace(prof, "train", n_train // 3)
 
     print(f"train: CLI training passes (s, steps): "
           f"{learner.train_pass_seconds}")
@@ -2590,7 +2624,8 @@ def cae_learners_phase(torch, work, phase1):
     _cae1.model's, the step learner's BN statistics moved, _cae2.model the
     phase-1 CAE bit for bit), K1-K4 per layer of a step beside cuDNN, 20
     timed steps and a profile of one, a float32 step each on the card
-    against the CPU with a control that must fail, and the three CAE
+    against a float64 CPU step with a control that must fail
+    (:func:`learner_step_vs_cpu`), and the three CAE
     learners' visual forward against one forward a step."""
     from stroke_prediction_tpu_torch.cli import (
         train_interpolationstep_after_reconstruction as step_cli)
@@ -2767,13 +2802,18 @@ def learner_layer_of(key):
 
 def learner_step_vs_cpu(torch, learner, kind):
     """One float32 step of a learner (forward, loss, backward; no optimizer
-    step, no augmentation) at batch 2 from its trained weights, on the card
-    and on the CPU: the loss, every trained gradient relative to its
-    layer's largest, the running statistics that the step moves, at the
-    STEP_* limits; a control (the step head's kernel gradient, or phase
-    2's entry BN gradients, zeroed on the card) must fail the gradient
-    limit.  Where the limits fail, a float64 CPU step says which side is
-    off before the phase stops."""
+    step, no augmentation) at batch 2 from its trained weights, on the card,
+    on the CPU and in float64 on the CPU.  The card's loss, every trained
+    gradient relative to its layer's largest and the running statistics
+    that the step moves against the float64 step at the STEP_* limits; a
+    control (the step head's kernel gradient, or phase 2's entry BN
+    gradients, zeroed on the card) must fail the gradient limit.  The CPU's
+    float32 step is only printed, as :func:`cae_steps_vs_cpu` prints it on
+    trained weights: a channel whose batch variance falls far below its
+    squared mean makes the folded BN's kernel gradient two large terms that
+    cancel, and the CPU's sums' order put phase 2's encoder.blocks.9 kernel
+    gradient 1.48e-3 of its layer's largest off float64 in one run on an
+    NVIDIA H100 80GB HBM3 (700 W), the card 9.0e-7."""
     from stroke_prediction_tpu_torch.data.dataset import (
         KEY_GLOBAL, KEY_IMAGES, KEY_LABELS)
     from stroke_prediction_tpu_torch.inference import cae_enc_inference
@@ -2818,14 +2858,16 @@ def learner_step_vs_cpu(torch, learner, kind):
                      {k: v.cpu().double() for k, v in trained.named_buffers()},
                      time.perf_counter() - t0)
 
-    run("card float32", "cuda", torch.float32)
-    run("CPU float32", "cpu", torch.float32)
+    card, cpu, f64 = "card float32", "CPU float32", "CPU float64"
+    run(card, "cuda", torch.float32)
+    run(cpu, "cpu", torch.float32)
+    run(f64, "cpu", torch.float64)
     control = ("enc.step_head.kernel",) if kind == "step" else tuple(
         f"encoder.blocks.0.bn.{n}" for n in ("scale", "bias"))
-    card = out["card float32"]
-    out["card float32, control"] = (card[0], {
+    c = out[card]
+    out[card + ", control"] = (c[0], {
         k: torch.zeros_like(g) if k in control else g
-        for k, g in card[1].items()}) + card[2:]
+        for k, g in c[1].items()}) + c[2:]
     what = f"cae {kind} step (batch {CAE_VS_CPU_BATCH})"
     print(f"\n{what} seconds: " + ", ".join(
         f"{side} {v[3]:.2f} s" for side, v in out.items()))
@@ -2842,20 +2884,20 @@ def learner_step_vs_cpu(torch, learner, kind):
             ("grad", r["grad_rel"] > STEP_GRAD_REL),
             ("stats", r["stats_err"] > STEP_STATS_ATOL)) if bad]
 
-    res = compare("card float32", "CPU float32")
-    ctrl = compare("card float32, control", "CPU float32")
+    res = compare(card, f64)
+    ctrl = compare(card + ", control", f64)
     res["control"] = dict(zeroed=control, grad_rel=ctrl["grad_rel"],
                           failed=failed(ctrl))
-    print(f"{what}: limits failed {failed(res)}; the control ({control} "
-          f"zeroed) failed {res['control']['failed']}")
+    res["card_vs_cpu"] = compare(card, cpu)["grad_rel"]
+    res["cpu_vs_f64"] = compare(cpu, f64)["grad_rel"]
+    print(f"{what}: the card's float32 step vs float64: limits failed "
+          f"{failed(res)}; the control ({control} zeroed) failed "
+          f"{res['control']['failed']}; float64 gradients off by the card "
+          f"{res['grad_rel']:.2e}, the CPU {res['cpu_vs_f64']:.2e} "
+          f"(card vs CPU {res['card_vs_cpu']:.2e}, not held)")
     if failed(res):
-        run("CPU float64", "cpu", torch.float64)
-        res["card_vs_f64"] = compare("card float32", "CPU float64")[
-            "grad_rel"]
-        res["cpu_vs_f64"] = compare("CPU float32", "CPU float64")[
-            "grad_rel"]
-        raise AssertionError(f"{what}: card and CPU beyond the STEP_* "
-                             f"limits: {res}")
+        raise AssertionError(f"{what}: the card's float32 step beyond the "
+                             f"STEP_* limits of float64: {res}")
     if "grad" not in res["control"]["failed"]:
         raise AssertionError(f"{what}: the control passes the gradient "
                              f"limit: {ctrl}")
@@ -3291,6 +3333,7 @@ def sdm_phase(torch, work):
             for part in ("_lesion", "_fuctgt", "_core", "_penu"):
                 if not os.path.getsize(f"{base}_{cid}{part}.nii.gz"):
                     raise AssertionError(f"{what}: empty {part} dump")
+        check_dump_codecs(f"{base}_{seconds[0][0]}_core.nii.gz", what)
         checks = []
         for cid, _, _ in seconds:
             inputs = sdm_case_inputs(torch, args, cid)
@@ -3519,6 +3562,582 @@ def profile_cases(torch, tester, batch, infer_ms, reps=3):
     return out
 
 
+# The 4-scale U-Net (LargeUnet3D, kind large_unet3d) at its default width.
+# The tester runs on synthetic 264x264x28 cases, resampled to 132x132x28
+# and padded by 44 to 116x220x220, whose output (the input less 88) is the
+# 28x132x132 labels; training crops 116x124x124 patches (labels 28x36x36)
+# at batch 6 of the same padded volumes.  Every 3^3 conv but the entry one
+# is over FUSED_DW_BYTES, so a step runs 14 K1, 13 K3, 14 K4 and no K2.
+LARGE_CHANNELS = (2, 32, 64, 128, 256, 128, 64, 32, 32, 2)
+LARGE_GEOMETRY = ("--xyoriginal", "264", "--zsize", "28", "--padding", "44",
+                  "44", "44")
+LARGE_PAD = (44, 44, 44)
+LARGE_OUT_DHW = (28, 132, 132)
+LARGE_PATCH_WHD = (124, 124, 116)
+LARGE_EPOCHS = 2
+LARGE_TIMED_STEPS = 20
+LARGE_CPU_DHW = (92, 92, 92)      # the card-vs-CPU forward: output 4^3
+LARGE_VS_CPU_BATCH = 2
+# The float32 LargeUnet3D step (batch 2, seeded weights) is too
+# ill-conditioned for STEP_GRAD_REL card vs CPU: on an NVIDIA H100 80GB HBM3
+# (700 W) the card's float32 gradients were 6.40e-3 of their layer's
+# largest off a float64 step and the CPU's 4.02e-3, so card and CPU stood
+# 6.29e-3 apart, though every K1 / K3 / K4 call of the step agreed with its
+# plain version.  With every 3^3 conv computed in float64 and rounded to
+# float32 (``in_float64``) the card's step was 1.38e-3 off float64 and the
+# CPU's 6.74e-3: the card's distance is mostly its convs' float32 sums, the
+# CPU's its other float32 operations (which of them is not measured), so
+# the CPU's float32 step cannot judge the card's other operations at
+# STEP_GRAD_REL either.  So the step is held two ways.  The
+# whole float32 step, the kernels in it: the card's gradients against the
+# float64 step (the largest element's |err| over its layer's largest
+# gradient, and |err| / |grad| over a layer, each the largest over the
+# layers) no further off than LARGE_F32_GRAD_FACTOR times the CPU's float32
+# step plus LARGE_F32_GRAD_FLOOR, its loss and running statistics card vs
+# CPU at STEP_LOSS_REL and STEP_STATS_ATOL; the entry conv's K4 output
+# zeroed must fail it.  The step's operations on the card against the
+# CPU's, where float32 rounding does not blur them: the float64 step (the
+# plain versions) card vs CPU at the STEP_* limits; the card's entry BN
+# gradients zeroed must fail it.
+LARGE_F32_GRAD_FACTOR, LARGE_F32_GRAD_FLOOR = 2.0, 1e-4
+
+
+def large_conv_layers(channels=LARGE_CHANNELS):
+    """(C_in, C_out, input needs a gradient) of LargeUnet3D's fourteen 3^3
+    convs, in call order."""
+    c_in, b1, b2, b3, b4, b5, b6, b7 = channels[:8]
+    blocks = ((c_in, b1), (b1, b2), (b2, b3), (b3, b4), (b4 + b3, b5),
+              (b5 + b2, b6), (b6 + b1, b7))
+    layers = []
+    for ci, co in blocks:
+        layers += [(ci, co, bool(layers)), (co, co, True)]
+    return layers
+
+
+def large_step_launches(channels=LARGE_CHANNELS):
+    """K1-K4 launches of one LargeUnet3D training step by the route rule."""
+    from stroke_prediction_tpu_torch.ops.conv3x3 import bwd_route
+
+    routes = [bwd_route(*c) for c in large_conv_layers(channels)]
+    return {"K1": len(routes), "K2": routes.count("fused"),
+            "K3": routes.count("split"),
+            "K4": routes.count("split") + routes.count("dw")}
+
+
+def kernel_widths(calls, kernel):
+    """The (C_in, C_out) pairs at which ``kernel`` ran in recorded
+    ``calls``."""
+    return sorted({key[5:7] for key in calls if key[0] == kernel})
+
+
+def check_dump_codecs(path, what):
+    """One tester dump read by the native codec and by the pure-Python
+    reader: equal volumes and affines (where the native codec is in
+    use)."""
+    import numpy as np
+
+    from stroke_prediction_tpu_torch.utils import native_io
+    from stroke_prediction_tpu_torch.utils.nifti import read_nifti
+
+    if not native_io.available():
+        return
+    (vol, aff), (ref, ref_aff) = native_io.read_nifti(path), read_nifti(path)
+    if not (np.array_equal(vol, ref) and np.array_equal(aff, ref_aff)):
+        raise AssertionError(f"{what}: {path} reads differently through the "
+                             f"native and the pure-Python codec")
+    print(f"{what}: dump {os.path.basename(path)} {vol.shape} equal through "
+          f"the native and the pure-Python readers")
+
+
+def check_trace(logdir, what, train_steps):
+    """The learner's torch.profiler trace in ``logdir``: ``train_steps``
+    ``train_step`` ranges (one traced epoch) and the K1 kernel."""
+    from stroke_prediction_tpu_torch.utils.profiling import TRACE_FILE
+
+    path = os.path.join(logdir, TRACE_FILE)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    steps = sum(e.get("name") == "train_step"
+                and e.get("cat") == "user_annotation" for e in events)
+    k1 = sum("conv3x3_fwd" in n for n in names)
+    print(f"{what}: --profile trace {path}: {os.path.getsize(path)} bytes, "
+          f"{len(names)} events, {steps} train_step ranges, {k1} K1 kernel "
+          f"events")
+    if steps != train_steps or not k1:
+        raise AssertionError(f"{what}: the trace holds {steps} train_step "
+                             f"ranges (expected {train_steps}) and {k1} K1 "
+                             f"kernels")
+
+
+def nifti_codec():
+    """``native`` or ``python (<why the native codec is not in use>)``."""
+    from stroke_prediction_tpu_torch.utils import native_io
+
+    return ("native" if native_io.available() else
+            f"python ({native_io.build_error()})")
+
+
+def large_unet_model(torch, images):
+    """LargeUnet3D at LARGE_CHANNELS with seeded weights and BN scales and
+    biases; its BN statistics moved by one training-mode forward of
+    ``images`` at momentum 0, so that they are those images' moments at
+    each layer, as a trained model's are of its data."""
+    from stroke_prediction_tpu_torch.models.layers import BatchNorm
+    from stroke_prediction_tpu_torch.models.unet3d import LargeUnet3D
+
+    gen = torch.Generator().manual_seed(6)
+    model = LargeUnet3D(LARGE_CHANNELS, generator=gen)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        for m in bns:
+            m.scale.uniform_(0.8, 1.2, generator=gen)
+            m.bias.uniform_(-0.1, 0.1, generator=gen)
+            m.momentum = 0.0
+        model.to("cuda").train()(images)
+        for m in bns:
+            m.momentum = 0.9
+    return model.eval()
+
+
+def large_unet_tester(torch, work):
+    """The U-Net tester CLI on a ``large_unet3d`` checkpoint: launches,
+    dumps, every K1 and edt_sites call of one case against plain, K1 per
+    distinct layer against float64 and cuDNN, ms a case, the dumps' wall
+    with each codec, and a 92^3 forward card vs CPU."""
+    from stroke_prediction_tpu_torch.cli import test_unet_segmentation as cli
+    from stroke_prediction_tpu_torch.cli.common import make_dataset
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_CASE_ID, KEY_IMAGES, LABEL_CORE, LABEL_PENU, MOD_CBV, MOD_TTD)
+    from stroke_prediction_tpu_torch.data.loader import get_testdata
+    from stroke_prediction_tpu_torch.models.convert import save_unet_checkpoint
+    from stroke_prediction_tpu_torch.utils import native_io
+    from stroke_prediction_tpu_torch.utils.args import get_args_unet_training
+    from stroke_prediction_tpu_torch.utils.checkpoint import load_checkpoint
+    from stroke_prediction_tpu_torch.utils.nifti import read_nifti
+
+    what = "large unet"
+    ckpt = os.path.join(work, "large_unet.model")
+    base = os.path.join(work, "large")
+    args = get_args_unet_training(
+        [ckpt, "--synthetic", "--fold", *map(str, FOLD), *LARGE_GEOMETRY,
+         "--outbasepath", base, "--device", "cuda"])
+    cases = get_testdata(make_dataset(args, [MOD_CBV, MOD_TTD],
+                                      [LABEL_CORE, LABEL_PENU],
+                                      pad=tuple(args.padding)), args.fold)
+    images = torch.from_numpy(cases.dataset.stack(cases.indices)[
+        KEY_IMAGES]).to("cuda")
+    model = large_unet_model(torch, images)
+    del images
+    save_unet_checkpoint(ckpt, model)
+    header = load_checkpoint(ckpt)[1]
+    if header != {"kind": "large_unet3d", "channels": list(LARGE_CHANNELS)}:
+        raise AssertionError(f"{what}: checkpoint header {header}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    tester = cli.test(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n = len(tester.case_seconds)
+    print(f"{what}: tester CLI on {n} cases ({header}) in {wall:.2f} s; "
+          f"launches {launches}; nifti codec: {nifti_codec()}")
+    want = {"conv3x3": 14 * len(FOLD), "edt_sites": EDT_PER_STEP * len(FOLD)}
+    if n != len(FOLD) or any(v != want.get(k, 0)
+                             for k, v in launches.items()):
+        raise AssertionError(f"{what}: {n} cases, launches {launches}; "
+                             f"expected {want} and no other kernel")
+    steady = tester.case_seconds[1:]
+    infer_ms = 1e3 * sum(s[1] for s in steady) / len(steady)
+    total_ms = 1e3 * sum(s[2] for s in steady) / len(steady)
+    print(f"{what}: ms per case after the first: {infer_ms:.2f} to the "
+          f"measures, {total_ms:.2f} with the two NIfTI dumps; per case (id, "
+          f"s, s): {tester.case_seconds}")
+    native_size = (2 * LARGE_OUT_DHW[2], 2 * LARGE_OUT_DHW[1],
+                   LARGE_OUT_DHW[0])
+    for cid, _, _ in tester.case_seconds:
+        for part in ("_core", "_penu"):
+            vol, _ = read_nifti(f"{base}_{cid}{part}.nii.gz")
+            if vol.shape != native_size or not (
+                    vol.min() >= 0.0 and vol.max() <= 1.0):
+                raise AssertionError(f"{what}: case {cid}{part}: shape "
+                                     f"{vol.shape} or values outside [0, 1]")
+    check_dump_codecs(f"{base}_{tester.case_seconds[0][0]}_core.nii.gz",
+                      what)
+
+    loader = tester._dataloader
+    batch = loader.dataset.stack([loader.indices[0]])
+    calls, sites, worst = cae_recorded(
+        torch, lambda: tester.infer_batch(batch))
+    cae_check_recorded("one tester case", calls, sites, worst, {"K1": 14},
+                       {(1, *LARGE_OUT_DHW): EDT_PER_STEP}, what)
+    k1 = cae_kernel_phase(torch, calls, "per large U-Net tester case", 0.01,
+                          "the large U-Net's")
+
+    # a case's two dumps with each codec
+    cid = int(batch[KEY_CASE_ID][0])
+    with torch.inference_mode():
+        _, seg = tester.infer_batch(batch)
+    dump_s = {}
+    real_write = native_io.write_nifti
+    for codec in ("native", "python"):
+        if codec == "native" and not native_io.available():
+            continue
+        if codec == "python":
+            native_io.write_nifti = lambda *a: False
+        try:
+            t0 = time.perf_counter()
+            tester.save_inference(seg, batch, "_" + codec)
+            dump_s[codec] = time.perf_counter() - t0
+        finally:
+            native_io.write_nifti = real_write
+    print(f"{what}: one case's two dumps ({native_size}, gzip level "
+          f"{native_io.GZIP_LEVEL}), s by codec: {dump_s}")
+    if "native" in dump_s:
+        a = read_nifti(f"{base}_{cid}_core_native.nii.gz")
+        b = read_nifti(f"{base}_{cid}_core_python.nii.gz")
+        if not all((x == y).all() for x, y in zip(a, b)):
+            raise AssertionError(f"{what}: the two codecs' dumps differ")
+
+    # the full-width model on one 92^3 input, card vs CPU
+    x = torch.rand((1, *LARGE_CPU_DHW, 2), generator=torch.Generator()
+                   .manual_seed(7)) * 2.0
+    with torch.inference_mode():
+        card = tester._model(x.to("cuda")).cpu()
+        cpu = copy.deepcopy(tester._model).to("cpu")(x)
+    err = float((card - cpu).abs().max())
+    print(f"{what}: one {LARGE_CPU_DHW} input card vs CPU: output "
+          f"{tuple(card.shape)}, max|prob err| {err:.3e} (limit "
+          f"{SLICE_ATOL}); probabilities {float(cpu.min()):.4f} to "
+          f"{float(cpu.max()):.4f}")
+    if tuple(card.shape) != (1, 4, 4, 4, 2) or not err <= SLICE_ATOL:
+        raise AssertionError(f"{what}: card vs CPU {err}")
+    return dict(launches=launches, k1=k1, infer_ms=infer_ms,
+                total_ms=total_ms, dump_s=dump_s, vs_cpu=err,
+                widths=kernel_widths(calls, "K1"))
+
+
+def large_unet_train(torch, work):
+    """UnetSegmentationLearner on a bfloat16 LargeUnet3D (the library route:
+    the CLI builds Unet3D only) with ``log_throughput`` and ``profile_dir``:
+    launches, losses, the header, the ``[throughput]`` line, the trace;
+    every K1, K3 and K4 call of one step in both types against plain; per
+    layer beside cuDNN; timed steps and a profile; a float32 step card vs
+    CPU."""
+    import contextlib
+    import io
+    import re
+
+    from stroke_prediction_tpu_torch.cli.common import make_dataset
+    from stroke_prediction_tpu_torch.data.dataset import (
+        LABEL_CORE, LABEL_PENU, MOD_CBV, MOD_TTD)
+    from stroke_prediction_tpu_torch.data.loader import (
+        get_stroke_shape_training_data)
+    from stroke_prediction_tpu_torch.models.factory import load_model
+    from stroke_prediction_tpu_torch.models.unet3d import (
+        LargeUnet3D, unet_output_spatial)
+    from stroke_prediction_tpu_torch.train.optim import make_optimizer
+    from stroke_prediction_tpu_torch.train.unet_learner import (
+        UnetSegmentationLearner)
+    from stroke_prediction_tpu_torch.utils.args import get_args_unet_training
+
+    what = "large unet train"
+    base = os.path.join(work, "large_train")
+    prof = os.path.join(work, "large_profile")
+    args = get_args_unet_training(
+        [os.path.join(work, "unused.model"), "--synthetic", "--fold",
+         *map(str, TRAIN_FOLD), "--validsetsize", "0.25", "--batchsize",
+         str(TRAIN_BATCH), *LARGE_GEOMETRY, "--device", "cuda"])
+    ds_train, ds_valid = get_stroke_shape_training_data(
+        make_dataset(args, [MOD_CBV, MOD_TTD], [LABEL_CORE, LABEL_PENU],
+                     flip_split_id=args.hemisflipid, pad=LARGE_PAD),
+        args.fold, args.validsetsize, seed=args.seed,
+        batchsize=args.batchsize)
+    model = LargeUnet3D(LARGE_CHANNELS,
+                        generator=torch.Generator().manual_seed(args.seed),
+                        compute_dtype=getattr(torch, args.dtype)).to("cuda")
+    learner = UnetSegmentationLearner(
+        ds_train, ds_valid, model,
+        make_optimizer(model.parameters(), 1e-3, betas=(0.99, 0.999),
+                       weight_decay=1e-5), None, n_epochs=LARGE_EPOCHS,
+        patch_whd=LARGE_PATCH_WHD, pad_xyz=LARGE_PAD, path_outputs_base=base,
+        seed=args.seed, log_throughput=True, profile_dir=prof, device="cuda")
+
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            learner.run_training()
+        torch.cuda.synchronize()
+    finally:
+        print(out.getvalue())
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    steps = dict(learner.step_counts)
+    per_step = large_step_launches()
+    n_train, n_eval = steps["train"], steps["eval"]
+    n_fwd = n_train + n_eval + steps["visual"]
+    want = {"conv3x3": per_step["K1"] * n_fwd,
+            "conv3x3_bwd_fused": per_step["K2"] * n_train,
+            "conv3x3_bwd_dx": per_step["K3"] * n_train,
+            "conv3x3_bwd_dw": per_step["K4"] * n_train,
+            "edt_sites": EDT_PER_STEP * n_eval, "edt_parabola": 0}
+    print(f"{what}: {args.dtype}, batch {TRAIN_BATCH}, patch "
+          f"{LARGE_PATCH_WHD[::-1]} (D, H, W), {LARGE_EPOCHS} epochs in "
+          f"{wall:.2f} s; steps {steps}; launches {launches}; per training "
+          f"step {per_step} (K2 does not run: every conv but the entry is "
+          f"over FUSED_DW_BYTES, the entry takes dW only); training passes "
+          f"(s, steps) {learner.train_pass_seconds}")
+    if per_step != {"K1": 14, "K2": 0, "K3": 13, "K4": 14}:
+        raise AssertionError(f"{what}: the route rule gives {per_step}")
+    if n_train != LARGE_EPOCHS or n_eval != LARGE_EPOCHS:
+        raise AssertionError(f"{what}: steps {steps}")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{what}: {name} launched {launches[name]} "
+                                 f"times, expected {n}")
+    rates = re.findall(r"\[throughput\] ([0-9.]+) volumes/sec/chip over "
+                       r"(\d+) timed steps", out.getvalue())
+    print(f"{what}: [throughput] lines (volumes/sec/chip, timed passes; "
+          f"a pass is one step of {TRAIN_BATCH} volumes, and the timed one "
+          f"is the traced one): {rates}")
+    if [n for _, n in rates] != [str(e) for e in range(LARGE_EPOCHS)] or \
+            not float(rates[-1][0]) > 0:
+        raise AssertionError(f"{what}: [throughput] lines {rates}")
+    for phase in ("training", "validate"):
+        losses = [m["loss"] for m in learner._metric_dtos[phase]]
+        if len(losses) != LARGE_EPOCHS or not all(0.0 <= v <= 1.0
+                                                  for v in losses):
+            raise AssertionError(f"{what}: {phase} losses {losses}")
+    check_artifacts(base, ["_unet.model", "_unet.optim", "_unet.json",
+                           "_unet_final.model"],
+                    ["_visual_1.png", "_visual_plots.png"], what)
+    best, config = load_model(base + "_unet.model", "cuda")
+    with torch.no_grad():
+        seg = best(torch.zeros((1, *LARGE_PATCH_WHD[::-1], 2),
+                               device="cuda"))
+    if (config != {"kind": "large_unet3d", "channels": list(LARGE_CHANNELS)}
+            or not isinstance(best, LargeUnet3D)
+            or tuple(seg.shape) != (1, *unet_output_spatial(
+                LARGE_PATCH_WHD[::-1], 4), 2)):
+        raise AssertionError(f"{what}: best-valid model {config}, "
+                             f"{tuple(seg.shape)}")
+    print(f"{what}: best-valid model {config} runs: output "
+          f"{tuple(seg.shape)}")
+    check_trace(prof, what, n_train // LARGE_EPOCHS)
+
+    data, _ = learner.device_data(learner._dataloader_training)
+    rows = torch.arange(TRAIN_BATCH, device="cuda")
+    batch = {k: None if v is None else v.index_select(0, rows)
+             for k, v in data.items()}
+    recorded = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        learner._model.compute_dtype = dtype
+        calls, sites, worst = cae_recorded(
+            torch, lambda: learner.train_step(batch), grad=True)
+        dname = str(dtype)[6:]
+        cae_check_recorded(f"one {dname} training step", calls, sites, worst,
+                           per_step, {}, what)
+        recorded[dname] = calls, worst
+    learner._model.compute_dtype = torch.bfloat16
+    times = {dname: cae_step_kernel_times(torch, calls, per_step, what)
+             for dname, (calls, _) in recorded.items()}
+    mean, std, host = time_steps(
+        torch, lambda: learner.train_step(batch), LARGE_TIMED_STEPS,
+        f"{what} (bfloat16, batch {TRAIN_BATCH})")
+    busy = cae_profile_step(torch, learner, batch, what)
+    vs_cpu = large_step_vs_cpu(torch, learner)
+    widths = {k: kernel_widths(recorded["bfloat16"][0], k)
+              for k in ("K1", "K3", "K4")}
+    print(f"{what}: widths (C_in, C_out) per kernel: {widths}")
+    return dict(launches=launches, per_step=per_step, steps=steps,
+                recorded={d: r[1] for d, r in recorded.items()}, times=times,
+                step_ms=dict(mean=mean, std=std, host=host), busy=busy,
+                vs_cpu=vs_cpu, widths=widths,
+                throughput=float(rates[-1][0]),
+                step_rate=1e3 * TRAIN_BATCH / mean)
+
+
+def in_float64(torch, fn):
+    """``fn`` (a conv function's plain version) computed in float64, its
+    results rounded to its first tensor input's type."""
+    def run(*args, **kw):
+        dt = next(a.dtype for a in args if torch.is_tensor(a))
+        out = fn(*(a.double() if torch.is_tensor(a) else a for a in args),
+                 **kw)
+        return (tuple(o.to(dt) for o in out) if isinstance(out, tuple)
+                else out.to(dt))
+
+    run.launches = 0
+    return run
+
+
+def large_step_vs_cpu(torch, learner):
+    """One LargeUnet3D training step (forward, loss, backward; no optimizer
+    step) at batch LARGE_VS_CPU_BATCH from seeded weights on the same crop,
+    on the card and on the CPU: in float32, in float32 with the 3^3 convs
+    in float64 (:func:`in_float64`), and in float64 (the plain versions).
+    The card's float32 step against float64 within LARGE_F32_GRAD_FACTOR
+    times the CPU's (:func:`f64_distance`), its loss and statistics card vs
+    CPU at STEP_LOSS_REL and STEP_STATS_ATOL; the float64 step card vs CPU
+    at the STEP_* limits.  A control for each: the entry conv's K4 output
+    zeroed on the card, and the card's entry BN gradients zeroed."""
+    from stroke_prediction_tpu_torch.data.augment import (
+        crop_patch, random_offsets)
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_IMAGES, KEY_LABELS)
+    from stroke_prediction_tpu_torch.models.unet3d import LargeUnet3D
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+
+    what = f"large unet step (batch {LARGE_VS_CPU_BATCH})"
+    nb = LARGE_VS_CPU_BATCH
+    data, _ = learner.device_data(learner._dataloader_training)
+    images, labels = data[KEY_IMAGES][:nb].cpu(), data[KEY_LABELS][:nb].cpu()
+    offsets = random_offsets(torch.Generator().manual_seed(2), nb,
+                             tuple(images.shape[1:4]), LARGE_PATCH_WHD)
+    imgs, labs = crop_patch(images, labels, offsets, LARGE_PATCH_WHD,
+                            LARGE_PAD)
+    seeded = LargeUnet3D(LARGE_CHANNELS,
+                         generator=torch.Generator().manual_seed(3))
+    names = ("conv3x3", "conv3x3_bwd_fused", "conv3x3_bwd_dx",
+             "conv3x3_bwd_dw")
+    real = {n: getattr(cm, n) for n in names}
+    plain = {n: getattr(cm, n + "_plain") for n in names}
+    convs64 = {n: in_float64(torch, f) for n, f in plain.items()}
+
+    def entry_dw_zeroed(x, *args):
+        """K4 with the entry conv's (data input) dW and db zeroed."""
+        out = real["conv3x3_bwd_dw"](x, *args)
+        return (tuple(torch.zeros_like(t) for t in out)
+                if x.shape[-1] == LARGE_CHANNELS[0] else out)
+
+    entry_dw_zeroed.launches = 0
+    out = {}
+    card, cpu = "card float32", "CPU float32"
+    card64, cpu64 = card + ", convs in float64", cpu + ", convs in float64"
+    f64, cpu_f64 = "card float64 (plain)", "CPU float64"
+    for side, dev, dt, swap in (
+            (card, "cuda", torch.float32, real),
+            (card + ", entry K4 zeroed", "cuda", torch.float32,
+             dict(real, conv3x3_bwd_dw=entry_dw_zeroed)),
+            (cpu, "cpu", torch.float32, real),
+            (card64, "cuda", torch.float32, convs64),
+            (cpu64, "cpu", torch.float32, convs64),
+            (f64, "cuda", torch.float64, plain),
+            (cpu_f64, "cpu", torch.float64, plain)):
+        m = copy.deepcopy(seeded).to(dev, dt).train()
+        m.compute_dtype = dt
+        t0 = time.perf_counter()
+        try:
+            for n in names:
+                setattr(cm, n, swap[n])
+            seg = m(imgs.to(dev))
+            labs_d = labs.to(dev, dt)
+            loss = learner.loss(seg[..., 0:1], seg[..., 1:2],
+                                labs_d[..., 0:1], labs_d[..., 1:2])
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                loss.backward()
+        finally:
+            for n in names:
+                setattr(cm, n, real[n])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[side] = (float(loss.detach()),
+                     {k: p.grad.cpu().double()
+                      for k, p in m.named_parameters()},
+                     {k: b.cpu().double() for k, b in m.named_buffers()},
+                     time.perf_counter() - t0)
+        del m, seg, loss
+    print(f"\n{what} seconds: " + ", ".join(
+        f"{side} {v[3]:.2f} s" for side, v in out.items()))
+    entry = "blocks.0.layers.0.bn."
+    c = out[f64]
+    out[f64 + ", entry BN zeroed"] = (c[0], {
+        k: g.new_zeros(g.shape) if k.startswith(entry) else g
+        for k, g in c[1].items()}) + c[2:]
+    loss_rel, grad, stats, _ = grad_compare(out, card, cpu, unet_layer_of,
+                                            what)
+    dist = {side: f64_distance(out, side, f64, what)
+            for side in (card, card + ", entry K4 zeroed", cpu, card64,
+                         cpu64)}
+    limit = {m: LARGE_F32_GRAD_FACTOR * dist[cpu][m] + LARGE_F32_GRAD_FLOOR
+             for m in ("element", "layer")}
+
+    def excess(side):
+        return max(dist[side][m] - limit[m] for m in limit)
+
+    rest = grad_compare(out, f64, cpu_f64, unet_layer_of, what)
+    rest_control = grad_compare(out, f64 + ", entry BN zeroed", cpu_f64,
+                                unet_layer_of, what)
+    res = dict(loss_rel=loss_rel, grad_rel=grad[0], worst_grad=grad[1],
+               stats_err=stats, vs_f64=dist[card], cpu_vs_f64=dist[cpu],
+               excess=excess(card),
+               control_excess=excess(card + ", entry K4 zeroed"),
+               convs64=dict(card_vs_f64=dist[card64],
+                            cpu_vs_f64=dist[cpu64]),
+               f64=dict(loss_rel=rest[0], grad_rel=rest[1][0],
+                        worst_grad=rest[1][1], stats_err=rest[2],
+                        control=rest_control[1][0]))
+    print(f"{what}: the card's float32 step vs float64 within "
+          f"{LARGE_F32_GRAD_FACTOR} x the CPU's + {LARGE_F32_GRAD_FLOOR} "
+          f"(element {limit['element']:.3e}, layer {limit['layer']:.3e}): "
+          f"excess {res['excess']:.3e} (entry K4 zeroed "
+          f"{res['control_excess']:.3e}); card vs CPU gradients {grad[0]:.2e}"
+          f" of their layer's largest (not held: STEP_GRAD_REL "
+          f"{STEP_GRAD_REL}), loss and statistics {loss_rel:.2e} / "
+          f"{stats:.2e}; with the convs in float64 the card "
+          f"{dist[card64]['element']:.3e} and the CPU "
+          f"{dist[cpu64]['element']:.3e} off float64; the float64 step card "
+          f"vs CPU at the STEP_* limits: loss {rest[0]:.2e}, gradients "
+          f"{rest[1][0]:.2e}, statistics {rest[2]:.2e} (entry BN zeroed "
+          f"{rest_control[1][0]:.2e})")
+    if res["control_excess"] <= 0:
+        raise AssertionError(f"{what}: the entry K4 zeroed control passes "
+                             f"the float64 rule: {res}")
+    if rest_control[1][0] <= STEP_GRAD_REL:
+        raise AssertionError(f"{what}: the entry BN zeroed control passes "
+                             f"STEP_GRAD_REL: {res}")
+    if (loss_rel > STEP_LOSS_REL or stats > STEP_STATS_ATOL
+            or res["excess"] > 0 or rest[0] > STEP_LOSS_REL
+            or rest[1][0] > STEP_GRAD_REL or rest[2] > STEP_STATS_ATOL):
+        raise AssertionError(f"{what}: beyond the limits: {res}")
+    return res
+
+
+def f64_distance(out, side, f64, what):
+    """Side ``side``'s float32 gradients against the float64 step ``f64``:
+    the largest element's |err| over its layer's largest float64 gradient,
+    and |err| / |grad| over a layer, each the largest over the layers, with
+    the layers that hold them."""
+    g64 = out[f64][1]
+    scale, elem, d2, r2 = {}, {}, {}, {}
+    for k, ref in g64.items():
+        lay = unet_layer_of(k)
+        scale[lay] = max(scale.get(lay, 0.0), float(ref.abs().max()))
+    for k, ref in g64.items():
+        lay, diff = unet_layer_of(k), out[side][1][k] - ref
+        elem[lay] = max(elem.get(lay, 0.0),
+                        float(diff.abs().max()) / scale[lay])
+        d2[lay] = d2.get(lay, 0.0) + float((diff ** 2).sum())
+        r2[lay] = r2.get(lay, 0.0) + float((ref ** 2).sum())
+    l2 = {lay: (d2[lay] / r2[lay]) ** 0.5 for lay in d2}
+    worst, worst_l2 = max(elem, key=elem.get), max(l2, key=l2.get)
+    got = dict(element=elem[worst], element_at=worst, layer=l2[worst_l2],
+               layer_at=worst_l2)
+    print(f"{what} {side} vs float64: element {got['element']:.3e} at "
+          f"{worst}, layer {got['layer']:.3e} at {worst_l2}")
+    return got
+
+
+def large_unet_phase(torch, work):
+    """The 4-scale U-Net at its default width: the tester CLI
+    (:func:`large_unet_tester`) and training (:func:`large_unet_train`)."""
+    return dict(tester=large_unet_tester(torch, work),
+                train=large_unet_train(torch, work))
+
+
 def main():
     import torch
 
@@ -3566,6 +4185,7 @@ def main():
         cae_ln = timed("cae learners", cae_learners_phase, work, cae_tr)
         ctp = timed("cae ctp", cae_ctp_phase, work)
         sdm = timed("sdm", sdm_phase, work)
+        large = timed("large unet", large_unet_phase, work)
 
     def per_step(key, dtype="bfloat16"):
         """Sums over the layers whose route runs ``key`` in one step."""
@@ -3675,6 +4295,38 @@ def main():
                        f"inputs vs plain; launches: the CLI run's "
                        f"{r['steps']}"}
 
+    def large_use(key):
+        """A kernel's use on the 4-scale U-Net's path: its launches in the
+        training run and a step, per step in each type the layers' sums,
+        the widths it ran at; K1 also per tester case."""
+        tr = large["train"]
+        use = {"launches": tr["launches"][wrapper_of[key]],
+               "launches_per_step": tr["per_step"][key],
+               "widths_c_in_c_out": tr["widths"].get(key, []),
+               **{dname: dict({f: tr["times"][dname][key][f] for f in (
+                   "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                   "gflop")}, max_abs_err=tr["recorded"][dname][key])
+                  for dname in ("bfloat16", "float32")},
+               "per": f"one LargeUnet3D training step (channels "
+                      f"{' '.join(map(str, LARGE_CHANNELS))}, batch "
+                      f"{TRAIN_BATCH}, patch 116x124x124): each layer's "
+                      f"time times its calls; max_abs_err: every call of one "
+                      f"step on its own inputs vs plain; launches: the "
+                      f"learner's {LARGE_EPOCHS} epochs"}
+        if key == "K1":
+            t = large["tester"]["k1"]
+            use["tester"] = dict(
+                {f: t[f] for f in ("launches", "ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "max_abs_err",
+                                   "max_rel_err_f64")},
+                launches_in_cli_run=large["tester"]["launches"]["conv3x3"],
+                gflop=t["ops"] / 1e9,
+                widths_c_in_c_out=large["tester"]["widths"],
+                per="one large U-Net tester case (float32, batch 1, "
+                    "116x220x220 -> 28x132x132; each layer's time times its "
+                    "calls; bound_ms in 3xTF32)")
+        return use
+
     csrc = "stroke_prediction_tpu_torch/ops/csrc/"
     s2d = "stroke_prediction_tpu/ops/pallas/s2d.py:"
     step_per = (f"one training step (bfloat16, batch {TRAIN_BATCH}, patch "
@@ -3723,7 +4375,7 @@ def main():
              cae_train=cae_train_use("K1"),
              cae_step=learner_use("K1", "step"),
              cae_prediction=learner_use("K1", "prediction"),
-             cae_ctp=ctp_use("K1")),
+             cae_ctp=ctp_use("K1"), large_unet=large_use("K1")),
         dict({"name": "conv3x3_bwd_fused", "route": "cuda",
               "source": csrc + "conv3x3_bwd_tc.cu", "replaces": s2d + "491",
               "launches": launches["conv3x3_bwd_fused"]}, **per_step("K2"),
@@ -3731,7 +4383,12 @@ def main():
              float32=dict(per_step("K2", "float32"), per=f32_step_per),
              cae_train=cae_train_use("K2"),
              cae_prediction=learner_use("K2", "prediction"),
-             cae_ctp=ctp_use("K2")),
+             cae_ctp=ctp_use("K2"),
+             large_unet={"launches": large["train"]["launches"][
+                 "conv3x3_bwd_fused"], "launches_per_step": 0,
+                 "per": "K2 does not run on LargeUnet3D: every 3^3 conv but "
+                        "the entry is over FUSED_DW_BYTES (split route), "
+                        "the entry conv takes dW only"}),
         dict({"name": "conv3x3_bwd_dx", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dx_tc.cu",
               "replaces": s2d + "589",
@@ -3741,7 +4398,7 @@ def main():
              cae_train=cae_train_use("K3"),
              cae_step=learner_use("K3", "step"),
              cae_prediction=learner_use("K3", "prediction"),
-             cae_ctp=ctp_use("K3")),
+             cae_ctp=ctp_use("K3"), large_unet=large_use("K3")),
         dict({"name": "conv3x3_bwd_dw", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dw_tc.cu",
               "replaces": s2d + "623",
@@ -3750,7 +4407,7 @@ def main():
              float32=dict(per_step("K4", "float32"), per=f32_step_per),
              cae_train=cae_train_use("K4"),
              cae_prediction=learner_use("K4", "prediction"),
-             cae_ctp=ctp_use("K4")),
+             cae_ctp=ctp_use("K4"), large_unet=large_use("K4")),
         {"name": "edt_sites", "route": "cuda",
          "source": csrc + "edt_sites.cu",
          "replaces": "stroke_prediction_tpu/ops/edt.py:80",
@@ -3818,6 +4475,14 @@ def main():
                         f"max_abs_err: every call of the CLI runs' cases on "
                         f"its own masks vs plain (equal); launches: the "
                         f"three CLI runs' {len(SDM_FOLD) + 2} cases"},
+         "large_unet": {
+             "launches": (large["tester"]["launches"]["edt_sites"]
+                          + large["train"]["launches"]["edt_sites"]),
+             "launches_per_case": EDT_PER_STEP, "max_abs_err": 0.0,
+             "per": f"the large U-Net tester's 3 cases and the learner's "
+                    f"validation steps, {EDT_PER_STEP} a case or step; "
+                    f"every call of one tester case at (1, 28, 132, 132) "
+                    f"vs plain (equal)"},
          "single_pass": {"name": "edt_parabola",
                          "launches": launches["edt_parabola"],
                          "ms": k5[(3584, 64)]["ms"],
@@ -3882,6 +4547,29 @@ def main():
         + f"; one case device busy {sdm['case']['busy_ms']:.3f} ms in "
         f"{sdm['case']['kernels']} kernels (host {sdm['case']['wall_ms']:.2f}"
         f" ms); edt_sites {sdm['k5']}")
+    lt, ltr = large["tester"], large["train"]
+    print(f"large U-Net (channels {' '.join(map(str, LARGE_CHANNELS))}): "
+          f"tester {lt['infer_ms']:.2f} ms a case to the measures, "
+          f"{lt['total_ms']:.2f} with the dumps (a case's dumps by codec, s: "
+          f"{lt['dump_s']}); K1 {lt['k1']['launches']} launches a case, "
+          f"{lt['k1']['ms']:.4f} ms (plain {lt['k1']['plain_ms']:.4f}, cuDNN "
+          f"{lt['k1']['library_ms']:.4f}, bound {lt['k1']['bound_ms']:.4f}); "
+          f"card vs CPU 92^3 {lt['vs_cpu']:.3e}; training ms per step "
+          f"(bfloat16, batch {TRAIN_BATCH}, mean of {LARGE_TIMED_STEPS} back "
+          f"to back, CUDA events) {ltr['step_ms']['mean']:.3f} (std "
+          f"{ltr['step_ms']['std']:.3f}, host {ltr['step_ms']['host']:.3f}); "
+          f"device busy {ltr['busy']['busy_ms']:.3f} ms in "
+          f"{ltr['busy']['kernels']} kernels a step; "
+          f"{ltr['step_rate']:.2f} volumes/s by those steps; the learner's "
+          f"[throughput] line {ltr['throughput']:.2f} volumes/sec/chip (one "
+          f"traced pass of one step); K1/K3/K4 per step "
+          + "; ".join(f"{k} x{t['launches']} {t['ms']:.4f} ms (plain "
+                      f"{t['plain_ms']:.4f}, cuDNN {t['library_ms']:.4f}, "
+                      f"bound {t['bound_ms']:.4f})"
+                      for k, t in ltr["times"]["bfloat16"].items()
+                      if t["launches"])
+          + f"; card vs CPU float32 step {ltr['vs_cpu']}; nifti codec: "
+          f"{nifti_codec()}")
     print(f"phase seconds: {phase_s}")
     print(f"CAE learners' visual forward vs one forward a step: "
           f"{cae_ln['vis']}; U-Net bfloat16 step card vs CPU "

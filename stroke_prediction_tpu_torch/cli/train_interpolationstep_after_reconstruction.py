@@ -75,7 +75,8 @@ def train(args) -> CaeStepLearner:
         normalization_hours_penumbra=args.normalize,
         path_previous_base=args.inbasepath,
         path_outputs_base=args.outbasepath, seed=args.seed,
-        distances_on_training=args.distances, device=device)
+        distances_on_training=args.distances, profile_dir=args.profile,
+        device=device)
 
     # the phase-1 CAE's encoder trunk and decoder, parameters and BN
     # statistics, into the fresh model

@@ -71,7 +71,8 @@ def train(args) -> CaePredictionLearner:
         n_epochs=args.epochs, normalization_hours_penumbra=args.normalize,
         path_previous_base=args.inbasepath,
         path_outputs_base=args.outbasepath, seed=args.seed,
-        distances_on_training=args.distances, device=device)
+        distances_on_training=args.distances, profile_dir=args.profile,
+        device=device)
     if args.initbycae:
         # the phase-1 encoder's parameters and BN statistics
         enc.encoder.load_state_dict(cae.enc.encoder.state_dict())

@@ -74,7 +74,8 @@ def train(args) -> CaeReconstructionLearner:
         normalization_hours_penumbra=args.normalize,
         path_previous_base=args.inbasepath,
         path_outputs_base=args.outbasepath, seed=args.seed,
-        distances_on_training=args.distances, device=device)
+        distances_on_training=args.distances, profile_dir=args.profile,
+        device=device)
     learner.run_training()
     return learner
 

@@ -73,7 +73,8 @@ def train(args) -> CaeReconstructionLearner:
         inputs_from_images=True,        # the padded CBV / TTD
         path_previous_base=args.inbasepath,
         path_outputs_base=args.outbasepath, seed=args.seed,
-        distances_on_training=args.distances, device=device)
+        distances_on_training=args.distances, profile_dir=args.profile,
+        device=device)
     learner.run_training()
     return learner
 

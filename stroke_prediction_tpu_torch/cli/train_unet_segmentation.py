@@ -67,7 +67,7 @@ def train(args) -> UnetSegmentationLearner:
         patch_whd=patch, pad_xyz=pad,
         path_previous_base=args.inbasepath,
         path_outputs_base=args.outbasepath, seed=args.seed,
-        distances_on_training=args.distances,
+        distances_on_training=args.distances, profile_dir=args.profile,
         device=device)
     learner.run_training()
     return learner

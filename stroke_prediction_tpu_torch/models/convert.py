@@ -1,5 +1,5 @@
-"""Weights across the two packages: the flax variable trees of ``Unet3D``
-and of the CAE models <-> the port's ``state_dict()``s.
+"""Weights across the two packages: the flax variable trees of ``Unet3D``,
+``LargeUnet3D`` and of the CAE models <-> the port's ``state_dict()``s.
 
 The port keeps the JAX layouts (conv and transposed-conv kernels ``(kD, kH,
 kW, C_in, C_out)``, dense kernels ``(C_in, C_out)``, BN vectors), so the
@@ -9,8 +9,9 @@ mapping is by name only.  A BN -> conv block (``BnConvActBlock_{j}``):
   params/<block>/BatchNorm_0/BatchNorm_0/{scale,bias} -> <block'>.bn.{...}
   batch_stats/<block>/BatchNorm_0/BatchNorm_0/{mean,var} -> <block'>.bn.{...}
 
-U-Net (``unet3d``): ``UnetBlock_{i}/BnConvActBlock_{j}`` ->
-``blocks.{i}.layers.{j}``, ``Conv3d_{k}`` -> ``head.{k}``.
+U-Net (``unet3d``, five blocks; ``large_unet3d``, seven):
+``UnetBlock_{i}/BnConvActBlock_{j}`` -> ``blocks.{i}.layers.{j}``,
+``Conv3d_{k}`` -> ``head.{k}``.
 
 CAE (``cae3d``, and ``cae3d_ctp``, whose tree is ``cae3d``'s with the
 entry conv's C_in the mask's and the images' channels; ``enc3d`` /
@@ -56,9 +57,10 @@ from stroke_prediction_tpu_torch.utils.checkpoint import save_checkpoint
 
 KeyMap = Iterator[Tuple[Tuple[str, ...], str]]
 
-# U-Net blocks, layers a block and head convs; CAE encoder blocks, decoder
-# BNs, 3^3 and 1^3 convs and transposed convs; Enc3DStep's head
-_N_BLOCKS, _N_LAYERS, _N_HEAD = 5, 2, 2
+# U-Net blocks by kind, layers a block and head convs; CAE encoder blocks,
+# decoder BNs, 3^3 and 1^3 convs and transposed convs; Enc3DStep's head
+_N_BLOCKS = {"unet3d": 5, "large_unet3d": 7}
+_N_LAYERS, _N_HEAD = 2, 2
 _N_ENC, _N_DEC_BN, _N_DEC_CONV, _N_DEC_CT = 10, 12, 8, 4
 _STEP_HEAD = ("reduce1", "reduce2", "step_head")
 
@@ -80,8 +82,8 @@ def _block(jax_pre, pre) -> KeyMap:
     yield from _bn(jax_pre + ("BatchNorm_0", "BatchNorm_0"), pre + "bn.")
 
 
-def _unet_key_map() -> KeyMap:
-    for i in range(_N_BLOCKS):
+def _unet_key_map(n_blocks: int = _N_BLOCKS["unet3d"]) -> KeyMap:
+    for i in range(n_blocks):
         for j in range(_N_LAYERS):
             yield from _block((f"UnetBlock_{i}", f"BnConvActBlock_{j}"),
                               f"blocks.{i}.layers.{j}.")
@@ -106,7 +108,7 @@ def _cae_key_map(config: Dict[str, Any]) -> KeyMap:
         yield from _encoder_key_map((), "", kind == "enc3d_step")
         return
     if kind not in ("cae3d", "cae3d_ctp"):
-        raise NotImplementedError(f"model kind {kind!r}: not ported yet")
+        raise ValueError(f"Unknown model kind: {kind}")
     yield from _encoder_key_map(("enc",), "enc.", bool(config.get("step")))
     dec, pre = ("dec", "decoder"), "dec.decoder."
     for i in range(_N_DEC_BN):
@@ -120,8 +122,8 @@ def _cae_key_map(config: Dict[str, Any]) -> KeyMap:
 
 
 def _key_map(config: Dict[str, Any]) -> KeyMap:
-    if config["kind"] == "unet3d":
-        return _unet_key_map()
+    if config["kind"] in _N_BLOCKS:
+        return _unet_key_map(_N_BLOCKS[config["kind"]])
     return _cae_key_map(config)
 
 
@@ -190,10 +192,10 @@ def unet_state_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 
 
 def save_unet_checkpoint(path: str, model) -> None:
-    """Write the port's ``Unet3D`` as a ``.model`` file that the JAX
-    package's ``load_checkpoint`` / tester read (header as
-    ``unet_learner.py`` writes it)."""
-    save_checkpoint(path, unet_state_to_jax(model.state_dict()),
+    """Write the port's ``Unet3D`` or ``LargeUnet3D`` as a ``.model`` file
+    that the JAX package's ``load_checkpoint`` / tester read, with the
+    model's own header (``model.config``)."""
+    save_checkpoint(path, state_to_jax(model.state_dict(), model.config),
                     model.config)
 
 

@@ -1,7 +1,7 @@
 """Model reconstruction from checkpoint config headers (port of
-models/factory.py): the kinds ``unet3d``, ``cae3d`` (``step`` false or
-true), ``cae3d_ctp`` (with its ``padding``), ``enc3d`` and ``enc3d_step``.
-``large_unet3d`` is not ported yet."""
+models/factory.py): the kinds ``unet3d``, ``large_unet3d``, ``cae3d``
+(``step`` false or true), ``cae3d_ctp`` (with its ``padding``), ``enc3d``
+and ``enc3d_step``."""
 
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from stroke_prediction_tpu_torch.device import resolve_device
 from stroke_prediction_tpu_torch.models.cae3d import (
     Cae3D, Cae3DCtp, Dec3D, Enc3D, Enc3DCtp, Enc3DStep)
 from stroke_prediction_tpu_torch.models.convert import state_from_jax
-from stroke_prediction_tpu_torch.models.unet3d import Unet3D
+from stroke_prediction_tpu_torch.models.unet3d import LargeUnet3D, Unet3D
 from stroke_prediction_tpu_torch.utils.checkpoint import load_checkpoint
 
 
@@ -21,6 +21,8 @@ def build_model(config: Dict[str, Any]) -> torch.nn.Module:
     kind = config["kind"]
     if kind == "unet3d":
         return Unet3D(channels=tuple(config["channels"]))
+    if kind == "large_unet3d":
+        return LargeUnet3D(channels=tuple(config["channels"]))
     ch, ng = tuple(config.get("channels", ())), config.get("n_ch_global", 5)
     if kind == "cae3d":
         enc_cls = Enc3DStep if config.get("step") else Enc3D
@@ -30,7 +32,7 @@ def build_model(config: Dict[str, Any]) -> torch.nn.Module:
         return Cae3DCtp(enc=Enc3DCtp(ch, ng, padding=pad), dec=Dec3D(ch, ng))
     if kind in ("enc3d", "enc3d_step"):
         return (Enc3DStep if kind == "enc3d_step" else Enc3D)(ch, ng)
-    raise NotImplementedError(f"model kind {kind!r}: not ported yet")
+    raise ValueError(f"Unknown model kind: {kind}")
 
 
 def load_model(path: str, device: Optional[Union[str, torch.device]] = None

@@ -14,12 +14,20 @@ numpy RNG gives (the JAX learner's device cache and epoch plan).  A step is
 plain eager PyTorch: forward, loss, backward, Adam; the per-step metrics
 stay on the device until one fetch at the end of the epoch phase.
 
+Each training pass is timed from its start to that fetch
+(``utils.profiling.StepTimer``, the first pass left out as warm-up), and
+``log_throughput`` prints ``[throughput] ... volumes/sec/chip`` before the
+epoch line.  Each step runs in an ``annotate("train_step")`` /
+``"eval_step"`` range, and ``profile_dir`` traces the second training
+pass (or the only one) with ``torch.profiler`` into that directory.
+
 PNGs need matplotlib, imported when first needed; without it the learner
 prints one line and writes no PNGs.  Nothing else depends on it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Dict, List, Optional
 
@@ -34,6 +42,8 @@ from stroke_prediction_tpu_torch.models.convert import (
 from stroke_prediction_tpu_torch.train.optim import (
     beta1_ramp, set_beta1, set_learning_rate)
 from stroke_prediction_tpu_torch.utils import checkpoint as ckpt
+from stroke_prediction_tpu_torch.utils.profiling import (
+    StepTimer, annotate, trace)
 
 
 class Learner:
@@ -53,7 +63,8 @@ class Learner:
                  path_previous_base: Optional[str] = None,
                  path_outputs_base: str = "/tmp/stroke-prediction",
                  seed: int = 4, distances_on_training: bool = False,
-                 device=None):
+                 log_throughput: bool = False,
+                 profile_dir: Optional[str] = None, device=None):
         if dataloader_training.batch_size <= 1:
             raise ValueError("For normalization layers batch_size > 1 is "
                              "required.")
@@ -81,6 +92,10 @@ class Learner:
         # read by callers that count kernel launches or time steps
         self.step_counts = {"train": 0, "eval": 0, "visual": 0}
         self.train_pass_seconds: List[tuple] = []
+        # pass-level timing: the first training pass is warm-up
+        self._timer = StepTimer(warmup_steps=1)
+        self._log_throughput = log_throughput
+        self._profile_dir = profile_dir
 
         if path_previous_base is not None:
             self.load_model()
@@ -219,13 +234,17 @@ class Learner:
                              device=self.device)
                 for chunk in loader.epoch_chunks()]
         factor = self.loss_factor(epoch)
+        phase = "train_step" if training else "eval_step"
         t0 = time.perf_counter()
+        if training:
+            self._timer.start()
         results = []
         for r in rows:
             batch = {k: (None if v is None else v.index_select(0, r))
                      for k, v in data.items()}
-            results.append(self.train_step(batch, factor) if training
-                           else self.eval_step(batch, factor))
+            with annotate(phase):
+                results.append(self.train_step(batch, factor) if training
+                               else self.eval_step(batch, factor))
         # ONE device -> host fetch per epoch phase
         keys = sorted(results[0]) if results else []
         host = (torch.stack([torch.stack([m[k].float() for k in keys])
@@ -234,6 +253,9 @@ class Learner:
         if training:
             self.train_pass_seconds.append((time.perf_counter() - t0,
                                             len(rows)))
+            self._timer.stop(sum(len(r) for r in rows))
+            if self._log_throughput:
+                print(f"[throughput] {self._timer.summary()}", end=" ")
         # accumulate like MeasuresDto.add (inf propagates through +=),
         # divide like MeasuresDto.div (inf kept as-is)
         accum: Dict[str, float] = {}
@@ -251,8 +273,13 @@ class Learner:
             self.adapt_lr(epoch)
             self.adapt_betas(epoch)
 
-            m_train = self._run_epoch(self._dataloader_training, epoch,
-                                      training=True)
+            # trace the second training pass (the first holds the kernel
+            # build and warm-up), or the only one
+            trace_epoch = min(self.get_start_epoch() + 1, self._n_epochs - 1)
+            with (trace(self._profile_dir) if self._profile_dir is not None
+                  and epoch == trace_epoch else contextlib.nullcontext()):
+                m_train = self._run_epoch(self._dataloader_training, epoch,
+                                          training=True)
             self.print_epoch(epoch, "training", m_train)
             self._metric_dtos["training"].append(m_train)
 

@@ -21,7 +21,7 @@ from stroke_prediction_tpu_torch.data.dataset import KEY_IMAGES, KEY_LABELS
 from stroke_prediction_tpu_torch.eval.metrics import (
     batch_dice_loss, binary_measures)
 from stroke_prediction_tpu_torch.models.convert import (
-    unet_state_from_jax, unet_state_to_jax)
+    state_from_jax, state_to_jax)
 from stroke_prediction_tpu_torch.train.learner import Learner
 
 
@@ -50,10 +50,11 @@ class UnetSegmentationLearner(Learner):
         return self._model.config
 
     def state_tree(self) -> dict:
-        return unet_state_to_jax(self._model.state_dict())
+        return state_to_jax(self._model.state_dict(), self._model.config)
 
     def load_state_tree(self, state) -> None:
-        self._model.load_state_dict(unet_state_from_jax(state))
+        self._model.load_state_dict(state_from_jax(state,
+                                                   self._model.config))
 
     # ------------------------------------------------------------ stepping
 

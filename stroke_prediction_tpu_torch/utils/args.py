@@ -7,12 +7,13 @@ The same flags and defaults as the JAX package's ``ExpParser`` /
 ``get_args_shape_testing`` / ``get_args_sdm``, plus ``--device {cuda,cpu}``
 (default ``cuda``).
 ``--dtype`` picks the training compute type (bfloat16 by default; the tester
-runs float32) and ``--distances`` computes HD/ASSD on training batches too.
-The runtime flags of the parallel path and the profiler (``--ndevices``,
-``--distributed`` and its addresses, ``--profile``) parse as in the JAX
-package, but the port has not ported what reads them yet:
-:meth:`ExpParser.parse_args` raises ``NotImplementedError`` when one of them
-is set to anything but its default.
+runs float32), ``--distances`` computes HD/ASSD on training batches too and
+``--profile LOGDIR`` traces one training pass with ``torch.profiler``.
+The runtime flags of the parallel path (``--ndevices``, ``--distributed``
+and its addresses) parse as in the JAX package, but the port has not ported
+what reads them yet: :meth:`ExpParser.parse_args` raises
+``NotImplementedError`` when one of them is set to anything but its
+default.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Optional, Sequence
 
 # flag -> default; any other value raises until its slice is ported
 UNPORTED_FLAGS = {"ndevices": 1, "distributed": False, "coordinator": None,
-                  "nprocs": None, "procid": None, "profile": None}
+                  "nprocs": None, "procid": None}
 
 
 def _add_device(parser: argparse.ArgumentParser) -> None:

@@ -1,9 +1,12 @@
 """NIfTI-1 I/O (host layer) and volume layout helpers (port of
-utils/nifti.py, pure Python).
+utils/nifti.py).
 
-A minimal format-compatible NIfTI-1 reader/writer (gzip'd ``.nii.gz`` and
-plain ``.nii``): 348-byte header, sform affine, float32/uint8/int16/int8
-dtypes, Fortran voxel order.
+:func:`load_volume`, :func:`load_affine` and :func:`save_nifti` go through
+the native C++ codec (``utils/native_io.py``) where it is built, else
+through the pure-Python codec here, as the JAX package does: a minimal
+format-compatible NIfTI-1 reader/writer (gzip'd ``.nii.gz`` at level 6, as
+the native codec writes it, and plain ``.nii``): 348-byte header, sform
+affine, float32/uint8/int16/int8 dtypes, Fortran voxel order.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from stroke_prediction_tpu_torch.ops.resize import zoom_inplane_xyz
+from stroke_prediction_tpu_torch.utils import native_io
 
 _DTYPES = {2: np.uint8, 4: np.int16, 8: np.int32, 16: np.float32,
            64: np.float64, 256: np.int8, 512: np.uint16}
@@ -23,7 +27,7 @@ _CODES = {np.dtype(v): k for k, v in _DTYPES.items()}
 
 def _open(path: str, mode: str):
     if path.endswith(".gz"):
-        return gzip.open(path, mode)
+        return gzip.open(path, mode, compresslevel=native_io.GZIP_LEVEL)
     return open(path, mode)
 
 
@@ -98,18 +102,23 @@ def read_nifti(path: str) -> Tuple[np.ndarray, np.ndarray]:
     return np.ascontiguousarray(data), affine
 
 
+def _read(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    r = native_io.read_nifti(path)
+    return r if r is not None else read_nifti(path)
+
+
 def load_volume(path: str) -> np.ndarray:
     """(X, Y, Z) float32 volume from a NIfTI file."""
-    data, _ = read_nifti(path)
-    return np.asarray(data, np.float32)
+    return np.ascontiguousarray(_read(path)[0], dtype=np.float32)
 
 
 def load_affine(path: str) -> np.ndarray:
-    return read_nifti(path)[1]
+    return _read(path)[1]
 
 
 def save_nifti(path: str, vol_xyz: np.ndarray, affine=None) -> None:
-    write_nifti(path, vol_xyz, affine)
+    if not native_io.write_nifti(path, vol_xyz, affine):
+        write_nifti(path, vol_xyz, affine)
 
 
 def dhw_to_xyz(vol_dhw: np.ndarray) -> np.ndarray:

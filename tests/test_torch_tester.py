@@ -135,10 +135,16 @@ def test_port_unet_checkpoint_runs_in_jax(tmp_path):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("kind", ["large_unet3d"])
-def test_factory_refuses_unported_kinds(kind):
-    with pytest.raises(NotImplementedError):
-        build_model({"kind": kind, "channels": [1, 2, 3, 4, 5, 6, 1]})
+@pytest.mark.parametrize("kind", ["unet4d"])
+def test_factory_refuses_unknown_kinds(kind):
+    """A kind that neither package knows raises ``ValueError`` in both."""
+    from stroke_prediction_tpu.models.factory import build_model as jax_build
+
+    config = {"kind": kind, "channels": [1, 2, 3, 4, 5, 6, 1]}
+    with pytest.raises(ValueError, match=f"Unknown model kind: {kind}"):
+        build_model(config)
+    with pytest.raises(ValueError, match=f"Unknown model kind: {kind}"):
+        jax_build(config)
 
 
 def test_factory_loads_a_jax_cae3d_ctp_checkpoint(tmp_path):
@@ -225,7 +231,7 @@ def test_bare_3x3_conv_matches_jax(padding):
 
 @pytest.mark.parametrize("flags", [
     ["--ndevices", "4"], ["--distributed"], ["--coordinator", "h:1"],
-    ["--nprocs", "2"], ["--procid", "0"], ["--profile", "logdir"]])
+    ["--nprocs", "2"], ["--procid", "0"]])
 def test_unported_runtime_flags_raise(flags):
     """Each runtime flag of a slice not ported yet raises."""
     assert flags[0].lstrip("-") in UNPORTED_FLAGS
@@ -233,6 +239,16 @@ def test_unported_runtime_flags_raise(flags):
         get_args_unet_training(["unet.model", *flags])
     # the JAX parser takes the same command line
     JaxUnetParser().parse_args(["unet.model", *flags])
+
+
+def test_profile_flag_parses():
+    """``--profile LOGDIR`` is ported: it parses as in the JAX parser and
+    no longer raises."""
+    assert "profile" not in UNPORTED_FLAGS
+    args = get_args_unet_training(["unet.model", "--profile", "logdir"])
+    assert args.profile == "logdir"
+    assert JaxUnetParser().parse_args(
+        ["unet.model", "--profile", "logdir"]).profile == "logdir"
 
 
 def test_dataset_and_loader_match_jax():
