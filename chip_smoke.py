@@ -157,6 +157,21 @@ non-zero without one.  Phases:
    the CPU's distance, and a float64 step card vs CPU at the STEP_* limits
    (``large_step_vs_cpu``).  The tester phases also read one dump each
    through the native and the pure-Python NIfTI codec.
+12. data-parallel phase (``dp_phase``, lines prefixed ``dp``): (a) the
+   training CLI at the reference width with ``--distributed --nprocs 1
+   --procid 0`` over NCCL (the host path: the process-sharded loader and
+   the prefetch) for two epochs between two plain CLI runs of the same
+   seed: K1-K5 launches, its curves against the plain runs' spread, its
+   files; (b) two ranks on the one card over gloo (``dp_rank``, started
+   with ``torch.multiprocessing``), each one full-width training step on 3
+   rows of a global batch of 6: float64 (the plain versions) against the
+   one-process float64 step at DP_F64_REL, float32 and bfloat16 (K1-K4 on
+   each rank, 10 / 3 / 6 / 7 a step) within DP_FACTOR times their
+   one-process distance to float64 plus DP_FLOOR, a control with BN's
+   moments per rank that must fail, the ranks' gradients equal, rank 1
+   writing nothing, each rank's bfloat16 ms per step and its collectives'
+   share; then every K1-K4 call of one step at a rank's batch of 3 in both
+   types against plain, and per layer beside cuDNN.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero.
@@ -4138,6 +4153,422 @@ def large_unet_phase(torch, work):
                 train=large_unet_train(torch, work))
 
 
+# Data-parallel U-Net training on the one card.  (a) the training CLI with
+# --distributed --nprocs 1 --procid 0 over NCCL (the host path: the
+# process-sharded loader and the prefetch) against two plain CLI runs of the
+# same seed; (b) two ranks on cuda:0 over gloo (NCCL refuses two ranks on
+# one card), each one full-width step on its 3 rows of a global batch of 6.
+DP_EPOCHS = 2
+DP_WORLD = 2
+DP_SIDES = ("float64", "float32", "bfloat16", "float64, per-rank BN")
+# a rank's float64 step (plain versions) against the one-process float64
+# step: loss, gradients (of their layer's largest), running statistics (of
+# their buffer's largest) and the counted measures, relative; ASSD is a
+# float32 sum of distances that the ranks add in another order
+DP_F64_REL, DP_ASSD_REL = 1e-9, 1e-6
+# a rank's float32 / bfloat16 step against the one-process float64 step:
+# within DP_FACTOR times that type's one-process distance plus DP_FLOOR
+# (the form of the 4-scale U-Net's LARGE_F32_GRAD_FACTOR limit)
+DP_FACTOR, DP_FLOOR = 2.0, 1e-4
+# the --distributed CLI's curves against a plain run's: within twice two
+# plain runs' spread plus DP_CURVE_REL of the value
+DP_CURVE_REL = 1e-6
+DP_TIMED_STEPS = 10
+DP_RANK_TIMEOUT = 600           # seconds for both ranks together
+
+
+def dp_cli(torch, work):
+    """(a): the CLI over NCCL as rank 0 of 1 between two plain runs: launch
+    counts of K1-K5 in its run, its curves against the plain runs' spread,
+    its files."""
+    from stroke_prediction_tpu_torch.cli import train_unet_segmentation as cli
+    from stroke_prediction_tpu_torch.cli.common import free_port
+    from stroke_prediction_tpu_torch.utils.args import get_args_unet_training
+
+    def run(name, extra):
+        base = os.path.join(work, name)
+        args = get_args_unet_training(
+            [os.path.join(work, "unused.model"), "--synthetic", "--fold",
+             *map(str, TRAIN_FOLD), "--validsetsize", "0.25", "--batchsize",
+             str(TRAIN_BATCH), "--epochs", str(DP_EPOCHS), "--outbasepath",
+             base, "--device", "cuda", "--channels", *map(str, CHANNELS),
+             *extra])
+        reset_launches()
+        t0 = time.perf_counter()
+        learner = cli.train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return learner, read_launches(), wall, base
+
+    plain_a = run("dp_plain_a", [])
+    dist = run("dp_distributed", ["--distributed", "--coordinator",
+                                  f"127.0.0.1:{free_port()}", "--nprocs",
+                                  "1", "--procid", "0"])
+    plain_b = run("dp_plain_b", [])
+    learner, launches, wall, base = dist
+    if not (learner._mesh is not None and learner._mesh.world == 1
+            and learner._dataloader_training.process_shard):
+        raise AssertionError("dp: the --distributed run did not take the "
+                             "mesh and the process-sharded loader")
+    steps = dict(learner.step_counts)
+    per = dp_launches()
+    n_fwd = steps["train"] + steps["eval"] + steps["visual"]
+    want = {"conv3x3": per["K1"] * n_fwd,
+            "conv3x3_bwd_fused": per["K2"] * steps["train"],
+            "conv3x3_bwd_dx": per["K3"] * steps["train"],
+            "conv3x3_bwd_dw": per["K4"] * steps["train"],
+            "edt_sites": EDT_PER_STEP * steps["eval"], "edt_parabola": 0}
+    print(f"dp: CLI --distributed (NCCL, rank 0 of 1), {DP_EPOCHS} epochs in "
+          f"{wall:.2f} s (plain {plain_a[2]:.2f}, {plain_b[2]:.2f} s); steps "
+          f"{steps}; launches {launches}, expected {want}")
+    for name, n in want.items():
+        if launches[name] != n or (n < 1 and name != "edt_parabola"):
+            raise AssertionError(f"dp: {name} launched {launches[name]} "
+                                 f"times, expected {n}")
+
+    def curve_gap(x, y):
+        gap = 0.0
+        for phase in ("training", "validate"):
+            for a, b in zip(x._metric_dtos[phase], y._metric_dtos[phase]):
+                for k, v in b.items():
+                    if math.isfinite(v) or a[k] != v:
+                        gap = max(gap, abs(a[k] - v) / max(abs(v), 1e-30)
+                                  if math.isfinite(v) else math.inf)
+        return gap
+
+    spread = curve_gap(plain_b[0], plain_a[0])
+    gap = curve_gap(learner, plain_a[0])
+    print(f"dp: --distributed curves vs a plain run: largest relative gap "
+          f"{gap:.3e}; two plain runs {spread:.3e}; limit "
+          f"{2 * spread + DP_CURVE_REL:.3e}; losses "
+          f"{[m['loss'] for m in learner._metric_dtos['training']]} / "
+          f"{[m['loss'] for m in plain_a[0]._metric_dtos['training']]}")
+    if gap > 2 * spread + DP_CURVE_REL:
+        raise AssertionError("dp: the --distributed run's curves leave the "
+                             "plain runs' spread")
+    check_artifacts(base, ["_unet.model", "_unet.optim", "_unet.json",
+                           "_unet_final.model"],
+                    ["_visual_1.png", "_visual_plots.png"], "dp")
+    return dict(launches=launches, steps=steps, wall_s=wall,
+                curve_gap=gap, curve_spread=spread), plain_a[0]
+
+
+def dp_launches():
+    """K1-K4 launches of one U-Net training step by the route rule."""
+    from stroke_prediction_tpu_torch.ops.conv3x3 import bwd_route
+
+    routes = [bwd_route(ci, co, i > 0) for i, (*_, ci, co) in
+              enumerate(unet_conv_shapes(PATCH_DHW, CHANNELS))]
+    return {"K1": len(routes), "K2": routes.count("fused"),
+            "K3": routes.count("split"),
+            "K4": routes.count("split") + routes.count("dw")}
+
+
+def dp_learner(torch, inputs, dtype, mesh, distances, base):
+    """A U-Net learner at ``inputs``' weights in ``dtype`` on the card."""
+    import types
+
+    from stroke_prediction_tpu_torch.models.unet3d import Unet3D
+    from stroke_prediction_tpu_torch.train.optim import make_optimizer
+    from stroke_prediction_tpu_torch.train.unet_learner import (
+        UnetSegmentationLearner)
+
+    model = Unet3D(CHANNELS, compute_dtype=dtype)
+    model.load_state_dict(inputs["state"])
+    model.to("cuda", torch.promote_types(dtype, torch.float32))
+    return UnetSegmentationLearner(
+        types.SimpleNamespace(batch_size=TRAIN_BATCH), None, model,
+        make_optimizer(model.parameters(), 1e-3, betas=(0.99, 0.999),
+                       weight_decay=1e-5), None, 1,
+        patch_whd=PATCH_DHW[::-1], pad_xyz=(20, 20, 20),
+        path_outputs_base=base, distances_on_training=distances,
+        device=torch.device("cuda", torch.cuda.current_device()),
+        mesh=mesh)
+
+
+def dp_patches(torch, inputs, sharding, dtype):
+    wide = torch.promote_types(dtype, torch.float32)
+    return (sharding.take(inputs["images"]).contiguous().to("cuda"),
+            sharding.take(inputs["labels"]).contiguous().to("cuda", wide))
+
+
+def dp_step(torch, inputs, side, mesh=None, distances=True, base=None):
+    """One U-Net training step of ``side`` (a DP_SIDES entry: float64 with
+    the plain versions of K1-K4, float32 or bfloat16 with the kernels; the
+    control with BN's moments left per rank) at ``inputs``' weights: on
+    this rank's rows of the global batch where ``mesh`` is given, else on
+    the whole batch -> ({loss, grads, stats, metrics, launches}, learner)."""
+    from stroke_prediction_tpu_torch.models import layers
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+    from stroke_prediction_tpu_torch.parallel.mesh import row_sharding
+
+    dtype = getattr(torch, side.split(",")[0])
+    learner = dp_learner(torch, inputs, dtype, mesh, distances,
+                         base or os.path.join(tempfile.gettempdir(), "dp"))
+    sharding = row_sharding(mesh, len(inputs["images"]))
+    imgs, labs = dp_patches(torch, inputs, sharding, dtype)
+    names = ("conv3x3", "conv3x3_bwd_fused", "conv3x3_bwd_dx",
+             "conv3x3_bwd_dw")
+    real = {n: getattr(cm, n) for n in names}
+    reduce_sums = layers.reduce_sums
+    try:
+        if dtype == torch.float64:
+            for n in names:
+                setattr(cm, n, getattr(cm, n + "_plain"))
+        if "per-rank" in side:
+            layers.reduce_sums = lambda *xs: xs
+        reset_launches()
+        with sharding.active():
+            metrics = learner.train_patches(imgs, labs)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        for n in names:
+            setattr(cm, n, real[n])
+        layers.reduce_sums = reduce_sums
+    model = learner._model
+    return dict(loss=float(metrics["loss"]),
+                grads={k: p.grad.cpu().double()
+                       for k, p in model.named_parameters()},
+                stats={k: b.cpu().double() for k, b in model.named_buffers()},
+                metrics={k: float(v) for k, v in metrics.items()},
+                launches=launches), learner
+
+
+def dp_time(torch, inputs, mesh):
+    """DP_TIMED_STEPS bfloat16 steps of this rank back to back (the CLI's
+    training step: no distances), host clock between synchronizes; then as
+    many again with a synchronize around each all_reduce, whose time is the
+    collectives' -> ms per step, instrumented ms per step, collective ms
+    per step, all_reduce calls per step."""
+    import torch.distributed as dist
+
+    from stroke_prediction_tpu_torch.parallel.mesh import row_sharding
+
+    learner = dp_learner(torch, inputs, torch.bfloat16, mesh, False,
+                         os.path.join(tempfile.gettempdir(), "dp_time"))
+    sharding = row_sharding(mesh, len(inputs["images"]))
+    imgs, labs = dp_patches(torch, inputs, sharding, torch.bfloat16)
+
+    def steps(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with sharding.active():
+                learner.train_patches(imgs, labs)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    steps(1)
+    step_ms = steps(DP_TIMED_STEPS)
+    real, spent = dist.all_reduce, [0.0, 0]
+
+    def timed(t, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work = real(t, *a, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return work
+
+    dist.all_reduce = timed
+    try:
+        inst_ms = steps(DP_TIMED_STEPS)
+    finally:
+        dist.all_reduce = real
+    return dict(step_ms=step_ms, instrumented_ms=inst_ms,
+                collective_ms=1e3 * spent[0] / DP_TIMED_STEPS,
+                calls=spent[1] / DP_TIMED_STEPS)
+
+
+def dp_rank(rank, coordinator, inputs_path, outdir):
+    """One rank of (b), on cuda:0 over gloo: each DP_SIDES step on its rows,
+    the bfloat16 step timed, the lead-only writes of its learner into its
+    own directory -> outdir/dp_rank<rank>.pt."""
+    import torch
+
+    from stroke_prediction_tpu_torch.parallel import distributed
+    from stroke_prediction_tpu_torch.parallel.mesh import make_data_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(coordinator, DP_WORLD, rank, backend="gloo",
+                           device="cuda")
+    mesh = make_data_mesh()
+    inputs = torch.load(inputs_path)
+    base = os.path.join(outdir, f"files{rank}", "unet")
+    os.makedirs(os.path.dirname(base))
+    out, learners = {}, {}
+    for side in DP_SIDES:
+        out[side], learners[side] = dp_step(torch, inputs, side, mesh,
+                                            base=base)
+    learners["bfloat16"].save_model()
+    learners["bfloat16"].save_training()
+    out["timing"] = dp_time(torch, inputs, mesh)
+    out["device"] = str(torch.cuda.current_device())
+    distributed.shutdown()
+    torch.save(out, os.path.join(outdir, f"dp_rank{rank}.pt"))
+
+
+def dp_distance(got, ref):
+    """A step's results against a reference step's: loss relative; the
+    largest gradient error over its layer's largest reference gradient,
+    and |err| / |grad| over a layer; running statistics over their
+    buffer's largest; the measures relative (ASSD apart)."""
+    scale, elem, d2, r2 = {}, {}, {}, {}
+    for k, g in ref["grads"].items():
+        lay = unet_layer_of(k)
+        scale[lay] = max(scale.get(lay, 0.0), float(g.abs().max()))
+    for k, g in ref["grads"].items():
+        lay, diff = unet_layer_of(k), got["grads"][k] - g
+        elem[lay] = max(elem.get(lay, 0.0),
+                        float(diff.abs().max()) / scale[lay])
+        d2[lay] = d2.get(lay, 0.0) + float((diff ** 2).sum())
+        r2[lay] = r2.get(lay, 0.0) + float((g ** 2).sum())
+    worst = max(elem, key=elem.get)
+    metric = {}
+    for k, v in ref["metrics"].items():
+        w = got["metrics"][k]
+        metric[k] = (abs(w - v) / max(abs(v), 1e-30) if math.isfinite(v)
+                     else (0.0 if w == v else math.inf))
+    return dict(
+        loss=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+        element=elem[worst], element_at=worst,
+        layer=max((d2[lay] / r2[lay]) ** 0.5 for lay in d2),
+        stats=max(float((got["stats"][k] - b).abs().max())
+                  / max(float(b.abs().max()), 1e-30)
+                  for k, b in ref["stats"].items()),
+        metrics=max(v for k, v in metric.items() if not k.endswith("assd")),
+        assd=max(v for k, v in metric.items() if k.endswith("assd")))
+
+
+def dp_ranks(torch, work, learner):
+    """(b): two ranks on the one card over gloo through the library API,
+    each one full-width step on 3 of a global batch of 6 (the first six
+    training cases, seeded crops and weights), against the one-process
+    steps on the whole batch: float64 at DP_F64_REL, float32 and bfloat16
+    within DP_FACTOR times their one-process distance to float64 plus
+    DP_FLOOR, the per-rank BN control failing DP_F64_REL; launches per
+    rank; the ranks' gradients equal; rank 1 wrote nothing; ms per step and
+    the collectives' share.  Then the kernels at the ranks' batch-3 shapes:
+    every call of one bfloat16 and one float32 step against plain, and
+    per layer beside cuDNN."""
+    from stroke_prediction_tpu_torch.cli.common import free_port
+    from stroke_prediction_tpu_torch.data.augment import (
+        crop_patch, random_offsets)
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_IMAGES, KEY_LABELS)
+    from stroke_prediction_tpu_torch.models.unet3d import Unet3D
+
+    data, _ = learner.device_data(learner._dataloader_training)
+    images = data[KEY_IMAGES][:TRAIN_BATCH].cpu()
+    labels = data[KEY_LABELS][:TRAIN_BATCH].cpu()
+    offsets = random_offsets(torch.Generator().manual_seed(2), TRAIN_BATCH,
+                             tuple(images.shape[1:4]), PATCH_DHW[::-1])
+    imgs, labs = crop_patch(images, labels, offsets, PATCH_DHW[::-1],
+                            (20, 20, 20))
+    model = Unet3D(CHANNELS, generator=torch.Generator().manual_seed(3))
+    inputs = {"state": model.state_dict(), "images": imgs, "labels": labs}
+    path = os.path.join(work, "dp_inputs.pt")
+    torch.save(inputs, path)
+    one = {side: dp_step(torch, inputs, side)[0] for side in DP_SIDES[:3]}
+
+    outdir = os.path.join(work, "dp_ranks")
+    os.makedirs(outdir)
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        dp_rank, args=(f"127.0.0.1:{free_port()}", path, outdir),
+        nprocs=DP_WORLD, join=False, start_method="spawn")
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > DP_RANK_TIMEOUT:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"dp: the ranks did not end in "
+                                 f"{DP_RANK_TIMEOUT} s")
+    ranks = [torch.load(os.path.join(outdir, f"dp_rank{r}.pt"))
+             for r in range(DP_WORLD)]
+    print(f"dp: {DP_WORLD} ranks on {[r['device'] for r in ranks]} over "
+          f"gloo in {time.perf_counter() - t0:.1f} s")
+
+    per = dp_launches()
+    want = {"conv3x3": per["K1"], "conv3x3_bwd_fused": per["K2"],
+            "conv3x3_bwd_dx": per["K3"], "conv3x3_bwd_dw": per["K4"],
+            "edt_sites": EDT_PER_STEP, "edt_parabola": 0}
+    one_f64 = {side: dp_distance(one[side], one["float64"])
+               for side in DP_SIDES[1:3]}
+    res = {"one_process_vs_f64": one_f64, "ranks": []}
+    for r, got in enumerate(ranks):
+        d = {side: dp_distance(got[side], one["float64"])
+             for side in DP_SIDES}
+        for side in DP_SIDES:
+            print(f"dp: rank {r} {side} vs the one-process float64 step: "
+                  f"{d[side]}; launches {got[side]['launches']}")
+        f64 = d["float64"]
+        if max(f64["loss"], f64["element"], f64["layer"], f64["stats"],
+               f64["metrics"]) > DP_F64_REL or f64["assd"] > DP_ASSD_REL:
+            raise AssertionError(f"dp: rank {r}'s float64 step is off the "
+                                 f"one-process step: {f64}")
+        if d["float64, per-rank BN"]["element"] <= DP_F64_REL:
+            raise AssertionError(f"dp: rank {r}: the per-rank BN control "
+                                 f"passes: {d['float64, per-rank BN']}")
+        for side in DP_SIDES[1:3]:
+            limit = {m: DP_FACTOR * one_f64[side][m] + DP_FLOOR
+                     for m in ("loss", "element", "layer", "stats")}
+            over = {m: d[side][m] for m in limit if d[side][m] > limit[m]}
+            print(f"dp: rank {r} {side}: limits {limit}")
+            if over:
+                raise AssertionError(f"dp: rank {r} {side} beyond "
+                                     f"{limit}: {over}")
+            if got[side]["launches"] != want:
+                raise AssertionError(f"dp: rank {r} {side} launches "
+                                     f"{got[side]['launches']}, expected "
+                                     f"{want}")
+        res["ranks"].append(dict(
+            vs_f64={s: {m: d[s][m] for m in ("loss", "element", "layer",
+                                              "stats", "metrics", "assd")}
+                    for s in DP_SIDES},
+            launches_per_step=ranks[r]["bfloat16"]["launches"],
+            timing=got["timing"]))
+        print(f"dp: rank {r} bfloat16 step (batch {TRAIN_BATCH // DP_WORLD} "
+              f"a rank, both ranks on the one card): {got['timing']}")
+    for side in DP_SIDES:
+        a, b = ranks[0][side], ranks[1][side]
+        if a["loss"] != b["loss"] or any(
+                not torch.equal(a["grads"][k], b["grads"][k])
+                for k in a["grads"]):
+            raise AssertionError(f"dp: {side}: the ranks' losses or "
+                                 f"gradients differ")
+    lead = sorted(os.listdir(os.path.join(outdir, "files0")))
+    other = os.listdir(os.path.join(outdir, "files1"))
+    print(f"dp: rank 0 wrote {lead}, rank 1 {other}")
+    if other or not {"unet_unet.model", "unet_unet.optim",
+                     "unet_unet.json"} <= set(lead):
+        raise AssertionError("dp: the lead alone must write")
+
+    half = dict(inputs, images=imgs[:TRAIN_BATCH // DP_WORLD],
+                labels=labs[:TRAIN_BATCH // DP_WORLD])
+    recorded, times = {}, {}
+    for side in DP_SIDES[1:3]:
+        calls, sites, worst = cae_recorded(
+            torch, lambda: dp_step(torch, half, side, distances=False),
+            grad=True)
+        cae_check_recorded(f"one {side} step at a rank's batch "
+                           f"{TRAIN_BATCH // DP_WORLD}", calls, sites, worst,
+                           per, {}, "dp")
+        recorded[side] = worst
+        times[side] = cae_step_kernel_times(torch, calls, per, "dp")
+    res.update(recorded=recorded, times=times)
+    return res
+
+
+def dp_phase(torch, work):
+    """Data-parallel U-Net training: (a) :func:`dp_cli`, (b)
+    :func:`dp_ranks`."""
+    cli, learner = dp_cli(torch, work)
+    return dict(cli=cli, **dp_ranks(torch, work, learner))
+
+
 def main():
     import torch
 
@@ -4186,6 +4617,7 @@ def main():
         ctp = timed("cae ctp", cae_ctp_phase, work)
         sdm = timed("sdm", sdm_phase, work)
         large = timed("large unet", large_unet_phase, work)
+        dp = timed("data parallel", dp_phase, work)
 
     def per_step(key, dtype="bfloat16"):
         """Sums over the layers whose route runs ``key`` in one step."""
@@ -4327,6 +4759,27 @@ def main():
                     "calls; bound_ms in 3xTF32)")
         return use
 
+    def dp_use(key):
+        """A kernel's use on the data-parallel path: its launches in the
+        --distributed CLI run (NCCL, rank 0 of 1), a rank's launches a step
+        in (b), and per step at a rank's batch the layers' sums (both
+        types)."""
+        return {"launches": dp["cli"]["launches"][wrapper_of[key]],
+                "launches_per_step_per_rank": [
+                    r["launches_per_step"][wrapper_of[key]]
+                    for r in dp["ranks"]],
+                **{side: dict({f: dp["times"][side][key][f] for f in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "gflop")}, max_abs_err=dp["recorded"][side][key])
+                   for side in ("bfloat16", "float32")},
+                "per": f"one data-parallel training step of one rank "
+                       f"({DP_WORLD} ranks, global batch {TRAIN_BATCH}, "
+                       f"{TRAIN_BATCH // DP_WORLD} a rank, patch 68x104x104):"
+                       f" each layer's time times its calls; max_abs_err: "
+                       f"every call of one step at a rank's shapes vs "
+                       f"plain; launches: the --distributed CLI run's "
+                       f"{DP_EPOCHS} epochs"}
+
     csrc = "stroke_prediction_tpu_torch/ops/csrc/"
     s2d = "stroke_prediction_tpu/ops/pallas/s2d.py:"
     step_per = (f"one training step (bfloat16, batch {TRAIN_BATCH}, patch "
@@ -4375,7 +4828,8 @@ def main():
              cae_train=cae_train_use("K1"),
              cae_step=learner_use("K1", "step"),
              cae_prediction=learner_use("K1", "prediction"),
-             cae_ctp=ctp_use("K1"), large_unet=large_use("K1")),
+             cae_ctp=ctp_use("K1"), large_unet=large_use("K1"),
+             data_parallel=dp_use("K1")),
         dict({"name": "conv3x3_bwd_fused", "route": "cuda",
               "source": csrc + "conv3x3_bwd_tc.cu", "replaces": s2d + "491",
               "launches": launches["conv3x3_bwd_fused"]}, **per_step("K2"),
@@ -4388,7 +4842,8 @@ def main():
                  "conv3x3_bwd_fused"], "launches_per_step": 0,
                  "per": "K2 does not run on LargeUnet3D: every 3^3 conv but "
                         "the entry is over FUSED_DW_BYTES (split route), "
-                        "the entry conv takes dW only"}),
+                        "the entry conv takes dW only"},
+             data_parallel=dp_use("K2")),
         dict({"name": "conv3x3_bwd_dx", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dx_tc.cu",
               "replaces": s2d + "589",
@@ -4398,7 +4853,8 @@ def main():
              cae_train=cae_train_use("K3"),
              cae_step=learner_use("K3", "step"),
              cae_prediction=learner_use("K3", "prediction"),
-             cae_ctp=ctp_use("K3"), large_unet=large_use("K3")),
+             cae_ctp=ctp_use("K3"), large_unet=large_use("K3"),
+             data_parallel=dp_use("K3")),
         dict({"name": "conv3x3_bwd_dw", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dw_tc.cu",
               "replaces": s2d + "623",
@@ -4407,7 +4863,8 @@ def main():
              float32=dict(per_step("K4", "float32"), per=f32_step_per),
              cae_train=cae_train_use("K4"),
              cae_prediction=learner_use("K4", "prediction"),
-             cae_ctp=ctp_use("K4"), large_unet=large_use("K4")),
+             cae_ctp=ctp_use("K4"), large_unet=large_use("K4"),
+             data_parallel=dp_use("K4")),
         {"name": "edt_sites", "route": "cuda",
          "source": csrc + "edt_sites.cu",
          "replaces": "stroke_prediction_tpu/ops/edt.py:80",
@@ -4483,6 +4940,14 @@ def main():
                     f"validation steps, {EDT_PER_STEP} a case or step; "
                     f"every call of one tester case at (1, 28, 132, 132) "
                     f"vs plain (equal)"},
+         "data_parallel": {
+             "launches": dp["cli"]["launches"]["edt_sites"],
+             "launches_per_step_per_rank": [
+                 r["launches_per_step"]["edt_sites"] for r in dp["ranks"]],
+             "per": f"the --distributed CLI run's validation steps, "
+                    f"{EDT_PER_STEP} a step; in (b) each rank's training "
+                    f"step with distances, the maximum reduced over the "
+                    f"ranks"},
          "single_pass": {"name": "edt_parabola",
                          "launches": launches["edt_parabola"],
                          "ms": k5[(3584, 64)]["ms"],
@@ -4570,6 +5035,16 @@ def main():
                       if t["launches"])
           + f"; card vs CPU float32 step {ltr['vs_cpu']}; nifti codec: "
           f"{nifti_codec()}")
+    print(f"data parallel: --distributed CLI (NCCL) curves vs plain "
+          f"{dp['cli']['curve_gap']:.3e} (two plain runs "
+          f"{dp['cli']['curve_spread']:.3e}); {DP_WORLD} gloo ranks on the "
+          f"one card: " + "; ".join(
+              f"rank {i} float64 vs one process {r['vs_f64']['float64']}, "
+              f"bfloat16 step {r['timing']['step_ms']:.3f} ms (collectives "
+              f"{r['timing']['collective_ms']:.3f} of "
+              f"{r['timing']['instrumented_ms']:.3f} ms instrumented, "
+              f"{r['timing']['calls']:.0f} all_reduce a step)"
+              for i, r in enumerate(dp["ranks"])))
     print(f"phase seconds: {phase_s}")
     print(f"CAE learners' visual forward vs one forward a step: "
           f"{cae_ln['vis']}; U-Net bfloat16 step card vs CPU "

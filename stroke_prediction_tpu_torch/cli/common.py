@@ -1,20 +1,34 @@
-"""Shared CLI wiring: dataset construction from args (port of
-cli/common.py).
+"""Shared CLI wiring: dataset construction and the data-parallel mesh
+from args (port of cli/common.py).
 
 The synthetic provider caches its cases under
 ``<tempfile.gettempdir()>/stroke_tpu_torch_synth_cache``, a directory of
 its own: the JAX package writes its cache files in place, so the port never
 reads them (the cases are byte-identical, only the files are not shared).
+
+Data parallelism from the flags: ``--ndevices N`` runs N local processes,
+one card each (``--device cpu``: N gloo processes on the CPU), which
+:func:`spawn_ranks` starts; ``--distributed`` joins this process to the
+process group at ``--coordinator`` as rank ``--procid`` of ``--nprocs``.
+In each process :func:`make_mesh` returns the mesh and the device.
 """
 
 from __future__ import annotations
 
+import copy
+import importlib
 import os
+import socket
 import tempfile
 from typing import Optional, Sequence, Tuple
 
+import torch
+
 from stroke_prediction_tpu_torch.data.dataset import (
     NiftiCaseProvider, StrokeDataset3D, SyntheticCaseProvider)
+from stroke_prediction_tpu_torch.device import resolve_device
+from stroke_prediction_tpu_torch.parallel import distributed
+from stroke_prediction_tpu_torch.parallel.mesh import Mesh, make_data_mesh
 
 # The reference's institute-share defaults; only used when --datadir /
 # --clinicalcsv are given or reachable.
@@ -46,3 +60,48 @@ def make_dataset(args, modalities: Sequence[str], labels: Sequence[str],
     resample = args.xyresample if args.xyresample != 1 else None
     return StrokeDataset3D(provider, modalities, labels, resample=resample,
                            flip_split_id=flip_split_id, pad=pad)
+
+
+def free_port() -> int:
+    """A TCP port free on localhost now."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(module: str, args) -> None:
+    """Run ``module.train(args)`` in ``args.ndevices`` processes, rank
+    ``r`` on ``cuda:r`` (or the CPU with ``--device cpu``), joined by a
+    process group on a free localhost port; returns when all have ended
+    and raises if one failed.  Raises before it starts any when the
+    machine has fewer cards than ranks: ranks never share a card."""
+    n = args.ndevices
+    if resolve_device(args.device).type == "cuda" and \
+            n > torch.cuda.device_count():
+        raise RuntimeError(f"--ndevices {n} needs {n} cards, this machine "
+                           f"has {torch.cuda.device_count()}")
+    torch.multiprocessing.start_processes(
+        _rank_main, args=(module, args, f"127.0.0.1:{free_port()}"),
+        nprocs=n, join=True, start_method="spawn")
+
+
+def _rank_main(rank: int, module: str, args, coordinator: str) -> None:
+    args = copy.copy(args)
+    args.coordinator, args.nprocs, args.procid = (coordinator,
+                                                  args.ndevices, rank)
+    importlib.import_module(module).train(args)
+
+
+def make_mesh(args) -> Tuple[Optional[Mesh], torch.device]:
+    """(mesh, device) of this process.  ``--distributed``, or a rank of
+    :func:`spawn_ranks` (``--ndevices N`` with the addresses filled in):
+    joins the process group and returns the mesh over it and this rank's
+    device.  Otherwise (None, the ``--device``)."""
+    if args.distributed and args.ndevices > 1:
+        raise NotImplementedError("--distributed with --ndevices > 1 (more "
+                                  "than one card a process) is not ported")
+    if args.procid is None:
+        return None, resolve_device(args.device)
+    device = distributed.initialize(args.coordinator, args.nprocs,
+                                    args.procid, device=args.device)
+    return make_data_mesh(), device

@@ -13,7 +13,7 @@ from stroke_prediction_tpu_torch.data.dataset import (
     LABEL_CORE, LABEL_PENU, MOD_CBV, MOD_TTD)
 from stroke_prediction_tpu_torch.data.loader import get_testdata
 from stroke_prediction_tpu_torch.eval.unet_tester import UnetSegmentationTester
-from stroke_prediction_tpu_torch.utils.args import get_args_unet_training
+from stroke_prediction_tpu_torch.utils.args import get_args_unet_testing
 
 
 def test(args) -> UnetSegmentationTester:
@@ -31,5 +31,5 @@ def test(args) -> UnetSegmentationTester:
 
 if __name__ == "__main__":
     print(datetime.datetime.now())
-    test(get_args_unet_training())
+    test(get_args_unet_testing())
     print(datetime.datetime.now())

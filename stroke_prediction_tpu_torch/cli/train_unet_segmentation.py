@@ -12,19 +12,32 @@ Writes ``<BASE>_unet.{model,optim,json}`` on each new validation optimum,
 ``<BASE>_unet_final.model`` at the end and, where matplotlib is installed,
 the PNGs.  ``--inbasepath`` resumes from such a snapshot, written by either
 package.
+
+Data parallel, each step the one-process step on the global batch (only
+rank 0 writes files):
+
+* ``--ndevices N``: N processes on this machine, one card each (``--device
+  cpu``: N CPU processes over gloo), each caching the cases and running its
+  rows of every batch whose size divides N, the whole of any other;
+* ``--distributed --coordinator HOST:PORT --nprocs P --procid I``: this
+  process is rank I of P, one card each, and loads only its share of each
+  batch (a last batch that does not divide over P is dropped).
 """
 
 import datetime
+from typing import Optional
 
 import torch
 
-from stroke_prediction_tpu_torch.cli.common import make_dataset
+from stroke_prediction_tpu_torch.cli.common import (
+    make_dataset, make_mesh, spawn_ranks)
 from stroke_prediction_tpu_torch.data.dataset import (
     LABEL_CORE, LABEL_PENU, MOD_CBV, MOD_TTD)
 from stroke_prediction_tpu_torch.data.loader import (
     get_stroke_shape_training_data)
-from stroke_prediction_tpu_torch.device import resolve_device
 from stroke_prediction_tpu_torch.models.unet3d import Unet3D
+from stroke_prediction_tpu_torch.parallel import distributed
+from stroke_prediction_tpu_torch.parallel.distributed import is_lead
 from stroke_prediction_tpu_torch.train.optim import (
     make_optimizer, multistep_lr)
 from stroke_prediction_tpu_torch.train.unet_learner import (
@@ -32,7 +45,14 @@ from stroke_prediction_tpu_torch.train.unet_learner import (
 from stroke_prediction_tpu_torch.utils.args import get_args_unet_training
 
 
-def train(args) -> UnetSegmentationLearner:
+def train(args) -> Optional[UnetSegmentationLearner]:
+    """Train; returns the learner, or None where ``--ndevices`` ran the
+    ranks in processes of their own."""
+    if args.ndevices > 1 and not args.distributed and args.procid is None:
+        spawn_ranks("stroke_prediction_tpu_torch.cli.train_unet_segmentation",
+                    args)
+        return None
+    mesh, device = make_mesh(args)
     learning_rate = 1e-3
     betas = (0.99, 0.999)
     pad = tuple(args.padding)
@@ -41,7 +61,6 @@ def train(args) -> UnetSegmentationLearner:
         # small synthetic smoke geometry: patch = minimum valid-conv size
         patch = (44, 44, 44)
 
-    device = resolve_device(args.device)
     unet = Unet3D(channels=tuple(args.channels),
                   generator=torch.Generator().manual_seed(args.seed),
                   compute_dtype=getattr(torch, args.dtype)).to(device)
@@ -54,13 +73,14 @@ def train(args) -> UnetSegmentationLearner:
                            flip_split_id=args.hemisflipid, pad=pad)
     ds_train, ds_valid = get_stroke_shape_training_data(
         dataset, args.fold, args.validsetsize, seed=args.seed,
-        batchsize=args.batchsize)
-    print("Size training set:", len(ds_train.indices),
-          "samples | Size validation set:",
-          len(ds_valid.indices) if ds_valid else 0,
-          "samples | Capacity batch:", args.batchsize, "samples")
-    print("# training batches:", len(ds_train),
-          "| # validation batches:", len(ds_valid) if ds_valid else 0)
+        batchsize=args.batchsize, process_shard=args.distributed)
+    if is_lead():
+        print("Size training set:", len(ds_train.indices),
+              "samples | Size validation set:",
+              len(ds_valid.indices) if ds_valid else 0,
+              "samples | Capacity batch:", args.batchsize, "samples")
+        print("# training batches:", len(ds_train),
+              "| # validation batches:", len(ds_valid) if ds_valid else 0)
 
     learner = UnetSegmentationLearner(
         ds_train, ds_valid, unet, optimizer, sched, n_epochs=args.epochs,
@@ -68,8 +88,10 @@ def train(args) -> UnetSegmentationLearner:
         path_previous_base=args.inbasepath,
         path_outputs_base=args.outbasepath, seed=args.seed,
         distances_on_training=args.distances, profile_dir=args.profile,
-        device=device)
+        device=device, mesh=mesh)
     learner.run_training()
+    if mesh is not None:
+        distributed.shutdown()
     return learner
 
 

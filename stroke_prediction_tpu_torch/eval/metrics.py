@@ -3,6 +3,11 @@
 HD/ASSD come from surface distances computed on the device with the
 separable EDT (ops/edt.py, kernel K5); they are inf when either mask is
 empty.
+
+In a sharded data-parallel step (``parallel.mesh.current()``) the Dice
+loss and :func:`binary_measures` are those of the global batch: their
+sums (the Dice's three, the measures' counts and distance sums, the
+distance maximum) are reduced over the ranks before any ratio is formed.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ import torch.nn.functional as F
 
 from stroke_prediction_tpu_torch.core.dto import BinaryMeasures
 from stroke_prediction_tpu_torch.ops.edt import edt_to_sites
+from stroke_prediction_tpu_torch.parallel.collectives import (
+    reduce_max, reduce_sums)
 
 
 def batch_dice_loss(outputs: torch.Tensor, targets: torch.Tensor,
@@ -28,9 +35,11 @@ def batch_dice_loss(outputs: torch.Tensor, targets: torch.Tensor,
     o = outputs.to(wide)
     t = targets.to(wide)
     axes = tuple(range(o.ndim - 1))
-    inter = torch.sum(o * t, dim=axes)
-    denom = torch.sum(o * o, dim=axes) + torch.sum(t * t, dim=axes)
-    dice = (2.0 * inter + epsilon) / (denom + epsilon)
+    # global sums first; epsilon is added once, to the global sums
+    inter, oo, tt = reduce_sums(torch.sum(o * t, dim=axes),
+                                torch.sum(o * o, dim=axes),
+                                torch.sum(t * t, dim=axes))
+    dice = (2.0 * inter + epsilon) / (oo + tt + epsilon)
     w = torch.as_tensor(label_weights, dtype=wide, device=o.device)
     return 1.0 - torch.sum(w * dice)
 
@@ -78,52 +87,79 @@ def _to_b3(m: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unsupported mask rank {m.ndim}")
 
 
-def _measures(r: torch.Tensor, t: torch.Tensor, n: int,
-              with_distances: bool) -> BinaryMeasures:
-    """The measures of ``n`` groups of the thresholded masks' leading axis
-    (one group: the whole arrays), each field (n,)."""
+def _measure_sums(r: torch.Tensor, t: torch.Tensor, n: int,
+                  with_distances: bool) -> dict:
+    """The sums behind the measures of ``n`` groups of the thresholded
+    masks' leading axis (one group: the whole arrays), each (n,): ``tp``,
+    ``fp``, ``fn``, ``tn``; with distances the surface distances' maximum
+    ``dmax``, sum ``dsum`` and count ``dcount`` over both directions.
+    Sums of disjoint parts of a group add, maxima take the maximum."""
     rf = r.reshape(n, -1).float()
     tf = t.reshape(n, -1).float()
-
-    tp = torch.sum(rf * tf, 1)
-    fp = torch.sum(rf * (1 - tf), 1)
-    fn = torch.sum((1 - rf) * tf, 1)
-    tn = torch.sum((1 - rf) * (1 - tf), 1)
-    zero = torch.zeros_like(tp)
-
-    def ratio(num, den):
-        return torch.where(den > 0, num / torch.clamp(den, min=1), zero)
-
-    dc = ratio(2 * tp, 2 * tp + fp + fn)
-    precision = ratio(tp, tp + fp)
-    sensitivity = ratio(tp, tp + fn)
-    specificity = ratio(tn, tn + fp)
-
-    inf = torch.full_like(tp, float("inf"))
-    hd = assd = inf
+    sums = {"tp": torch.sum(rf * tf, 1), "fp": torch.sum(rf * (1 - tf), 1),
+            "fn": torch.sum((1 - rf) * tf, 1),
+            "tn": torch.sum((1 - rf) * (1 - tf), 1)}
     if with_distances:
         r3, t3 = _to_b3(r), _to_b3(t)
         m1, s1, n1 = (v.reshape(n, -1) for v in
                       _surface_distance_stats(r3, t3))
         m2, s2, n2 = (v.reshape(n, -1) for v in
                       _surface_distance_stats(t3, r3))
-        nonempty = torch.any(r.reshape(n, -1), 1) & torch.any(
-            t.reshape(n, -1), 1)
-        hd = torch.where(nonempty, torch.maximum(m1.amax(1), m2.amax(1)),
-                         inf)
-        assd = torch.where(nonempty, (s1.sum(1) + s2.sum(1)) / torch.clamp(
-            n1.sum(1) + n2.sum(1), min=1), inf)
-    return BinaryMeasures(dc=dc, hd=hd, assd=assd, precision=precision,
-                          sensitivity=sensitivity, specificity=specificity)
+        sums.update(dmax=torch.maximum(m1.amax(1), m2.amax(1)),
+                    dsum=s1.sum(1) + s2.sum(1),
+                    dcount=(n1.sum(1) + n2.sum(1)).float())
+    return sums
+
+
+def _reduced(sums: dict) -> dict:
+    """``sums`` over the ranks of a sharded step (itself otherwise): the
+    counts and distance sums added in one collective, the maximum in
+    another."""
+    keys = [k for k in sums if k != "dmax"]
+    out = dict(zip(keys, reduce_sums(*(sums[k] for k in keys))))
+    if "dmax" in sums:
+        out["dmax"] = reduce_max(sums["dmax"])
+    return out
+
+
+def _measure_ratios(sums: dict) -> BinaryMeasures:
+    """The measures from :func:`_measure_sums`' sums; HD and ASSD inf
+    without distances or where either mask is empty."""
+    tp, fp, fn, tn = sums["tp"], sums["fp"], sums["fn"], sums["tn"]
+    zero = torch.zeros_like(tp)
+
+    def ratio(num, den):
+        return torch.where(den > 0, num / torch.clamp(den, min=1), zero)
+
+    inf = torch.full_like(tp, float("inf"))
+    hd = assd = inf
+    if "dmax" in sums:
+        nonempty = (tp + fp > 0) & (tp + fn > 0)
+        hd = torch.where(nonempty, sums["dmax"], inf)
+        assd = torch.where(nonempty, sums["dsum"] / torch.clamp(
+            sums["dcount"], min=1), inf)
+    return BinaryMeasures(dc=ratio(2 * tp, 2 * tp + fp + fn), hd=hd,
+                          assd=assd, precision=ratio(tp, tp + fp),
+                          sensitivity=ratio(tp, tp + fn),
+                          specificity=ratio(tn, tn + fp))
+
+
+def _measures(r: torch.Tensor, t: torch.Tensor, n: int,
+              with_distances: bool) -> BinaryMeasures:
+    """The measures of ``n`` groups of the thresholded masks' leading axis
+    (one group: the whole arrays), each field (n,)."""
+    return _measure_ratios(_measure_sums(r, t, n, with_distances))
 
 
 def binary_measures(result: torch.Tensor, target: torch.Tensor,
                     binary_threshold: float = 0.5,
                     with_distances: bool = True) -> BinaryMeasures:
     """Dice, HD, ASSD, precision, sensitivity, specificity for one
-    structure, as 0-d float32 tensors on the inputs' device."""
-    m = _measures(result > binary_threshold, target > binary_threshold, 1,
-                  with_distances)
+    structure, as 0-d float32 tensors on the inputs' device; in a sharded
+    step those of the global batch."""
+    sums = _measure_sums(result > binary_threshold,
+                         target > binary_threshold, 1, with_distances)
+    m = _measure_ratios(_reduced(sums))
     return BinaryMeasures(*(v[0] for v in _fields(m)))
 
 

@@ -28,6 +28,8 @@ from torch import nn
 
 from stroke_prediction_tpu_torch.ops.conv3x3 import (
     Conv3x3Fn, activation, fold_bn, fold_bn_zsame)
+from stroke_prediction_tpu_torch.parallel.collectives import reduce_sums
+from stroke_prediction_tpu_torch.parallel.mesh import current
 
 
 def check_compute_dtype(compute_dtype: torch.dtype) -> None:
@@ -171,7 +173,16 @@ class BatchNorm(nn.Module):
     variance), in float32 (float64 for a float64 input) and kept in the
     autograd graph, and the running statistics take
     ``ra = 0.9 * ra + 0.1 * batch`` (flax momentum 0.9); in evaluation the
-    running statistics are used."""
+    running statistics are used.
+
+    The moments are global in a sharded data-parallel step: the
+    per-channel sums of x and x^2 go through
+    ``parallel.collectives.reduce_sums`` before they are divided by the
+    global count (the pmean of E[x] and E[x^2] of ``layers.py:324-330``; a
+    mean of per-rank variances would drop the between-rank term), so every
+    rank normalises and updates its running statistics alike.  The count
+    is this rank's times the world, exact as an integer: the row rule gives
+    every rank of a sharded step the same number of rows."""
 
     def __init__(self, features: int, epsilon: float = 1e-5,
                  momentum: float = 0.9):
@@ -187,8 +198,10 @@ class BatchNorm(nn.Module):
         if self.training:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             axes = tuple(range(x.ndim - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            s1, s2 = reduce_sums(xf.sum(axes), (xf * xf).sum(axes))
+            n = current().global_size(x.numel() // x.shape[-1])
+            mean = s1 / n
+            var = torch.clamp(s2 / n - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -14,12 +14,27 @@ numpy RNG gives (the JAX learner's device cache and epoch plan).  A step is
 plain eager PyTorch: forward, loss, backward, Adam; the per-step metrics
 stay on the device until one fetch at the end of the epoch phase.
 
+Data parallelism (``mesh``, a ``parallel.mesh.Mesh`` of one process per
+card), as the JAX learner runs it on a ``data`` mesh: each step is the
+one-process step on the global batch.  Every rank draws the same epoch
+order and random crops from the shared seed and takes its rows of each
+chunk by the row rule (``parallel.mesh.row_sharding``): a chunk that
+divides over the ranks is sharded, and its BN moments, Dice sums, measures
+and gradients are reduced over them (``parallel/collectives.py``); any
+other chunk runs whole on every rank, with no collective.  A loader with
+``process_shard`` (``--distributed``) takes the host path instead: each
+process stacks only its share of a chunk on the host, and
+``data.prefetch`` stages the next one on the card while a step runs.  Only
+the lead process (rank 0) writes checkpoints, curves and PNGs and prints
+the epoch lines; every rank loads a snapshot to resume.
+
 Each training pass is timed from its start to that fetch
-(``utils.profiling.StepTimer``, the first pass left out as warm-up), and
-``log_throughput`` prints ``[throughput] ... volumes/sec/chip`` before the
-epoch line.  Each step runs in an ``annotate("train_step")`` /
-``"eval_step"`` range, and ``profile_dir`` traces the second training
-pass (or the only one) with ``torch.profiler`` into that directory.
+(``utils.profiling.StepTimer`` over the mesh's chips, the first pass left
+out as warm-up, the global batch counted), and ``log_throughput`` prints
+``[throughput] ... volumes/sec/chip`` before the epoch line.  Each step
+runs in an ``annotate("train_step")`` / ``"eval_step"`` range, and
+``profile_dir`` traces the second training pass (or the only one) with
+``torch.profiler`` into that directory.
 
 PNGs need matplotlib, imported when first needed; without it the learner
 prints one line and writes no PNGs.  Nothing else depends on it.
@@ -36,9 +51,14 @@ import torch
 
 from stroke_prediction_tpu_torch.data.dataset import (
     KEY_GLOBAL, KEY_IMAGES, KEY_LABELS)
+from stroke_prediction_tpu_torch.data.prefetch import (
+    DevicePut, prefetch_to_device)
 from stroke_prediction_tpu_torch.device import resolve_device
 from stroke_prediction_tpu_torch.models.convert import (
     adam_state_from_jax, adam_state_to_jax)
+from stroke_prediction_tpu_torch.parallel.distributed import is_lead
+from stroke_prediction_tpu_torch.parallel.mesh import (
+    batch_sharding, row_sharding)
 from stroke_prediction_tpu_torch.train.optim import (
     beta1_ramp, set_beta1, set_learning_rate)
 from stroke_prediction_tpu_torch.utils import checkpoint as ckpt
@@ -64,7 +84,7 @@ class Learner:
                  path_outputs_base: str = "/tmp/stroke-prediction",
                  seed: int = 4, distances_on_training: bool = False,
                  log_throughput: bool = False,
-                 profile_dir: Optional[str] = None, device=None):
+                 profile_dir: Optional[str] = None, device=None, mesh=None):
         if dataloader_training.batch_size <= 1:
             raise ValueError("For normalization layers batch_size > 1 is "
                              "required.")
@@ -85,6 +105,7 @@ class Learner:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
         self._dev_data: Dict[Any, tuple] = {}
+        self._mesh = mesh
         self._no_plots_said = False
         self._metric_dtos: Dict[str, List[dict]] = {"training": [],
                                                     "validate": []}
@@ -93,7 +114,8 @@ class Learner:
         self.step_counts = {"train": 0, "eval": 0, "visual": 0}
         self.train_pass_seconds: List[tuple] = []
         # pass-level timing: the first training pass is warm-up
-        self._timer = StepTimer(warmup_steps=1)
+        self._timer = StepTimer(warmup_steps=1,
+                                n_chips=mesh.world if mesh else 1)
         self._log_throughput = log_throughput
         self._profile_dir = profile_dir
 
@@ -189,6 +211,8 @@ class Learner:
     # ------------------------------------------------------------ persist
 
     def save_model(self, suffix: str = ""):
+        if not is_lead():
+            return
         ckpt.save_checkpoint(self.path("save", "model", suffix),
                              self.state_tree(), self.model_config())
 
@@ -197,6 +221,8 @@ class Learner:
         self.load_state_tree(state)
 
     def save_training(self):
+        if not is_lead():
+            return
         ckpt.save_checkpoint(
             self.path("save", "optim"),
             {"opt_state": adam_state_to_jax(self._optimizer, self._model)})
@@ -228,23 +254,40 @@ class Learner:
             self._dev_data[key] = entry
         return entry
 
-    def _run_epoch(self, loader, epoch: int, training: bool) -> dict:
+    def _batches(self, loader):
+        """(sharding, device batch, global volumes) for each chunk of one
+        epoch: from the device cache by the row rule, or, for a
+        ``process_shard`` loader, this process's share staged from the
+        host."""
+        if loader.process_shard:
+            sharding = batch_sharding(self._mesh)
+            put = DevicePut(self.device, (KEY_IMAGES, KEY_LABELS, KEY_GLOBAL))
+            for staged in prefetch_to_device(loader, put):
+                batch = staged.wait()
+                yield (sharding, batch,
+                       sharding.global_size(len(batch[KEY_IMAGES])))
+            return
         data, rowmap = self.device_data(loader)
-        rows = [torch.tensor([rowmap[i] for i in chunk], dtype=torch.int64,
-                             device=self.device)
-                for chunk in loader.epoch_chunks()]
+        for chunk in loader.epoch_chunks():
+            sharding = row_sharding(self._mesh, len(chunk))
+            rows = torch.tensor([rowmap[i] for i in sharding.take(chunk)],
+                                dtype=torch.int64, device=self.device)
+            batch = {k: (None if v is None else v.index_select(0, rows))
+                     for k, v in data.items()}
+            yield sharding, batch, len(chunk)
+
+    def _run_epoch(self, loader, epoch: int, training: bool) -> dict:
         factor = self.loss_factor(epoch)
         phase = "train_step" if training else "eval_step"
+        step = self.train_step if training else self.eval_step
         t0 = time.perf_counter()
         if training:
             self._timer.start()
-        results = []
-        for r in rows:
-            batch = {k: (None if v is None else v.index_select(0, r))
-                     for k, v in data.items()}
-            with annotate(phase):
-                results.append(self.train_step(batch, factor) if training
-                               else self.eval_step(batch, factor))
+        results, n_volumes = [], 0
+        for sharding, batch, n in self._batches(loader):
+            with annotate(phase), sharding.active():
+                results.append(step(batch, factor))
+            n_volumes += n
         # ONE device -> host fetch per epoch phase
         keys = sorted(results[0]) if results else []
         host = (torch.stack([torch.stack([m[k].float() for k in keys])
@@ -252,8 +295,8 @@ class Learner:
                 if results else [])
         if training:
             self.train_pass_seconds.append((time.perf_counter() - t0,
-                                            len(rows)))
-            self._timer.stop(sum(len(r) for r in rows))
+                                            len(results)))
+            self._timer.stop(n_volumes)
             if self._log_throughput:
                 print(f"[throughput] {self._timer.summary()}", end=" ")
         # accumulate like MeasuresDto.add (inf propagates through +=),
@@ -280,7 +323,9 @@ class Learner:
                   and epoch == trace_epoch else contextlib.nullcontext()):
                 m_train = self._run_epoch(self._dataloader_training, epoch,
                                           training=True)
-            self.print_epoch(epoch, "training", m_train)
+            lead = is_lead()
+            if lead:
+                self.print_epoch(epoch, "training", m_train)
             self._metric_dtos["training"].append(m_train)
 
             if self._dataloader_validation is None:
@@ -288,24 +333,27 @@ class Learner:
             else:
                 m_valid = self._run_epoch(self._dataloader_validation,
                                           epoch, training=False)
-            self.print_epoch(epoch, "validate", m_valid)
+            if lead:
+                self.print_epoch(epoch, "validate", m_valid)
             self._metric_dtos["validate"].append(m_valid)
 
             if m_valid.get("loss") is not None and m_valid["loss"] < min_loss:
                 min_loss = m_valid["loss"]
                 self.save_model()
                 self.save_training()
-                print("(New optimum: Training saved)", end=" ")
+                if lead:
+                    print("(New optimum: Training saved)", end=" ")
+                    self.visualize_epoch(epoch)
+
+            if epoch % 50 == 0 and lead:
                 self.visualize_epoch(epoch)
 
-            if epoch % 50 == 0:
-                self.visualize_epoch(epoch)
-
-            if epoch > 0:
+            if epoch > 0 and lead:
                 self._plot_curves(epoch)
 
         self.save_model("_final")
-        self.visualize_epoch(epoch)
+        if is_lead():
+            self.visualize_epoch(epoch)
 
     # ------------------------------------------------------------- plots
 

@@ -6,6 +6,11 @@ both crop a random patch (offsets from the learner's device generator);
 training steps normalise with the batch statistics, validation steps with
 the running ones.  Console line, loss/Dice curve plot and the 6-sample x
 6-panel visual grid as in the JAX learner.
+
+In a sharded data-parallel step the crop offsets are drawn for the global
+batch and each rank takes its rows' (so N ranks crop what one process
+crops), and the loss, its gradients, BN's moments and the measures are
+those of the global batch (``train/learner.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,9 @@ from stroke_prediction_tpu_torch.eval.metrics import (
     batch_dice_loss, binary_measures)
 from stroke_prediction_tpu_torch.models.convert import (
     state_from_jax, state_to_jax)
+from stroke_prediction_tpu_torch.parallel.collectives import (
+    average_gradients)
+from stroke_prediction_tpu_torch.parallel.mesh import current
 from stroke_prediction_tpu_torch.train.learner import Learner
 
 
@@ -64,10 +72,15 @@ class UnetSegmentationLearner(Learner):
                 + batch_dice_loss(penu, penu_gt)) / 2.0
 
     def crop(self, batch):
+        """This rank's patches: offsets drawn for the running step's global
+        batch, this rank's rows of them."""
         images, labels = batch[KEY_IMAGES], batch[KEY_LABELS]
-        offsets = random_offsets(self._generator, images.shape[0],
+        sharding = current()
+        offsets = random_offsets(self._generator,
+                                 sharding.global_size(images.shape[0]),
                                  tuple(images.shape[1:4]), self._patch)
-        return crop_patch(images, labels, offsets, self._patch, self._pad)
+        return crop_patch(images, labels, sharding.take(offsets),
+                          self._patch, self._pad)
 
     def forward_loss(self, images, labels):
         seg = self._model(images)
@@ -87,11 +100,16 @@ class UnetSegmentationLearner(Learner):
         return out
 
     def train_step(self, batch, factor: float = 0.0):
-        images, labels = self.crop(batch)
+        return self.train_patches(*self.crop(batch))
+
+    def train_patches(self, images, labels) -> dict:
+        """One optimizer step on cropped patches: in a sharded step this
+        rank's rows, the loss and gradients those of the global batch."""
         self._model.train()
         loss, outs = self.forward_loss(images, labels)
         self._optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        average_gradients(self._model.parameters())
         self._optimizer.step()
         self.step_counts["train"] += 1
         with torch.no_grad():

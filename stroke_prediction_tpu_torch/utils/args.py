@@ -10,10 +10,11 @@ The same flags and defaults as the JAX package's ``ExpParser`` /
 runs float32), ``--distances`` computes HD/ASSD on training batches too and
 ``--profile LOGDIR`` traces one training pass with ``torch.profiler``.
 The runtime flags of the parallel path (``--ndevices``, ``--distributed``
-and its addresses) parse as in the JAX package, but the port has not ported
-what reads them yet: :meth:`ExpParser.parse_args` raises
-``NotImplementedError`` when one of them is set to anything but its
-default.
+and its addresses) parse as in the JAX package.  U-Net training reads them
+(``get_args_unet_training``; ``cli/common.py::make_mesh``); every other
+entry point, whose data-parallel path is not ported yet, raises
+``NotImplementedError`` naming the flag when one is set to anything but
+its default.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
-# flag -> default; any other value raises until its slice is ported
-UNPORTED_FLAGS = {"ndevices": 1, "distributed": False, "coordinator": None,
+# flag -> default; any other value raises where ``parallel`` is off
+PARALLEL_FLAGS = {"ndevices": 1, "distributed": False, "coordinator": None,
                   "nprocs": None, "procid": None}
 
 
@@ -34,8 +35,12 @@ def _add_device(parser: argparse.ArgumentParser) -> None:
 
 
 class ExpParser(argparse.ArgumentParser):
-    def __init__(self, **kw):
+    """The common flags; ``parallel`` lets the data-parallel flags through
+    (the entry points whose parallel path is ported)."""
+
+    def __init__(self, parallel: bool = False, **kw):
         super().__init__(**kw)
+        self.parallel = parallel
         self.add_argument("--fold", type=int, nargs="+",
                           help="Fold case indices", default=list(range(29)))
         self.add_argument("--hemisflipid", type=float, default=15,
@@ -91,9 +96,16 @@ class ExpParser(argparse.ArgumentParser):
 
     def parse_args(self, args=None, namespace=None):
         ns = super().parse_args(args, namespace)
-        for name, default in UNPORTED_FLAGS.items():
-            if getattr(ns, name) != default:
-                raise NotImplementedError(f"--{name} is not ported yet")
+        if not self.parallel:
+            for name, default in PARALLEL_FLAGS.items():
+                if getattr(ns, name) != default:
+                    raise NotImplementedError(
+                        f"--{name}: this entry point's data-parallel path "
+                        f"is not ported yet")
+        elif ns.distributed and None in (ns.coordinator, ns.nprocs,
+                                         ns.procid):
+            self.error("--distributed needs --coordinator, --nprocs and "
+                       "--procid")
         print(ns)
         return ns
 
@@ -152,6 +164,13 @@ def get_args_sdm(argv: Optional[Sequence[str]] = None):
 
 
 def get_args_unet_training(argv: Optional[Sequence[str]] = None):
+    """U-Net training's flags, the data-parallel ones included."""
+    return UnetParser(parallel=True).parse_args(argv)
+
+
+def get_args_unet_testing(argv: Optional[Sequence[str]] = None):
+    """The U-Net tester's flags (those of training; the data-parallel ones
+    raise)."""
     return UnetParser().parse_args(argv)
 
 

@@ -1,0 +1,218 @@
+"""Port parity for the process-sharded loader and the data-parallel U-Net
+training CLI: ``BatchLoader(process_shard=True)`` against the JAX loader's
+rule (``chunk[pid::nproc]``, a last chunk that does not divide dropped),
+and the port's training CLI run on the CPU in two processes, ``--ndevices
+2`` (spawned ranks on the device cache) and ``--distributed`` (two
+commands on the host path), against the same CLI in one process.
+
+Each CLI run is a subprocess with a timeout of its own (SPAWN_TIMEOUT).
+The curves agree to 1e-5 relative (float32 sums in another order); the
+final weights to 1e-5 absolute, 1% of one Adam step (lr 1e-3), since Adam
+turns small gradient differences of the entry BN's bias into parameter
+differences of that order.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from stroke_prediction_tpu.data import dataset as jax_dataset
+from stroke_prediction_tpu.data import loader as jax_loader
+from stroke_prediction_tpu_torch.cli import common
+from stroke_prediction_tpu_torch.cli import train_unet_segmentation as cli
+from stroke_prediction_tpu_torch.data import dataset, loader
+from stroke_prediction_tpu_torch.utils import checkpoint
+from stroke_prediction_tpu_torch.utils.args import get_args_unet_training
+
+REPO = Path(__file__).resolve().parents[1]
+SPAWN_TIMEOUT = 180        # seconds per CLI run, both ranks together
+CURVE_REL, WEIGHT_ABS = 1e-5, 1e-5
+MODULE = "stroke_prediction_tpu_torch.cli.train_unet_segmentation"
+ARGS = ["unused.model", "--synthetic", "--xyoriginal", "24", "--zsize",
+        "24", "--epochs", "2", "--batchsize", "4", "--channels",
+        "2", "4", "6", "8", "6", "4", "6", "2", "--dtype", "float32",
+        "--device", "cpu"]
+# 9 cases, 2 validate: 7 train at batch 4 -> chunks of 4 (sharded over two
+# ranks) and 3 (replicated); 10 cases, 2 validate: 8 train -> 4 and 4
+FOLD_7 = ["--fold", *map(str, range(9)), "--validsetsize", "0.23"]
+FOLD_8 = ["--fold", *map(str, range(10)), "--validsetsize", "0.2"]
+
+
+@pytest.mark.parametrize("nproc,pid", [(1, 0), (2, 0), (2, 1), (3, 1),
+                                       (3, 2)])
+@pytest.mark.parametrize("n_cases,batch", [(11, 4), (12, 4), (9, 3)])
+def test_process_shard_chunks_match_jax(monkeypatch, nproc, pid, n_cases,
+                                        batch):
+    """Every epoch's chunks of process ``pid`` of ``nproc`` are the JAX
+    loader's: the same shared-seed order, ``chunk[pid::nproc]``, and the
+    epoch ending at the first chunk that does not divide."""
+    kw = dict(n_cases=n_cases, shape_xyz=(8, 8, 6), seed=3)
+    mods, labels = [dataset.MOD_CBV], [dataset.LABEL_CORE]
+    ours = loader.BatchLoader(
+        dataset.StrokeDataset3D(dataset.SyntheticCaseProvider(**kw), mods,
+                                labels),
+        range(n_cases), batch, seed=5, process_shard=True)
+    theirs = jax_loader.BatchLoader(
+        jax_dataset.StrokeDataset3D(jax_dataset.SyntheticCaseProvider(**kw),
+                                    mods, labels),
+        range(n_cases), batch, seed=5, process_shard=True)
+    monkeypatch.setattr(loader, "process_index", lambda: pid)
+    monkeypatch.setattr(loader, "process_count", lambda: nproc)
+    monkeypatch.setattr(jax, "process_index", lambda: pid)
+    monkeypatch.setattr(jax, "process_count", lambda: nproc)
+    for _ in range(3):
+        got = ours.epoch_chunks()
+        assert got == theirs.epoch_chunks()
+        assert all(len(c) == batch // nproc for c in got) or nproc == 1
+
+
+@pytest.mark.parametrize("n_cases", [8, 9, 11])
+def test_drop_last_matches_jax(n_cases):
+    kw = dict(n_cases=n_cases, shape_xyz=(8, 8, 6), seed=3)
+    mods, labels = [dataset.MOD_CBV], [dataset.LABEL_CORE]
+    ours = loader.BatchLoader(
+        dataset.StrokeDataset3D(dataset.SyntheticCaseProvider(**kw), mods,
+                                labels),
+        range(n_cases), 4, seed=2, drop_last=True)
+    theirs = jax_loader.BatchLoader(
+        jax_dataset.StrokeDataset3D(jax_dataset.SyntheticCaseProvider(**kw),
+                                    mods, labels),
+        range(n_cases), 4, seed=2, drop_last=True)
+    assert len(ours) == len(theirs) == n_cases // 4
+    for _ in range(2):
+        assert ours.epoch_chunks() == theirs.epoch_chunks()
+
+
+def _env(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+               TMPDIR=str(tmp_path))
+    return env
+
+
+def _run(commands, tmp_path):
+    """Run the CLI commands together; (returncode, output) of each."""
+    procs = [subprocess.Popen([sys.executable, "-m", MODULE, *c],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              env=_env(tmp_path), cwd=tmp_path)
+             for c in commands]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=SPAWN_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    return outs
+
+
+def _epoch_lines(out):
+    return re.findall(r"^Epoch \d+/\d+ (?:training|validate) loss: .*?"
+                      r"DC Penumbra:\S+", out, re.M)
+
+
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), np.asarray(v)
+
+
+def _same_training(base, ref):
+    """The two runs' files, curves and final weights agree."""
+    names = sorted(p.name for p in base.parent.iterdir())
+    assert names == sorted(p.name for p in ref.parent.iterdir())
+    got = checkpoint.load_curves(str(base) + "_unet.json")
+    want = checkpoint.load_curves(str(ref) + "_unet.json")
+    for phase in ("training", "validate"):
+        assert len(got[phase]) == len(want[phase]) >= 1
+        for a, b in zip(got[phase], want[phase]):
+            assert set(a) == set(b)
+            for k in b:
+                if np.isfinite(b[k]):
+                    assert abs(a[k] - b[k]) <= CURVE_REL * max(abs(b[k]),
+                                                               1e-30), k
+                else:
+                    assert a[k] == b[k], k
+    a, _ = checkpoint.load_checkpoint(str(base) + "_unet_final.model")
+    b, _ = checkpoint.load_checkpoint(str(ref) + "_unet_final.model")
+    want = dict(_leaves(b))
+    for path, leaf in _leaves(a):
+        np.testing.assert_allclose(leaf, want[path], atol=WEIGHT_ABS,
+                                   rtol=0, err_msg=str(path))
+
+
+def _bases(tmp_path, *names):
+    out = []
+    for name in names:
+        (tmp_path / name).mkdir()
+        out.append(tmp_path / name / "unet")
+    return out
+
+
+def test_ndevices_2_cli_equals_one_process(tmp_path):
+    """``--ndevices 2 --device cpu`` for two epochs on 7 training cases at
+    batch 4 (a chunk of 4 sharded, one of 3 replicated) against the same
+    CLI in one process: the same epoch lines, printed once, the same files,
+    curves and final weights."""
+    two, one = _bases(tmp_path, "two", "one")
+    out_two, out_one = _run([
+        ARGS + FOLD_7 + ["--ndevices", "2", "--outbasepath", str(two)],
+        ARGS + FOLD_7 + ["--outbasepath", str(one)]], tmp_path)
+    assert "# training batches: 2" in out_one
+    assert len(_epoch_lines(out_one)) == 4
+    assert _epoch_lines(out_two) == _epoch_lines(out_one)
+    _same_training(two, one)
+
+
+def test_distributed_cli_two_processes_equal_one_process(tmp_path):
+    """``--distributed`` with two commands (8 training cases at batch 4:
+    each process loads two cases a chunk) against one process: rank 1
+    prints no epoch line, rank 0 the one-process run's; the same files,
+    curves and final weights."""
+    two, one = _bases(tmp_path, "two", "one")
+    coordinator = f"127.0.0.1:{common.free_port()}"
+    rank0, rank1, out_one = _run(
+        [ARGS + FOLD_8 + ["--distributed", "--coordinator", coordinator,
+                          "--nprocs", "2", "--procid", str(i),
+                          "--outbasepath", str(two)] for i in range(2)]
+        + [ARGS + FOLD_8 + ["--outbasepath", str(one)]], tmp_path)
+    assert len(_epoch_lines(out_one)) == 4
+    assert _epoch_lines(rank0) == _epoch_lines(out_one)
+    assert _epoch_lines(rank1) == []
+    _same_training(two, one)
+
+
+def test_parallel_flags_refuse_what_is_not_there(monkeypatch):
+    """``--distributed`` with ``--ndevices 2`` is not ported; ``--ndevices
+    2`` on the card needs two cards (here: none, then one faked) and starts
+    no process otherwise; ``--distributed`` needs its three addresses."""
+    args = get_args_unet_training(
+        ["u.model", "--distributed", "--coordinator", "127.0.0.1:1",
+         "--nprocs", "2", "--procid", "0", "--ndevices", "2"])
+    with pytest.raises(NotImplementedError, match="--ndevices"):
+        cli.train(args)
+    args = get_args_unet_training(["u.model", "--ndevices", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.train(args)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.multiprocessing, "start_processes",
+                        lambda *a, **k: pytest.fail("a rank was started"))
+    with pytest.raises(RuntimeError, match="needs 2 cards"):
+        cli.train(args)
+    with pytest.raises(SystemExit):
+        get_args_unet_training(["u.model", "--distributed"])
