@@ -172,6 +172,24 @@ non-zero without one.  Phases:
    writing nothing, each rank's bfloat16 ms per step and its collectives'
    share; then every K1-K4 call of one step at a rank's batch of 3 in both
    types against plain, and per layer beside cuDNN.
+13. CAE data-parallel phase (``cae_dp_phase``, lines prefixed ``cae dp``):
+   (a) the phase-1 and phase-2 CLIs at the reference width (bfloat16,
+   batch 4) with ``--distributed --nprocs 1 --procid 0`` over NCCL for one
+   epoch each between two plain runs: K1-K5 launches by the route rule,
+   the curves against the plain runs' spread, the files; (b) two ranks on
+   the one card over gloo (``cae_dp_rank``), each one full-width step of
+   each learner (phase 1, the CTP CAE, step learning, phase 2) on 2 rows of
+   a global batch of 4: float64 (the plain versions) against the
+   one-process float64 step at DP_F64_REL, float32 and bfloat16 within
+   DP_FACTOR times their one-process distance to float64 (the larger of
+   the rows in their order and in the ranks': a float32 CAE step's
+   distance depends on the order of its sums) plus DP_FLOOR, every K1-K4
+   and edt_sites call of those two steps against plain, the
+   per-rank BN control failing, the ranks' losses and gradients equal, rank
+   1 writing nothing (phase 2's two ``.model`` files included), each rank's
+   augmented rows its rows of one process's, each learner's bfloat16 ms per
+   rank-step with its all_reduce calls and their share; then K1-K4 per
+   layer of a phase-1 rank-step in both types beside cuDNN.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero.
@@ -4226,16 +4244,6 @@ def dp_cli(torch, work):
             raise AssertionError(f"dp: {name} launched {launches[name]} "
                                  f"times, expected {n}")
 
-    def curve_gap(x, y):
-        gap = 0.0
-        for phase in ("training", "validate"):
-            for a, b in zip(x._metric_dtos[phase], y._metric_dtos[phase]):
-                for k, v in b.items():
-                    if math.isfinite(v) or a[k] != v:
-                        gap = max(gap, abs(a[k] - v) / max(abs(v), 1e-30)
-                                  if math.isfinite(v) else math.inf)
-        return gap
-
     spread = curve_gap(plain_b[0], plain_a[0])
     gap = curve_gap(learner, plain_a[0])
     print(f"dp: --distributed curves vs a plain run: largest relative gap "
@@ -4335,27 +4343,19 @@ def dp_step(torch, inputs, side, mesh=None, distances=True, base=None):
                 launches=launches), learner
 
 
-def dp_time(torch, inputs, mesh):
-    """DP_TIMED_STEPS bfloat16 steps of this rank back to back (the CLI's
-    training step: no distances), host clock between synchronizes; then as
-    many again with a synchronize around each all_reduce, whose time is the
-    collectives' -> ms per step, instrumented ms per step, collective ms
-    per step, all_reduce calls per step."""
+def rank_step_times(torch, step):
+    """DP_TIMED_STEPS calls of ``step`` (one training step of this rank)
+    back to back after a warm-up call, host clock between synchronizes;
+    then as many again with a synchronize around each all_reduce, whose
+    time is the collectives' -> ms per step, instrumented ms per step,
+    collective ms per step, all_reduce calls per step."""
     import torch.distributed as dist
-
-    from stroke_prediction_tpu_torch.parallel.mesh import row_sharding
-
-    learner = dp_learner(torch, inputs, torch.bfloat16, mesh, False,
-                         os.path.join(tempfile.gettempdir(), "dp_time"))
-    sharding = row_sharding(mesh, len(inputs["images"]))
-    imgs, labs = dp_patches(torch, inputs, sharding, torch.bfloat16)
 
     def steps(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            with sharding.active():
-                learner.train_patches(imgs, labs)
+            step()
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / n
 
@@ -4382,10 +4382,27 @@ def dp_time(torch, inputs, mesh):
                 calls=spent[1] / DP_TIMED_STEPS)
 
 
+def dp_time(torch, inputs, mesh):
+    """:func:`rank_step_times` of this rank's bfloat16 U-Net step (the
+    CLI's training step: no distances)."""
+    from stroke_prediction_tpu_torch.parallel.mesh import row_sharding
+
+    learner = dp_learner(torch, inputs, torch.bfloat16, mesh, False,
+                         os.path.join(tempfile.gettempdir(), "dp_time"))
+    sharding = row_sharding(mesh, len(inputs["images"]))
+    imgs, labs = dp_patches(torch, inputs, sharding, torch.bfloat16)
+
+    def step():
+        with sharding.active():
+            learner.train_patches(imgs, labs)
+
+    return rank_step_times(torch, step)
+
+
 def dp_rank(rank, coordinator, inputs_path, outdir):
     """One rank of (b), on cuda:0 over gloo: each DP_SIDES step on its rows,
     the bfloat16 step timed, the lead-only writes of its learner into its
-    own directory -> outdir/dp_rank<rank>.pt."""
+    own directory -> outdir/rank<rank>.pt."""
     import torch
 
     from stroke_prediction_tpu_torch.parallel import distributed
@@ -4408,20 +4425,49 @@ def dp_rank(rank, coordinator, inputs_path, outdir):
     out["timing"] = dp_time(torch, inputs, mesh)
     out["device"] = str(torch.cuda.current_device())
     distributed.shutdown()
-    torch.save(out, os.path.join(outdir, f"dp_rank{rank}.pt"))
+    torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
 
 
-def dp_distance(got, ref):
+def run_ranks(torch, rank_fn, inputs_path, outdir, what):
+    """``rank_fn(rank, coordinator, inputs_path, outdir)`` in DP_WORLD
+    spawned processes on the one card, within DP_RANK_TIMEOUT (killed
+    after it) -> each rank's ``outdir/rank<r>.pt``."""
+    from stroke_prediction_tpu_torch.cli.common import free_port
+
+    os.makedirs(outdir)
+    torch.cuda.empty_cache()      # the ranks' cuDNN workspaces share the card
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        rank_fn, args=(f"127.0.0.1:{free_port()}", inputs_path, outdir),
+        nprocs=DP_WORLD, join=False, start_method="spawn")
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > DP_RANK_TIMEOUT:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"{what}: the ranks did not end in "
+                                 f"{DP_RANK_TIMEOUT} s")
+    ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"))
+             for r in range(DP_WORLD)]
+    print(f"\n{what}: {DP_WORLD} ranks on {[r['device'] for r in ranks]} "
+          f"over gloo in {time.perf_counter() - t0:.1f} s")
+    return ranks
+
+
+def dp_distance(got, ref, layer_of=unet_layer_of):
     """A step's results against a reference step's: loss relative; the
     largest gradient error over its layer's largest reference gradient,
-    and |err| / |grad| over a layer; running statistics over their
-    buffer's largest; the measures relative (ASSD apart)."""
+    and |err| / |grad| over a layer (``layer_of`` a parameter's layer);
+    running statistics over their buffer's largest; the measures relative
+    (ASSD apart)."""
     scale, elem, d2, r2 = {}, {}, {}, {}
+    if got["grads"].keys() != ref["grads"].keys():
+        raise AssertionError(f"gradients of {sorted(got['grads'])} against "
+                             f"{sorted(ref['grads'])}")
     for k, g in ref["grads"].items():
-        lay = unet_layer_of(k)
+        lay = layer_of(k)
         scale[lay] = max(scale.get(lay, 0.0), float(g.abs().max()))
     for k, g in ref["grads"].items():
-        lay, diff = unet_layer_of(k), got["grads"][k] - g
+        lay, diff = layer_of(k), got["grads"][k] - g
         elem[lay] = max(elem.get(lay, 0.0),
                         float(diff.abs().max()) / scale[lay])
         d2[lay] = d2.get(lay, 0.0) + float((diff ** 2).sum())
@@ -4454,7 +4500,6 @@ def dp_ranks(torch, work, learner):
     the collectives' share.  Then the kernels at the ranks' batch-3 shapes:
     every call of one bfloat16 and one float32 step against plain, and
     per layer beside cuDNN."""
-    from stroke_prediction_tpu_torch.cli.common import free_port
     from stroke_prediction_tpu_torch.data.augment import (
         crop_patch, random_offsets)
     from stroke_prediction_tpu_torch.data.dataset import (
@@ -4475,21 +4520,7 @@ def dp_ranks(torch, work, learner):
     one = {side: dp_step(torch, inputs, side)[0] for side in DP_SIDES[:3]}
 
     outdir = os.path.join(work, "dp_ranks")
-    os.makedirs(outdir)
-    t0 = time.perf_counter()
-    ctx = torch.multiprocessing.start_processes(
-        dp_rank, args=(f"127.0.0.1:{free_port()}", path, outdir),
-        nprocs=DP_WORLD, join=False, start_method="spawn")
-    while not ctx.join(timeout=5):
-        if time.perf_counter() - t0 > DP_RANK_TIMEOUT:
-            for p in ctx.processes:
-                p.kill()
-            raise AssertionError(f"dp: the ranks did not end in "
-                                 f"{DP_RANK_TIMEOUT} s")
-    ranks = [torch.load(os.path.join(outdir, f"dp_rank{r}.pt"))
-             for r in range(DP_WORLD)]
-    print(f"dp: {DP_WORLD} ranks on {[r['device'] for r in ranks]} over "
-          f"gloo in {time.perf_counter() - t0:.1f} s")
+    ranks = run_ranks(torch, dp_rank, path, outdir, "dp")
 
     per = dp_launches()
     want = {"conv3x3": per["K1"], "conv3x3_bwd_fused": per["K2"],
@@ -4569,6 +4600,575 @@ def dp_phase(torch, work):
     return dict(cli=cli, **dp_ranks(torch, work, learner))
 
 
+# Data-parallel training of the four CAE learners on the one card.  (a) the
+# phase-1 and phase-2 CLIs at the reference width with --distributed
+# --nprocs 1 --procid 0 over NCCL (the host path) for one epoch each beside
+# three plain runs of the same seed; (b) two ranks on cuda:0 over gloo, each
+# one full-width step of each learner (phase 1, CTP, step learning, phase 2)
+# on 2 rows of a global batch of 4.
+CAE_DP_LEARNERS = ("phase1", "ctp", "step", "prediction")
+CAE_DP_BATCH = 4
+CAE_DP_EPOCHS = 1
+# the loss's curriculum factor in (b): phase 1 with the latent L1 term on;
+# the CTP CAE without it, as its card-vs-CPU step (CTP_VS_CPU_FACTOR)
+CAE_DP_FACTOR = {"phase1": CAE_VS_CPU_FACTOR, "ctp": CTP_VS_CPU_FACTOR,
+                 "step": 0.0, "prediction": 0.0}
+# the augmentation each learner draws, by the data it deforms
+CAE_DP_AUGMENT = {"phase1": "random_cae_augment",
+                  "ctp": "random_cae_augment_ctp",
+                  "prediction": "random_cae_augment_images"}
+
+
+def cae_dp_cli_want(kind, steps):
+    """K1-K5 launches of a CLI run of the phase-1 or phase-2 learner by the
+    route rule, from its steps."""
+    if kind == "phase1":
+        step_k = cae_step_launches()
+        valid_k = {"K1": step_k["K1"]}
+    else:
+        per_step, per_valid = learner_launches(kind)
+        step_k, valid_k = by_kernel(per_step), by_kernel(per_valid)
+    return {"conv3x3": step_k["K1"] * steps["train"]
+            + valid_k["K1"] * (steps["eval"] + steps["visual"]),
+            "conv3x3_bwd_fused": step_k.get("K2", 0) * steps["train"],
+            "conv3x3_bwd_dx": step_k.get("K3", 0) * steps["train"],
+            "conv3x3_bwd_dw": step_k.get("K4", 0) * steps["train"],
+            "edt_sites": CAE_EDT_PER_CASE * steps["eval"], "edt_parabola": 0}
+
+
+def curve_gap(x, y):
+    """The largest relative gap between two learners' curves."""
+    gap = 0.0
+    for phase in ("training", "validate"):
+        for a, b in zip(x._metric_dtos[phase], y._metric_dtos[phase]):
+            for k, v in b.items():
+                if math.isfinite(v) or a[k] != v:
+                    gap = max(gap, abs(a[k] - v) / max(abs(v), 1e-30)
+                              if math.isfinite(v) else math.inf)
+    return gap
+
+
+def cae_dp_cli(torch, work):
+    """(a): the phase-1 and phase-2 CLIs over NCCL as rank 0 of 1, each
+    beside three plain runs: K1-K5 launches of its run by the route rule,
+    its curves within twice the plain runs' spread (their largest pairwise
+    gap) plus DP_CURVE_REL of the nearest plain run's, its files ->
+    (results, {kind: the --distributed run's learner}).  Phase 2's plain
+    runs are not bit-reproducible: its frozen float32 CAE's library convs
+    round differently from run to run, which the thresholded measures and
+    Adam carry into the curves."""
+    from stroke_prediction_tpu_torch.cli import train_shape_prediction
+    from stroke_prediction_tpu_torch.cli import train_shape_reconstruction
+    from stroke_prediction_tpu_torch.cli.common import free_port
+    from stroke_prediction_tpu_torch.utils.args import (
+        get_args_shape_prediction_training, get_args_shape_training)
+
+    cae1 = os.path.join(work, "shape_train_cae1.model")
+    common = ["--synthetic", "--fold", *map(str, TRAIN_FOLD),
+              "--validsetsize", "0.25", "--batchsize", str(CAE_TRAIN_BATCH),
+              "--epochs", str(CAE_DP_EPOCHS)]
+    runs = {"phase1": (train_shape_reconstruction, get_args_shape_training,
+                       [], ["_cae1.model", "_cae1.optim", "_cae1.json",
+                            "_cae1_final.model"]),
+            "prediction": (train_shape_prediction,
+                           get_args_shape_prediction_training,
+                           [cae1, "--initbycae"],
+                           ["_cae2.model", "_cae2_enc.model", "_cae2.optim",
+                            "_cae2.json", "_cae2_final.model",
+                            "_cae2_enc_final.model"])}
+    res, learners = {}, {}
+    for kind, (cli, parse, extra, files) in runs.items():
+        what = f"cae dp {kind}"
+
+        def run(name, flags):
+            base = os.path.join(work, f"cae_dp_{kind}_{name}")
+            args = parse([*extra, *common, "--outbasepath", base, *flags])
+            if args.dtype != "bfloat16" or args.device != "cuda":
+                raise AssertionError(f"{what}: {args.dtype}, {args.device}")
+            reset_launches()
+            t0 = time.perf_counter()
+            learner = cli.train(args)
+            torch.cuda.synchronize()
+            return (learner, read_launches(), time.perf_counter() - t0,
+                    base)
+
+        plain_a = run("plain_a", [])
+        dist = run("distributed", ["--distributed", "--coordinator",
+                                   f"127.0.0.1:{free_port()}", "--nprocs",
+                                   "1", "--procid", "0"])
+        plains = [plain_a, run("plain_b", []), run("plain_c", [])]
+        learner, launches, wall, base = dist
+        if not (learner._mesh is not None and learner._mesh.world == 1
+                and learner._dataloader_training.process_shard):
+            raise AssertionError(f"{what}: the --distributed run did not "
+                                 f"take the mesh and the process-sharded "
+                                 f"loader")
+        steps = dict(learner.step_counts)
+        want = cae_dp_cli_want(kind, steps)
+        print(f"\n{what}: CLI --distributed (NCCL, rank 0 of 1), "
+              f"{CAE_DP_EPOCHS} epoch in {wall:.2f} s (plain "
+              f"{[round(p[2], 2) for p in plains]} s); steps {steps}; "
+              f"launches {launches}, expected {want}")
+        if steps["train"] < 1 or steps["eval"] < 1:
+            raise AssertionError(f"{what}: steps {steps}")
+        for name, n in want.items():
+            if launches[name] != n:
+                raise AssertionError(f"{what}: {name} launched "
+                                     f"{launches[name]} times, expected {n}")
+        spread = max(curve_gap(x[0], y[0]) for i, x in enumerate(plains)
+                     for y in plains[i + 1:])
+        gaps = [curve_gap(learner, p[0]) for p in plains]
+        gap = min(gaps)
+        print(f"{what}: --distributed curves vs the plain runs: largest "
+              f"relative gap {gaps} (nearest {gap:.3e}); the plain runs' "
+              f"spread {spread:.3e}; limit {2 * spread + DP_CURVE_REL:.3e}; "
+              f"losses "
+              f"{[m['loss'] for m in learner._metric_dtos['training']]} / "
+              + str([[m["loss"] for m in p[0]._metric_dtos["training"]]
+                     for p in plains]))
+        if gap > 2 * spread + DP_CURVE_REL:
+            raise AssertionError(f"{what}: the --distributed run's curves "
+                                 f"leave the plain runs' spread")
+        check_artifacts(base, files, [], what)
+        res[kind] = dict(launches=launches, steps=steps, wall_s=wall,
+                         curve_gap=gap, curve_spread=spread)
+        learners[kind] = learner
+    return res, learners
+
+
+def cae_dp_inputs(torch, learners):
+    """(b)'s global batches of CAE_DP_BATCH (the first training cases of
+    the (a) runs: phase 1's masks and clinical vectors; its CBV and TTD
+    zero-padded by CTP_PAD for the CTP CAE; phase 2's U-Net segmentations)
+    and seeded weights (phase 2's frozen CAE: the CAE training phase's
+    best-valid model) on the host."""
+    import torch.nn.functional as F
+
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_GLOBAL, KEY_IMAGES, KEY_LABELS)
+    from stroke_prediction_tpu_torch.models.cae3d import (
+        Cae3D, Cae3DCtp, Dec3D, Enc3D, Enc3DCtp, Enc3DStep)
+
+    def rows(learner):
+        data, _ = learner.device_data(learner._dataloader_training)
+        return {k: v[:CAE_DP_BATCH].cpu() for k, v in data.items()}
+
+    d1, d2 = rows(learners["phase1"]), rows(learners["prediction"])
+    masks = {KEY_IMAGES: None, KEY_LABELS: d1[KEY_LABELS],
+             KEY_GLOBAL: d1[KEY_GLOBAL]}
+    pad = [p for d in reversed(CTP_PAD) for p in (d, d)]
+    ctp = dict(masks, **{KEY_IMAGES: F.pad(d1[KEY_IMAGES], [0, 0] + pad)})
+    gen = torch.Generator().manual_seed(6)
+    states = {
+        "phase1": Cae3D(Enc3D(CAE_CHANNELS, generator=gen),
+                        Dec3D(CAE_CHANNELS, generator=gen)),
+        "ctp": Cae3DCtp(Enc3DCtp(CTP_CHANNELS, padding=CTP_PAD,
+                                 generator=gen),
+                        Dec3D(CTP_CHANNELS, generator=gen)),
+        "step": Cae3D(Enc3DStep(CAE_CHANNELS, generator=gen),
+                      Dec3D(CAE_CHANNELS, generator=gen)),
+        "prediction": Enc3D(CAE_CHANNELS, generator=gen)}
+    states = {k: m.state_dict() for k, m in states.items()}
+    states["cae"] = {k: v.cpu() for k, v in
+                     learners["prediction"]._cae.state_dict().items()}
+    return dict(states=states, data={"phase1": masks, "step": masks,
+                                     "ctp": ctp, "prediction": d2})
+
+
+def cae_dp_learner(torch, inputs, kind, dtype, mesh, base, distances=True):
+    """``kind``'s learner at ``inputs``' weights in ``dtype`` on the card
+    (phase 2: a float32 frozen CAE, float64 with a float64 encoder), Adam
+    over what its CLI trains."""
+    import types
+
+    from stroke_prediction_tpu_torch.models.cae3d import (
+        Cae3D, Cae3DCtp, Dec3D, Enc3D, Enc3DCtp, Enc3DStep)
+    from stroke_prediction_tpu_torch.train import cae_learners
+    from stroke_prediction_tpu_torch.train.optim import (
+        make_optimizer, trainable_by_path)
+
+    wide = torch.promote_types(dtype, torch.float32)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    states = inputs["states"]
+    loader = types.SimpleNamespace(batch_size=CAE_DP_BATCH, dataset=None,
+                                   indices=[])
+    kw = dict(device=dev, mesh=mesh, path_outputs_base=base,
+              distances_on_training=distances)
+    if kind == "prediction":
+        cae = Cae3D(Enc3D(CAE_CHANNELS), Dec3D(CAE_CHANNELS))
+        cae.load_state_dict(states["cae"])
+        cae.to(dev, torch.promote_types(wide, torch.float32))
+        if dtype == torch.float64:
+            set_cae_dtype(cae, dtype)
+        enc = Enc3D(CAE_CHANNELS, compute_dtype=dtype)
+        enc.load_state_dict(states["prediction"])
+        enc.to(dev, wide)
+        return cae_learners.CaePredictionLearner(
+            loader, None, cae, enc, make_optimizer(
+                enc.parameters(), 1e-3, betas=(0.9, 0.999),
+                weight_decay=1e-5), None, 1, **kw)
+    if kind == "ctp":
+        model = Cae3DCtp(Enc3DCtp(CTP_CHANNELS, padding=CTP_PAD,
+                                  compute_dtype=dtype),
+                         Dec3D(CTP_CHANNELS, compute_dtype=dtype))
+    else:
+        model = Cae3D((Enc3DStep if kind == "step" else Enc3D)(
+            CAE_CHANNELS, compute_dtype=dtype),
+            Dec3D(CAE_CHANNELS, compute_dtype=dtype))
+    model.load_state_dict(states[kind])
+    model.to(dev, wide)
+    params = (trainable_by_path(model, STEP_HEAD) if kind == "step"
+              else model.parameters())
+    cls = (cae_learners.CaeStepLearner if kind == "step"
+           else cae_learners.CaeReconstructionLearner)
+    return cls(loader, None, model, make_optimizer(
+        params, 1e-3, betas=(0.9, 0.999), weight_decay=1e-5), None, 1,
+        inputs_from_images=kind == "ctp", **kw)
+
+
+def cae_dp_batch(torch, inputs, kind, sharding, dtype):
+    """This rank's rows of ``kind``'s global batch on the card."""
+    wide = torch.promote_types(dtype, torch.float32)
+    return {k: None if v is None else sharding.take(v).contiguous().to(
+        "cuda", wide) for k, v in inputs["data"][kind].items()}
+
+
+def cae_dp_step(torch, inputs, kind, side, mesh=None, base=None,
+                record=False):
+    """One training step of ``kind`` (augmentation off) in ``side`` (a
+    DP_SIDES entry) on this rank's rows of its global batch where ``mesh``
+    is given, else on the whole batch; ``record``: every K1-K4 and
+    edt_sites call held on its own inputs against plain
+    (:func:`cae_recorded`) -> ({loss, grads, stats, metrics, calls by
+    kernel, worst}, learner, recorded calls)."""
+    from stroke_prediction_tpu_torch.models import layers
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+    from stroke_prediction_tpu_torch.parallel.mesh import row_sharding
+
+    dtype = getattr(torch, side.split(",")[0])
+    learner = cae_dp_learner(torch, inputs, kind, dtype, mesh, base or
+                             os.path.join(tempfile.gettempdir(), "cae_dp"))
+    learner.augment = lambda batch: batch
+    sharding = row_sharding(mesh, CAE_DP_BATCH)
+    batch = cae_dp_batch(torch, inputs, kind, sharding, dtype)
+    names = ("conv3x3", "conv3x3_bwd_fused", "conv3x3_bwd_dx",
+             "conv3x3_bwd_dw")
+    real = {n: getattr(cm, n) for n in names}
+    reduce_sums = layers.reduce_sums
+    got = []
+
+    def run():
+        with sharding.active():
+            got.append(learner.train_step(batch, CAE_DP_FACTOR[kind]))
+
+    calls, sites, worst = {}, {}, {}
+    try:
+        if dtype == torch.float64:
+            for n in names:
+                setattr(cm, n, getattr(cm, n + "_plain"))
+        if "per-rank" in side:
+            layers.reduce_sums = lambda *xs: xs
+        if record:
+            calls, sites, worst = cae_recorded(torch, run, grad=True)
+        else:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        for n in names:
+            setattr(cm, n, real[n])
+        layers.reduce_sums = reduce_sums
+    metrics = got[0]
+    model = learner._model
+    counts = {k: sum(n for key, n in calls.items() if key[0] == k)
+              for k in CAE_KERNELS}
+    return dict(loss=float(metrics["loss"]),
+                grads={k: p.grad.cpu().double()
+                       for k, p in model.named_parameters()
+                       if p.grad is not None},
+                stats={k: b.cpu().double() for k, b in model.named_buffers()},
+                metrics={k: float(v) for k, v in metrics.items()},
+                calls=counts, sites=sites, worst=worst), learner, calls
+
+
+def cae_dp_augment(torch, inputs, kind, mesh=None):
+    """``kind``'s augmentation of this rank's rows under a sharded step
+    (of the whole batch without ``mesh``) from one seed on the card, and
+    the generator's next numbers -> host tensors."""
+    from stroke_prediction_tpu_torch.data import augment
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_IMAGES, KEY_LABELS)
+    from stroke_prediction_tpu_torch.parallel.mesh import row_sharding
+
+    sharding = row_sharding(mesh, CAE_DP_BATCH)
+    batch = cae_dp_batch(torch, inputs, kind, sharding, torch.float32)
+    fn = getattr(augment, CAE_DP_AUGMENT[kind])
+    args = ((batch[KEY_LABELS],) if kind == "phase1"
+            else (batch[KEY_IMAGES], batch[KEY_LABELS]))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    with sharding.active():
+        out = fn(gen, *args)
+    out = out if isinstance(out, tuple) else (out,)
+    return ([t.cpu() for t in out]
+            + [torch.rand(4, generator=gen, device="cuda").cpu()])
+
+
+def cae_dp_time(torch, inputs, kind, mesh):
+    """:func:`rank_step_times` of this rank's bfloat16 step of ``kind``
+    (augmentation on, no distances, as the CLI's step)."""
+    from stroke_prediction_tpu_torch.parallel.mesh import row_sharding
+
+    learner = cae_dp_learner(torch, inputs, kind, torch.bfloat16, mesh,
+                             os.path.join(tempfile.gettempdir(), "cae_dp"),
+                             distances=False)
+    sharding = row_sharding(mesh, CAE_DP_BATCH)
+    batch = cae_dp_batch(torch, inputs, kind, sharding, torch.bfloat16)
+
+    def step():
+        with sharding.active():
+            learner.train_step(batch, CAE_DP_FACTOR[kind])
+
+    return rank_step_times(torch, step)
+
+
+def cae_dp_rank(rank, coordinator, inputs_path, outdir):
+    """One rank of (b), on cuda:0 over gloo: each learner's DP_SIDES steps
+    on its rows (float32 and bfloat16 recorded against plain), phase 1's
+    and phase 2's lead-only writes into this rank's own directory, the
+    augmentation of its rows, the bfloat16 step timed ->
+    outdir/rank<rank>.pt."""
+    import torch
+
+    from stroke_prediction_tpu_torch.parallel import distributed
+    from stroke_prediction_tpu_torch.parallel.mesh import make_data_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(coordinator, DP_WORLD, rank, backend="gloo",
+                           device="cuda")
+    mesh = make_data_mesh()
+    inputs = torch.load(inputs_path)
+    out = {"steps": {}, "augment": {}, "timing": {}, "calls": {}}
+    for kind in CAE_DP_LEARNERS:
+        base = os.path.join(outdir, f"files{rank}", kind)
+        os.makedirs(os.path.dirname(base), exist_ok=True)
+        for side in DP_SIDES:
+            record = side in ("float32", "bfloat16")
+            torch.cuda.empty_cache()
+            got, learner, calls = cae_dp_step(torch, inputs, kind, side,
+                                              mesh, base, record)
+            out["steps"][(kind, side)] = got
+            if record:
+                out["calls"][(kind, side)] = calls
+            if side == "bfloat16" and kind in ("phase1", "prediction"):
+                learner.save_model()
+                learner.save_training()
+        if kind in CAE_DP_AUGMENT:
+            out["augment"][kind] = cae_dp_augment(torch, inputs, kind, mesh)
+        out["timing"][kind] = cae_dp_time(torch, inputs, kind, mesh)
+    out["device"] = str(torch.cuda.current_device())
+    distributed.shutdown()
+    torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def layer_errors(got, ref, layer_of):
+    """[(layer, largest gradient error / the layer's largest reference
+    gradient, the layer's largest reference gradient)], worst first."""
+    scale, err = {}, {}
+    for k, g in ref["grads"].items():
+        lay = layer_of(k)
+        scale[lay] = max(scale.get(lay, 0.0), float(g.abs().max()))
+        err[lay] = max(err.get(lay, 0.0),
+                       float((got["grads"][k] - g).abs().max()))
+    return sorted(((lay, err[lay] / scale[lay], scale[lay]) for lay in err),
+                  key=lambda t: -t[1])
+
+
+def cae_dp_layer_of(key):
+    """A parameter's layer; phase 2's encoder keys as the CAE's encoder's."""
+    return cae_layer_of(key if key.startswith(("enc.", "dec."))
+                        else "enc." + key)
+
+
+def cae_dp_want(kind):
+    """K1-K4 calls of one training step of ``kind`` by the route rule."""
+    if kind in ("phase1", "ctp"):
+        return cae_step_launches(CTP_CHANNELS if kind == "ctp"
+                                 else CAE_CHANNELS)
+    return by_kernel(learner_launches(kind)[0])
+
+
+def cae_dp_ranks(torch, work, learners):
+    """(b): two ranks on the one card over gloo through the library API,
+    each one full-width step of each learner on 2 of a global batch of 4,
+    against the one-process steps on the whole batch: float64 at
+    DP_F64_REL, float32 and bfloat16 within DP_FACTOR times their
+    one-process distance to float64 (the larger of the steps with the rows
+    in their order and in the ranks') plus DP_FLOOR, the per-rank BN
+    control failing DP_F64_REL; every K1-K4 call of a rank's float32 and
+    bfloat16 steps against plain, counted by the route rule, and edt_sites
+    at the rank's masks; the ranks' losses and gradients equal; rank 1 wrote
+    nothing; each rank's augmented rows its rows of one process's; ms per
+    step and the collectives' share.  Then K1-K4 per layer of a rank's
+    phase-1 step in both types beside cuDNN."""
+    inputs = cae_dp_inputs(torch, learners)
+    path = os.path.join(work, "cae_dp_inputs.pt")
+    torch.save(inputs, path)
+    one = {(kind, side): cae_dp_step(torch, inputs, kind, side)[0]
+           for kind in CAE_DP_LEARNERS for side in DP_SIDES[:3]}
+    # the typed steps again with the rows in the ranks' order (rank 0's,
+    # then rank 1's): a float32 step's distance to float64 depends on the
+    # order of its sums, by a factor of ~4 at the decoder's first
+    # transposed conv
+    order = [i for r in range(DP_WORLD)
+             for i in range(r, CAE_DP_BATCH, DP_WORLD)]
+    ranked = dict(inputs, data={
+        kind: {k: None if v is None else v[order] for k, v in data.items()}
+        for kind, data in inputs["data"].items()})
+    one_ranked = {(kind, side): cae_dp_step(torch, ranked, kind, side)[0]
+                  for kind in CAE_DP_LEARNERS for side in DP_SIDES[1:3]}
+    aug = {kind: cae_dp_augment(torch, inputs, kind)
+           for kind in CAE_DP_AUGMENT}
+    outdir = os.path.join(work, "cae_dp_ranks")
+    ranks = run_ranks(torch, cae_dp_rank, path, outdir, "cae dp")
+
+    sites_want = {(CAE_DP_BATCH // DP_WORLD, *CAE_DHW): CAE_EDT_PER_CASE}
+    res = {"one_process_vs_f64": {}, "ranks": [], "calls": {}}
+    for kind in CAE_DP_LEARNERS:
+        f64 = one[(kind, "float64")]
+        by_order = {side: [dp_distance(o[(kind, side)], f64,
+                                       cae_dp_layer_of)
+                           for o in (one, one_ranked)]
+                    for side in DP_SIDES[1:3]}
+        for side, (natural, ranks_order) in by_order.items():
+            print(f"cae dp: {kind} one process {side} vs float64: rows in "
+                  f"their order {natural}; in the ranks' order "
+                  f"{ranks_order}")
+        one_f64 = {side: {m: max(d[m] for d in ds)
+                          for m in ("loss", "element", "layer", "stats")}
+                   for side, ds in by_order.items()}
+        res["one_process_vs_f64"][kind] = one_f64
+        want = cae_dp_want(kind)
+        for r, got in enumerate(ranks):
+            d = {side: dp_distance(got["steps"][(kind, side)], f64,
+                                   cae_dp_layer_of) for side in DP_SIDES}
+            for side in DP_SIDES:
+                print(f"cae dp: {kind} rank {r} {side} vs the one-process "
+                      f"float64 step: {d[side]}")
+            dd = d["float64"]
+            if max(dd["loss"], dd["element"], dd["layer"], dd["stats"],
+                   dd["metrics"]) > DP_F64_REL or dd["assd"] > DP_ASSD_REL:
+                raise AssertionError(f"cae dp: {kind} rank {r}'s float64 "
+                                     f"step is off the one-process step: "
+                                     f"{dd}")
+            if d["float64, per-rank BN"]["element"] <= DP_F64_REL:
+                raise AssertionError(f"cae dp: {kind} rank {r}: the per-rank"
+                                     f" BN control passes")
+            for side in DP_SIDES[1:3]:
+                limit = {m: DP_FACTOR * one_f64[side][m] + DP_FLOOR
+                         for m in ("loss", "element", "layer", "stats")}
+                over = {m: d[side][m] for m in limit if d[side][m] > limit[m]}
+                step = got["steps"][(kind, side)]
+                print(f"cae dp: {kind} rank {r} {side}: limits {limit}; "
+                      f"calls {step['calls']} (route rule {want}), "
+                      f"edt_sites {step['sites']}; max|err| vs plain "
+                      f"{step['worst']}")
+                if over:
+                    for name, x in (("rank", step),
+                                    ("one process", one[(kind, side)]),
+                                    ("ranks' order", one_ranked[(kind,
+                                                                 side)])):
+                        print(f"cae dp: {kind} {side} {name}: worst layers "
+                              f"{layer_errors(x, f64, cae_dp_layer_of)[:6]}")
+                    raise AssertionError(f"cae dp: {kind} rank {r} {side} "
+                                         f"beyond {limit}: {over}")
+                if step["calls"] != {k: want.get(k, 0) for k in CAE_KERNELS} \
+                        or step["sites"] != sites_want:
+                    raise AssertionError(f"cae dp: {kind} rank {r} {side}: "
+                                         f"calls {step['calls']}, edt_sites "
+                                         f"{step['sites']}")
+            print(f"cae dp: {kind} rank {r} bfloat16 step (batch "
+                  f"{CAE_DP_BATCH // DP_WORLD} a rank, both ranks on the one "
+                  f"card, augmentation on): {got['timing'][kind]}")
+        for side in DP_SIDES:
+            a, b = (r["steps"][(kind, side)] for r in ranks)
+            if (a["loss"] != b["loss"]
+                    or a["grads"].keys() != b["grads"].keys()
+                    or any(not torch.equal(a["grads"][k], b["grads"][k])
+                           for k in a["grads"])):
+                raise AssertionError(f"cae dp: {kind} {side}: the ranks' "
+                                     f"losses or gradients differ")
+        if kind in CAE_DP_AUGMENT:
+            for r, got in enumerate(ranks):
+                mine = got["augment"][kind]
+                ref = [t[r::DP_WORLD] for t in aug[kind][:-1]] + \
+                    [aug[kind][-1]]
+                if len(mine) != len(ref) or not all(
+                        torch.equal(x, y) for x, y in zip(mine, ref)):
+                    raise AssertionError(f"cae dp: {kind} rank {r}'s "
+                                         f"augmented rows are not its rows "
+                                         f"of one process's")
+            print(f"cae dp: {kind}: each rank's augmented rows "
+                  f"({CAE_DP_AUGMENT[kind]}, one seed) equal its rows of one "
+                  f"process's bit for bit, and its generator's next numbers")
+    lead = sorted(os.listdir(os.path.join(outdir, "files0")))
+    other = os.listdir(os.path.join(outdir, "files1"))
+    print(f"cae dp: rank 0 wrote {lead}, rank 1 {other}")
+    if other or not {"phase1_cae1.model", "phase1_cae1.optim",
+                     "phase1_cae1.json", "prediction_cae2.model",
+                     "prediction_cae2_enc.model", "prediction_cae2.optim",
+                     "prediction_cae2.json"} <= set(lead):
+        raise AssertionError("cae dp: the lead alone must write")
+    for r, got in enumerate(ranks):
+        res["ranks"].append(dict(
+            timing=got["timing"],
+            calls={k: s["calls"] for k, s in got["steps"].items()
+                   if s["calls"]},
+            worst={k: s["worst"] for k, s in got["steps"].items()
+                   if s["worst"]}))
+    times = {}
+    for side in DP_SIDES[1:3]:
+        times[side] = cae_step_kernel_times(
+            torch, ranks[0]["calls"][("phase1", side)], cae_dp_want("phase1"),
+            f"cae dp: phase 1 rank step, {side}")
+    res.update(times=times, recorded={
+        side: {k: max(r["steps"][(kind, side)]["worst"][k] for r in ranks
+                      for kind in CAE_DP_LEARNERS) for k in CAE_KERNELS}
+        for side in DP_SIDES[1:3]})
+    return res
+
+
+def cae_dp_use(res, key):
+    """A kernel's use on the CAE data-parallel path (``res``:
+    :func:`cae_dp_phase`'s): its launches in the two --distributed CLI runs
+    (NCCL, rank 0 of 1), each learner's calls a rank-step in (b), and per
+    phase-1 rank-step the layers' sums (both types)."""
+    wrapper = {"K1": "conv3x3", "K2": "conv3x3_bwd_fused",
+               "K3": "conv3x3_bwd_dx", "K4": "conv3x3_bwd_dw"}[key]
+    return {"launches": sum(r["launches"][wrapper]
+                            for r in res["cli"].values()),
+            "launches_per_rank_step": {
+                kind: res["ranks"][0]["calls"][(kind, "bfloat16")][key]
+                for kind in CAE_DP_LEARNERS},
+            **{side: dict({f: res["times"][side][key][f] for f in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "gflop")}, max_abs_err=res["recorded"][side][key])
+               for side in ("bfloat16", "float32")},
+            "per": f"one phase-1 data-parallel rank-step ({DP_WORLD} ranks "
+                   f"on the one card, global batch {CAE_DP_BATCH}, "
+                   f"{CAE_DP_BATCH // DP_WORLD} a rank, channels 1 16 24 32 "
+                   f"100 200 1, 28x128x128): each layer's time times its "
+                   f"calls; max_abs_err: every call of the four learners' "
+                   f"rank-steps vs plain; launches: the phase-1 and phase-2 "
+                   f"--distributed CLI runs' {CAE_DP_EPOCHS} epoch each"}
+
+
+def cae_dp_phase(torch, work):
+    """Data-parallel CAE training: (a) :func:`cae_dp_cli`, (b)
+    :func:`cae_dp_ranks`."""
+    cli, learners = cae_dp_cli(torch, work)
+    return dict(cli=cli, **cae_dp_ranks(torch, work, learners))
+
+
 def main():
     import torch
 
@@ -4618,6 +5218,7 @@ def main():
         sdm = timed("sdm", sdm_phase, work)
         large = timed("large unet", large_unet_phase, work)
         dp = timed("data parallel", dp_phase, work)
+        cae_dp = timed("cae data parallel", cae_dp_phase, work)
 
     def per_step(key, dtype="bfloat16"):
         """Sums over the layers whose route runs ``key`` in one step."""
@@ -4829,7 +5430,8 @@ def main():
              cae_step=learner_use("K1", "step"),
              cae_prediction=learner_use("K1", "prediction"),
              cae_ctp=ctp_use("K1"), large_unet=large_use("K1"),
-             data_parallel=dp_use("K1")),
+             data_parallel=dp_use("K1"),
+             cae_data_parallel=cae_dp_use(cae_dp, "K1")),
         dict({"name": "conv3x3_bwd_fused", "route": "cuda",
               "source": csrc + "conv3x3_bwd_tc.cu", "replaces": s2d + "491",
               "launches": launches["conv3x3_bwd_fused"]}, **per_step("K2"),
@@ -4843,7 +5445,8 @@ def main():
                  "per": "K2 does not run on LargeUnet3D: every 3^3 conv but "
                         "the entry is over FUSED_DW_BYTES (split route), "
                         "the entry conv takes dW only"},
-             data_parallel=dp_use("K2")),
+             data_parallel=dp_use("K2"),
+             cae_data_parallel=cae_dp_use(cae_dp, "K2")),
         dict({"name": "conv3x3_bwd_dx", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dx_tc.cu",
               "replaces": s2d + "589",
@@ -4854,7 +5457,8 @@ def main():
              cae_step=learner_use("K3", "step"),
              cae_prediction=learner_use("K3", "prediction"),
              cae_ctp=ctp_use("K3"), large_unet=large_use("K3"),
-             data_parallel=dp_use("K3")),
+             data_parallel=dp_use("K3"),
+             cae_data_parallel=cae_dp_use(cae_dp, "K3")),
         dict({"name": "conv3x3_bwd_dw", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dw_tc.cu",
               "replaces": s2d + "623",
@@ -4864,7 +5468,8 @@ def main():
              cae_train=cae_train_use("K4"),
              cae_prediction=learner_use("K4", "prediction"),
              cae_ctp=ctp_use("K4"), large_unet=large_use("K4"),
-             data_parallel=dp_use("K4")),
+             data_parallel=dp_use("K4"),
+             cae_data_parallel=cae_dp_use(cae_dp, "K4")),
         {"name": "edt_sites", "route": "cuda",
          "source": csrc + "edt_sites.cu",
          "replaces": "stroke_prediction_tpu/ops/edt.py:80",
@@ -4948,6 +5553,15 @@ def main():
                     f"{EDT_PER_STEP} a step; in (b) each rank's training "
                     f"step with distances, the maximum reduced over the "
                     f"ranks"},
+         "cae_data_parallel": {
+             "launches": sum(r["launches"]["edt_sites"]
+                             for r in cae_dp["cli"].values()),
+             "launches_per_rank_step": CAE_EDT_PER_CASE, "max_abs_err": 0.0,
+             "per": f"the phase-1 and phase-2 --distributed CLI runs' "
+                    f"validation batches, {CAE_EDT_PER_CASE} a batch; in (b) "
+                    f"each rank's training step with distances, every call "
+                    f"on its own masks vs plain (equal), the maximum reduced "
+                    f"over the ranks"},
          "single_pass": {"name": "edt_parabola",
                          "launches": launches["edt_parabola"],
                          "ms": k5[(3584, 64)]["ms"],
@@ -5045,6 +5659,18 @@ def main():
               f"{r['timing']['instrumented_ms']:.3f} ms instrumented, "
               f"{r['timing']['calls']:.0f} all_reduce a step)"
               for i, r in enumerate(dp["ranks"])))
+    print("CAE data parallel: --distributed CLIs (NCCL) curves vs plain "
+          + "; ".join(f"{k} {r['curve_gap']:.3e} (two plain runs "
+                      f"{r['curve_spread']:.3e})"
+                      for k, r in cae_dp["cli"].items())
+          + f"; {DP_WORLD} gloo ranks on the one card, bfloat16 ms per "
+          f"rank-step (batch {CAE_DP_BATCH // DP_WORLD} a rank; collectives "
+          f"ms of instrumented ms, all_reduce calls a step): " + "; ".join(
+              f"rank {i} " + ", ".join(
+                  f"{kind} {t['step_ms']:.3f} ({t['collective_ms']:.3f} of "
+                  f"{t['instrumented_ms']:.3f}, {t['calls']:.0f})"
+                  for kind, t in r["timing"].items())
+              for i, r in enumerate(cae_dp["ranks"])))
     print(f"phase seconds: {phase_s}")
     print(f"CAE learners' visual forward vs one forward a step: "
           f"{cae_ln['vis']}; U-Net bfloat16 step card vs CPU "

@@ -85,6 +85,16 @@ def spawn_ranks(module: str, args) -> None:
         nprocs=n, join=True, start_method="spawn")
 
 
+def spawned(module: str, args) -> bool:
+    """Whether this process starts the ranks itself (``--ndevices N`` with
+    neither ``--distributed`` nor a rank): if so, runs ``module.train`` in
+    them (:func:`spawn_ranks`) and returns True when they have ended."""
+    if args.ndevices > 1 and not args.distributed and args.procid is None:
+        spawn_ranks(module, args)
+        return True
+    return False
+
+
 def _rank_main(rank: int, module: str, args, coordinator: str) -> None:
     args = copy.copy(args)
     args.coordinator, args.nprocs, args.procid = (coordinator,

@@ -20,20 +20,34 @@ optimum, ``<BASE>_cae1step_final.model`` at the end and, where matplotlib
 is installed, the PNGs.  ``--inbasepath`` resumes from such a snapshot,
 written by either package; the graft follows the resume, as in the JAX
 CLI.
+
+Data parallel, each step the one-process step on the global batch (every
+rank loads the phase-1 CAE; only rank 0 prints the set sizes and epoch
+lines and writes files):
+
+* ``--ndevices N``: N processes on this machine, one card each (``--device
+  cpu``: N CPU processes over gloo), each caching the cases and running its
+  rows of every batch whose size divides N, the whole of any other;
+* ``--distributed --coordinator HOST:PORT --nprocs P --procid I``: this
+  process is rank I of P, one card each, and loads only its share of each
+  batch (a last batch that does not divide over P is dropped).
 """
 
 import datetime
+from typing import Optional
 
 import torch
 
-from stroke_prediction_tpu_torch.cli.common import make_dataset
+from stroke_prediction_tpu_torch.cli.common import (
+    make_dataset, make_mesh, spawned)
 from stroke_prediction_tpu_torch.data.dataset import (
     LABEL_CORE, LABEL_LESION, LABEL_PENU, MOD_CBV, MOD_TTD)
 from stroke_prediction_tpu_torch.data.loader import (
     get_stroke_shape_training_data)
-from stroke_prediction_tpu_torch.device import resolve_device
 from stroke_prediction_tpu_torch.models.cae3d import Cae3D, Dec3D, Enc3DStep
 from stroke_prediction_tpu_torch.models.factory import load_model
+from stroke_prediction_tpu_torch.parallel import distributed
+from stroke_prediction_tpu_torch.parallel.distributed import is_lead
 from stroke_prediction_tpu_torch.train.cae_learners import CaeStepLearner
 from stroke_prediction_tpu_torch.train.optim import (
     make_optimizer, multistep_lr, trainable_by_path)
@@ -42,11 +56,16 @@ from stroke_prediction_tpu_torch.utils.args import get_args_step_training
 STEP_HEAD = ("reduce1", "reduce2", "step_head")
 
 
-def train(args) -> CaeStepLearner:
+def train(args) -> Optional[CaeStepLearner]:
+    """Train; returns the learner, or None where ``--ndevices`` ran the
+    ranks in processes of their own."""
+    if spawned("stroke_prediction_tpu_torch.cli."
+               "train_interpolationstep_after_reconstruction", args):
+        return None
     learning_rate = 1e-3
     betas = (0.9, 0.999)
 
-    device = resolve_device(args.device)
+    mesh, device = make_mesh(args)
     cae_loaded, _ = load_model(args.caepath, device)
     gen = torch.Generator().manual_seed(args.seed)
     dtype = getattr(torch, args.dtype)
@@ -60,10 +79,11 @@ def train(args) -> CaeStepLearner:
                            [LABEL_CORE, LABEL_PENU, LABEL_LESION])
     ds_train, ds_valid = get_stroke_shape_training_data(
         dataset, args.fold, args.validsetsize, seed=args.seed,
-        batchsize=args.batchsize)
-    print("Size training set:", len(ds_train.indices),
-          "samples | Size validation set:",
-          len(ds_valid.indices) if ds_valid else 0)
+        batchsize=args.batchsize, process_shard=args.distributed)
+    if is_lead():
+        print("Size training set:", len(ds_train.indices),
+              "samples | Size validation set:",
+              len(ds_valid.indices) if ds_valid else 0)
 
     # only the clinical step head trains
     optimizer = make_optimizer(trainable_by_path(cae, STEP_HEAD),
@@ -76,13 +96,15 @@ def train(args) -> CaeStepLearner:
         path_previous_base=args.inbasepath,
         path_outputs_base=args.outbasepath, seed=args.seed,
         distances_on_training=args.distances, profile_dir=args.profile,
-        device=device)
+        device=device, mesh=mesh)
 
     # the phase-1 CAE's encoder trunk and decoder, parameters and BN
     # statistics, into the fresh model
     cae.enc.encoder.load_state_dict(cae_loaded.enc.encoder.state_dict())
     cae.dec.load_state_dict(cae_loaded.dec.state_dict())
     learner.run_training()
+    if mesh is not None:
+        distributed.shutdown()
     return learner
 
 

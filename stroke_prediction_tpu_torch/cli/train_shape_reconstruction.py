@@ -16,20 +16,33 @@ Writes ``<BASE>_cae1.{model,optim,json}`` on each new validation optimum,
 ``<BASE>_cae1_final.model`` at the end and, where matplotlib is installed,
 the PNGs.  ``--inbasepath`` resumes from such a snapshot, written by either
 package.
+
+Data parallel, each step the one-process step on the global batch (only
+rank 0 prints the set sizes and epoch lines and writes files):
+
+* ``--ndevices N``: N processes on this machine, one card each (``--device
+  cpu``: N CPU processes over gloo), each caching the cases and running its
+  rows of every batch whose size divides N, the whole of any other;
+* ``--distributed --coordinator HOST:PORT --nprocs P --procid I``: this
+  process is rank I of P, one card each, and loads only its share of each
+  batch (a last batch that does not divide over P is dropped).
 """
 
 import datetime
+from typing import Optional
 
 import torch
 
-from stroke_prediction_tpu_torch.cli.common import make_dataset
+from stroke_prediction_tpu_torch.cli.common import (
+    make_dataset, make_mesh, spawned)
 from stroke_prediction_tpu_torch.data.dataset import (
     LABEL_CORE, LABEL_LESION, LABEL_PENU, MOD_CBV, MOD_TTD)
 from stroke_prediction_tpu_torch.data.loader import (
     get_stroke_shape_training_data)
-from stroke_prediction_tpu_torch.device import resolve_device
 from stroke_prediction_tpu_torch.models.cae3d import (
     Cae3D, Dec3D, Enc3D, Enc3DStep)
+from stroke_prediction_tpu_torch.parallel import distributed
+from stroke_prediction_tpu_torch.parallel.distributed import is_lead
 from stroke_prediction_tpu_torch.train.cae_learners import (
     CaeReconstructionLearner)
 from stroke_prediction_tpu_torch.train.optim import (
@@ -37,12 +50,17 @@ from stroke_prediction_tpu_torch.train.optim import (
 from stroke_prediction_tpu_torch.utils.args import get_args_shape_training
 
 
-def train(args) -> CaeReconstructionLearner:
+def train(args) -> Optional[CaeReconstructionLearner]:
+    """Train; returns the learner, or None where ``--ndevices`` ran the
+    ranks in processes of their own."""
+    if spawned("stroke_prediction_tpu_torch.cli."
+               "train_shape_reconstruction", args):
+        return None
     use_validation = not args.steplearning
     learning_rate = 1e-3
     betas = (0.9, 0.999)
 
-    device = resolve_device(args.device)
+    mesh, device = make_mesh(args)
     gen = torch.Generator().manual_seed(args.seed)
     dtype = getattr(torch, args.dtype)
     enc_cls = Enc3DStep if args.steplearning else Enc3D
@@ -59,13 +77,15 @@ def train(args) -> CaeReconstructionLearner:
                            [LABEL_CORE, LABEL_PENU, LABEL_LESION])
     ds_train, ds_valid = get_stroke_shape_training_data(
         dataset, args.fold, args.validsetsize, seed=args.seed,
-        batchsize=args.batchsize, split=use_validation)
-    print("Size training set:", len(ds_train.indices),
-          "samples | Size validation set:",
-          len(ds_valid.indices) if ds_valid else 0,
-          "samples | Capacity batch:", args.batchsize, "samples")
-    print("# training batches:", len(ds_train),
-          "| # validation batches:", len(ds_valid) if ds_valid else 0)
+        batchsize=args.batchsize, split=use_validation,
+        process_shard=args.distributed)
+    if is_lead():
+        print("Size training set:", len(ds_train.indices),
+              "samples | Size validation set:",
+              len(ds_valid.indices) if ds_valid else 0,
+              "samples | Capacity batch:", args.batchsize, "samples")
+        print("# training batches:", len(ds_train),
+              "| # validation batches:", len(ds_valid) if ds_valid else 0)
 
     # --steplearning keeps this learner, with the time given: the step head
     # trains later (the step learner)
@@ -75,8 +95,10 @@ def train(args) -> CaeReconstructionLearner:
         path_previous_base=args.inbasepath,
         path_outputs_base=args.outbasepath, seed=args.seed,
         distances_on_training=args.distances, profile_dir=args.profile,
-        device=device)
+        device=device, mesh=mesh)
     learner.run_training()
+    if mesh is not None:
+        distributed.shutdown()
     return learner
 
 

@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 
 from stroke_prediction_tpu_torch.cli.common import (
-    make_dataset, make_mesh, spawn_ranks)
+    make_dataset, make_mesh, spawned)
 from stroke_prediction_tpu_torch.data.dataset import (
     LABEL_CORE, LABEL_PENU, MOD_CBV, MOD_TTD)
 from stroke_prediction_tpu_torch.data.loader import (
@@ -48,9 +48,8 @@ from stroke_prediction_tpu_torch.utils.args import get_args_unet_training
 def train(args) -> Optional[UnetSegmentationLearner]:
     """Train; returns the learner, or None where ``--ndevices`` ran the
     ranks in processes of their own."""
-    if args.ndevices > 1 and not args.distributed and args.procid is None:
-        spawn_ranks("stroke_prediction_tpu_torch.cli.train_unet_segmentation",
-                    args)
+    if spawned("stroke_prediction_tpu_torch.cli."
+               "train_unet_segmentation", args):
         return None
     mesh, device = make_mesh(args)
     learning_rate = 1e-3

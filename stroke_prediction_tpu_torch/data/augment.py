@@ -18,6 +18,12 @@ learner: the images flipped with the labels by the same mask, the labels
 alone deformed) and :func:`random_cae_augment_images` (phase 2: the images
 flipped and deformed with the labels, by the same mask and fields).
 
+In a sharded data-parallel step (``parallel.mesh.current()``) the CAE
+learners' draws are those of the global batch: every rank draws the flip
+mask and the noise for all its rows, takes its own rows of them and blurs
+only those, so N ranks deform what one process deforms and every rank's
+generator stays in step (as ``train/unet_learner.py`` draws its crops).
+
 Layouts: batch volumes ``(B, D, H, W, C)``; patch and pad are given in the
 reference's (x, y, z) = (W, H, D) order.
 """
@@ -30,6 +36,7 @@ import torch
 
 from stroke_prediction_tpu_torch.ops.warp import (
     elastic_fields, elastic_noise, map_coordinates_batch)
+from stroke_prediction_tpu_torch.parallel.mesh import current
 
 
 def random_offsets(generator: torch.Generator, batch: int,
@@ -103,11 +110,17 @@ def elastic_deform_batch(labels: torch.Tensor,
 
 
 def _cae_draws(generator: torch.Generator, labels: torch.Tensor):
-    """One flip mask and one displacement field per sample."""
-    flip = random_flip_mask(generator, labels.shape[0])
-    noise = elastic_noise(generator, labels.shape[0],
-                          tuple(labels.shape[1:4]), labels.dtype)
-    return flip, elastic_fields(noise)
+    """One flip mask and one displacement field per sample of ``labels``:
+    drawn for the running step's global batch, this rank's rows of them.
+    The blur runs a sample at a time, so that a sample's field is the same
+    bits however many rows a rank holds."""
+    sharding = current()
+    n = sharding.global_size(labels.shape[0])
+    flip = random_flip_mask(generator, n)
+    noise = elastic_noise(generator, n, tuple(labels.shape[1:4]),
+                          labels.dtype)
+    fields = torch.stack([elastic_fields(x) for x in sharding.take(noise)])
+    return sharding.take(flip), fields
 
 
 def random_cae_augment(generator: torch.Generator,

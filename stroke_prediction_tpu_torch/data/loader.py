@@ -106,12 +106,14 @@ def get_stroke_prediction_training_data(dataset: StrokeDataset3D,
                                         fold_indices: Sequence[int],
                                         ratio: float, seed: int = 4,
                                         batchsize: int = 2,
-                                        split: bool = True):
-    """Phase 2's loaders (U-Net segmentations as images): the same split
-    and order as :func:`get_stroke_shape_training_data`, as in the JAX
-    package."""
+                                        split: bool = True,
+                                        process_shard: bool = False):
+    """Phase 2's loaders (U-Net segmentations as images): the same split,
+    order and ``process_shard`` as :func:`get_stroke_shape_training_data`,
+    as in the JAX package."""
     return get_stroke_shape_training_data(dataset, fold_indices, ratio,
-                                          seed, batchsize, split)
+                                          seed, batchsize, split,
+                                          process_shard)
 
 
 def get_testdata(dataset, indices, seed=None, shuffle=True) -> BatchLoader:

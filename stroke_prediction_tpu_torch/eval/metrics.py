@@ -5,9 +5,10 @@ separable EDT (ops/edt.py, kernel K5); they are inf when either mask is
 empty.
 
 In a sharded data-parallel step (``parallel.mesh.current()``) the Dice
-loss and :func:`binary_measures` are those of the global batch: their
-sums (the Dice's three, the measures' counts and distance sums, the
-distance maximum) are reduced over the ranks before any ratio is formed.
+loss, :func:`monotonicity_hinge` and :func:`binary_measures` are those of
+the global batch: their sums (the Dice's three, the hinge's, the measures'
+counts and distance sums, the distance maximum) are reduced over the ranks
+before any ratio is formed.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch.nn.functional as F
 from stroke_prediction_tpu_torch.core.dto import BinaryMeasures
 from stroke_prediction_tpu_torch.ops.edt import edt_to_sites
 from stroke_prediction_tpu_torch.parallel.collectives import (
-    reduce_max, reduce_sums)
+    global_mean, reduce_max, reduce_sums)
 
 
 def batch_dice_loss(outputs: torch.Tensor, targets: torch.Tensor,
@@ -46,8 +47,9 @@ def batch_dice_loss(outputs: torch.Tensor, targets: torch.Tensor,
 
 def monotonicity_hinge(diff: torch.Tensor) -> torch.Tensor:
     """``mean(|d| - d)``: penalizes the negative entries of ``d``, the CAE
-    loss's core <= interpolation <= penumbra ordering term."""
-    return torch.mean(torch.abs(diff) - diff)
+    loss's core <= interpolation <= penumbra ordering term; in a sharded
+    step the mean over the global batch."""
+    return global_mean(torch.abs(diff) - diff)
 
 
 def _surface6(mask: torch.Tensor) -> torch.Tensor:

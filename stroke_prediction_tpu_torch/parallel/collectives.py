@@ -9,6 +9,8 @@ one rank (``parallel.mesh.current().reduces``):
 * :func:`reduce_sums` — ``all_reduce(SUM)`` inside the autograd graph: its
   backward is ``all_reduce(SUM)`` of the incoming gradient.  BN's moment
   sums and the Dice loss's sums go through it.
+* :func:`global_mean` — a mean over the global batch through
+  :func:`reduce_sums` (the CAE losses' hinges and latent L1 terms).
 * :func:`reduce_max` — ``all_reduce(MAX)``, no gradient (the measures'
   surface distance maximum).
 * :func:`average_gradients` — every parameter's gradient in one flat
@@ -58,6 +60,19 @@ def reduce_sums(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     if not current().reduces:
         return xs
     return tuple(_AllReduceSum.apply(torch.stack(xs)).unbind())
+
+
+def global_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the running sharded step's global batch: this
+    rank's sum, summed over the ranks, over its element count times the
+    world (the row rule gives every rank equal rows), with the summed
+    gradient in backward; ``torch.mean(x)`` otherwise."""
+    sharding = current()
+    if not sharding.reduces:
+        return torch.mean(x)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    total, = reduce_sums(torch.sum(x, dtype=wide))
+    return (total / (x.numel() * sharding.mesh.world)).to(x.dtype)
 
 
 def reduce_max(x: torch.Tensor) -> torch.Tensor:

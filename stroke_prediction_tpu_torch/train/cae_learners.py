@@ -39,6 +39,15 @@ hinge(penu_in - core_in) + Dice(interp_in, lesion) + the three latents'
 mean |z_gt - z_in|) / 6``, no beta1 ramp; the frozen CAE is saved under the
 main name, the encoder under ``_enc``.  Its measures are the frozen CAE's
 gtruth-branch reconstructions', as the JAX learner's are.
+
+Data parallelism (the base learner's ``mesh``): in a sharded step the flip
+masks and displacement fields are drawn for the global batch and each rank
+takes its rows' (``data/augment.py``); the loss is that of the global
+batch (BN's moments, the Dice sums, the hinges' and the latent L1 terms'
+means, ``parallel.collectives.global_mean``), every rank reports it, the
+gradients are averaged over the ranks after backward, and the measures are
+the global batch's.  Only the lead rank writes (phase 2's frozen CAE and
+encoder too).
 """
 
 from __future__ import annotations
@@ -56,6 +65,9 @@ from stroke_prediction_tpu_torch.inference import (
     IMSHOW_VMAX_CBV, IMSHOW_VMAX_TTD, cae_dto_from_batch, cae_enc_inference)
 from stroke_prediction_tpu_torch.models.convert import (
     state_from_jax, state_to_jax)
+from stroke_prediction_tpu_torch.parallel.collectives import (
+    average_gradients, global_mean)
+from stroke_prediction_tpu_torch.parallel.distributed import is_lead
 from stroke_prediction_tpu_torch.train.learner import Learner
 from stroke_prediction_tpu_torch.train.unet_learner import _measures_dict
 from stroke_prediction_tpu_torch.utils import checkpoint as ckpt
@@ -71,8 +83,8 @@ def cae_loss(dto, factor: float) -> torch.Tensor:
     loss = loss + batch_dice_loss(rec.penu, gt.penu)
     loss = loss + batch_dice_loss(rec.lesion, gt.lesion)
     lat = dto.latents.gtruth
-    loss = loss + factor * torch.mean(torch.abs(lat.interpolation
-                                                - lat.lesion))
+    loss = loss + factor * global_mean(torch.abs(lat.interpolation
+                                                 - lat.lesion))
     return loss / (5.0 + factor)
 
 
@@ -93,8 +105,8 @@ def prediction_loss(dto) -> torch.Tensor:
     loss = loss + monotonicity_hinge(rec_in.penu - rec_in.core)
     loss = loss + batch_dice_loss(rec_in.interpolation, gt.lesion)
     for name in ("interpolation", "core", "penu"):
-        loss = loss + torch.mean(torch.abs(getattr(lat_gt, name)
-                                           - getattr(lat_in, name)))
+        loss = loss + global_mean(torch.abs(getattr(lat_gt, name)
+                                            - getattr(lat_in, name)))
     return loss / 6.0
 
 
@@ -186,10 +198,12 @@ class CaeReconstructionLearner(Learner):
             loss.backward()
         # a trainable parameter off the loss's path (Enc3DStep's head when
         # the time is given) gets a zero gradient, as jax.grad gives it, so
-        # that Adam's L2 term moves it as optax does
+        # that Adam's L2 term moves it as optax does; after it, every rank
+        # averages the same tensors
         for p in self._model.parameters():
             if p.requires_grad and p.grad is None:
                 p.grad = torch.zeros_like(p)
+        average_gradients(self._model.parameters())
         self._optimizer.step()
         self.step_counts["train"] += 1
         with torch.no_grad():
@@ -362,7 +376,9 @@ class CaePredictionLearner(CaeReconstructionLearner):
 
     def save_model(self, suffix: str = ""):
         """The frozen CAE under the main name, the encoder under
-        ``_enc``."""
+        ``_enc`` (the lead rank alone)."""
+        if not is_lead():
+            return
         ckpt.save_checkpoint(
             self.path("save", "model", suffix),
             state_to_jax(self._cae.state_dict(), self._cae.config),

@@ -26,7 +26,7 @@ other chunk runs whole on every rank, with no collective.  A loader with
 process stacks only its share of a chunk on the host, and
 ``data.prefetch`` stages the next one on the card while a step runs.  Only
 the lead process (rank 0) writes checkpoints, curves and PNGs and prints
-the epoch lines; every rank loads a snapshot to resume.
+the epoch and momentum lines; every rank loads a snapshot to resume.
 
 Each training pass is timed from its start to that fetch
 (``utils.profiling.StepTimer`` over the mesh's chips, the first pass left
@@ -190,7 +190,7 @@ class Learner:
             return
         b1 = beta1_ramp(self._base_betas[0], epoch, self.N_EPOCHS_ADAPT_BETA1)
         set_beta1(self._optimizer, b1)
-        if epoch <= self.N_EPOCHS_ADAPT_BETA1:
+        if epoch <= self.N_EPOCHS_ADAPT_BETA1 and is_lead():
             print("Momentum betas have been set to:",
                   (b1, self._base_betas[1]), end=" ")
 

@@ -10,9 +10,11 @@ The same flags and defaults as the JAX package's ``ExpParser`` /
 runs float32), ``--distances`` computes HD/ASSD on training batches too and
 ``--profile LOGDIR`` traces one training pass with ``torch.profiler``.
 The runtime flags of the parallel path (``--ndevices``, ``--distributed``
-and its addresses) parse as in the JAX package.  U-Net training reads them
-(``get_args_unet_training``; ``cli/common.py::make_mesh``); every other
-entry point, whose data-parallel path is not ported yet, raises
+and its addresses) parse as in the JAX package.  U-Net training and the
+CAE training entry points read them (``get_args_unet_training``,
+``get_args_shape_training``, ``get_args_step_training``,
+``get_args_shape_prediction_training``; ``cli/common.py::make_mesh``); the
+testers, which run on one process as the JAX testers do, raise
 ``NotImplementedError`` naming the flag when one is set to anything but
 its default.
 """
@@ -175,7 +177,9 @@ def get_args_unet_testing(argv: Optional[Sequence[str]] = None):
 
 
 def get_args_shape_training(argv: Optional[Sequence[str]] = None):
-    parser = CAEParser()
+    """Phase-1 (and CTP) CAE training's flags, the data-parallel ones
+    included."""
+    parser = CAEParser(parallel=True)
     parser.add_argument("--channelscae", type=int, nargs="+",
                         default=[1, 16, 24, 32, 100, 200, 1],
                         help="CAE channels")
@@ -183,8 +187,9 @@ def get_args_shape_training(argv: Optional[Sequence[str]] = None):
 
 
 def get_args_step_training(argv: Optional[Sequence[str]] = None):
-    """Step learning on a phase-1 CAE: its ``.model`` path first."""
-    parser = CAEParser()
+    """Step learning on a phase-1 CAE: its ``.model`` path first; the
+    data-parallel flags included."""
+    parser = CAEParser(parallel=True)
     parser.add_argument("caepath", type=str,
                         help="Path to previously trained cae phase1 model")
     parser.add_argument("--channelscae", type=int, nargs="+",
@@ -194,8 +199,9 @@ def get_args_step_training(argv: Optional[Sequence[str]] = None):
 
 def get_args_shape_prediction_training(
         argv: Optional[Sequence[str]] = None):
-    """Phase-2 training against a phase-1 CAE: its ``.model`` path first."""
-    parser = CAEParser()
+    """Phase-2 training against a phase-1 CAE: its ``.model`` path first;
+    the data-parallel flags included."""
+    parser = CAEParser(parallel=True)
     parser.add_argument("caepath", type=str,
                         help="Path to previously trained cae phase1 model")
     parser.add_argument("--channelsenc", type=int, nargs="+",

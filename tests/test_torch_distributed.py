@@ -1,9 +1,14 @@
-"""Port parity for the process-sharded loader and the data-parallel U-Net
-training CLI: ``BatchLoader(process_shard=True)`` against the JAX loader's
+"""Port parity for the process-sharded loader and the data-parallel
+training CLIs: ``BatchLoader(process_shard=True)`` against the JAX loader's
 rule (``chunk[pid::nproc]``, a last chunk that does not divide dropped),
-and the port's training CLI run on the CPU in two processes, ``--ndevices
-2`` (spawned ranks on the device cache) and ``--distributed`` (two
-commands on the host path), against the same CLI in one process.
+and the port's U-Net training CLI run on the CPU in two processes,
+``--ndevices 2`` (spawned ranks on the device cache) and ``--distributed``
+(two commands on the host path), against the same CLI in one process; the
+same for the phase-1 CAE CLI (``--ndevices 2``) and the phase-2 CLI
+(``--ndevices 2``, and ``--distributed`` with each process writing under a
+base of its own: rank 1 writes nothing).  The CAE runs import no
+matplotlib (a stand-in package that refuses the import), as on the card:
+no PNGs, and no visual forwards.
 
 Each CLI run is a subprocess with a timeout of its own (SPAWN_TIMEOUT).
 The curves agree to 1e-5 relative (float32 sums in another order); the
@@ -30,6 +35,9 @@ from stroke_prediction_tpu_torch.cli import train_unet_segmentation as cli
 from stroke_prediction_tpu_torch.data import dataset, loader
 from stroke_prediction_tpu_torch.utils import checkpoint
 from stroke_prediction_tpu_torch.utils.args import get_args_unet_training
+
+import _torch_cae_parallel_worker as cae_worker
+from test_torch_cae_step_learner import write_phase1_cae
 
 REPO = Path(__file__).resolve().parents[1]
 SPAWN_TIMEOUT = 180        # seconds per CLI run, both ranks together
@@ -90,19 +98,29 @@ def test_drop_last_matches_jax(n_cases):
         assert ours.epoch_chunks() == theirs.epoch_chunks()
 
 
-def _env(tmp_path):
+def _env(tmp_path, no_plots=False):
+    """The CLI's environment; ``no_plots``: a ``matplotlib`` that refuses to
+    import first on the path."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+    path = [str(REPO)]
+    if no_plots:
+        stub = tmp_path / "no_plots" / "matplotlib"
+        stub.mkdir(parents=True, exist_ok=True)
+        (stub / "__init__.py").write_text(
+            'raise ImportError("no matplotlib in this run")\n')
+        path.insert(0, str(stub.parent))
+    env.update(PYTHONPATH=os.pathsep.join(path), OMP_NUM_THREADS="1",
                TMPDIR=str(tmp_path))
     return env
 
 
-def _run(commands, tmp_path):
+def _run(commands, tmp_path, module=MODULE):
     """Run the CLI commands together; (returncode, output) of each."""
-    procs = [subprocess.Popen([sys.executable, "-m", MODULE, *c],
+    procs = [subprocess.Popen([sys.executable, "-m", module, *c],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True,
-                              env=_env(tmp_path), cwd=tmp_path)
+                              env=_env(tmp_path, module != MODULE),
+                              cwd=tmp_path)
              for c in commands]
     outs = []
     try:
@@ -120,7 +138,7 @@ def _run(commands, tmp_path):
 
 def _epoch_lines(out):
     return re.findall(r"^Epoch \d+/\d+ (?:training|validate) loss: .*?"
-                      r"DC Penumbra:\S+", out, re.M)
+                      r"DC (?:Penumbra|penu\.):\S+", out, re.M)
 
 
 def _leaves(tree, path=()):
@@ -131,12 +149,14 @@ def _leaves(tree, path=()):
             yield path + (k,), np.asarray(v)
 
 
-def _same_training(base, ref):
-    """The two runs' files, curves and final weights agree."""
+def _same_training(base, ref, mark="_unet", models=("_unet_final.model",),
+                   weight_abs=WEIGHT_ABS):
+    """The two runs' files, curves (``<mark>.json``) and final weights (each
+    of ``models``, within ``weight_abs``) agree."""
     names = sorted(p.name for p in base.parent.iterdir())
     assert names == sorted(p.name for p in ref.parent.iterdir())
-    got = checkpoint.load_curves(str(base) + "_unet.json")
-    want = checkpoint.load_curves(str(ref) + "_unet.json")
+    got = checkpoint.load_curves(str(base) + mark + ".json")
+    want = checkpoint.load_curves(str(ref) + mark + ".json")
     for phase in ("training", "validate"):
         assert len(got[phase]) == len(want[phase]) >= 1
         for a, b in zip(got[phase], want[phase]):
@@ -147,19 +167,21 @@ def _same_training(base, ref):
                                                                1e-30), k
                 else:
                     assert a[k] == b[k], k
-    a, _ = checkpoint.load_checkpoint(str(base) + "_unet_final.model")
-    b, _ = checkpoint.load_checkpoint(str(ref) + "_unet_final.model")
-    want = dict(_leaves(b))
-    for path, leaf in _leaves(a):
-        np.testing.assert_allclose(leaf, want[path], atol=WEIGHT_ABS,
-                                   rtol=0, err_msg=str(path))
+    for name in models:
+        a, _ = checkpoint.load_checkpoint(str(base) + name)
+        b, _ = checkpoint.load_checkpoint(str(ref) + name)
+        want = dict(_leaves(b))
+        assert len(want) == len(dict(_leaves(a)))
+        for path, leaf in _leaves(a):
+            np.testing.assert_allclose(leaf, want[path], atol=weight_abs,
+                                       rtol=0, err_msg=f"{name} {path}")
 
 
-def _bases(tmp_path, *names):
+def _bases(tmp_path, *names, stem="unet"):
     out = []
     for name in names:
         (tmp_path / name).mkdir()
-        out.append(tmp_path / name / "unet")
+        out.append(tmp_path / name / stem)
     return out
 
 
@@ -216,3 +238,76 @@ def test_parallel_flags_refuse_what_is_not_there(monkeypatch):
         cli.train(args)
     with pytest.raises(SystemExit):
         get_args_unet_training(["u.model", "--distributed"])
+
+
+# ------------------------------------------------------------ the CAE CLIs
+
+CAE1_MODULE = "stroke_prediction_tpu_torch.cli.train_shape_reconstruction"
+CAE2_MODULE = "stroke_prediction_tpu_torch.cli.train_shape_prediction"
+CAE_WIDTH = [*map(str, cae_worker.CHANNELS)]
+CAE_ARGS = ["--synthetic", "--xyoriginal", "128", "--zsize", "28",
+            "--epochs", "2", "--batchsize", "4", "--dtype", "float32",
+            "--device", "cpu"]
+CAE1_MODELS = ("_cae1_final.model",)
+# the CAE's final weights: a tenth of one Adam step (lr 1e-3).  Adam's
+# m / sqrt(v) normalizes each gradient element, so one that cancels down to
+# the float32 sums' rounding moves by up to a step either way; after four
+# steps three of the 1728 elements of the decoder's first kernel were 2e-5
+# apart.  A step without the gradients' average, or a missing step, moves
+# the weights by ~1e-3.
+CAE_WEIGHT_ABS = 1e-4
+CAE2_MODELS = ("_cae2_final.model", "_cae2_enc_final.model")
+
+
+def _phase2_args(tmp_path):
+    cae = tmp_path / "phase1_cae1.model"
+    write_phase1_cae(str(cae))
+    return [str(cae), *CAE_ARGS, "--channelsenc", *CAE_WIDTH, "--initbycae"]
+
+
+@pytest.mark.parametrize("phase", [1, 2])
+def test_cae_ndevices_2_cli_equals_one_process(tmp_path, phase):
+    """``--ndevices 2 --device cpu`` of the phase-1 and the phase-2 CLI for
+    two epochs on 7 training cases at batch 4 (a chunk of 4 sharded, one of
+    3 replicated) against the same CLI in one process: the same epoch
+    lines, printed once, the same files, curves and final models (phase 2:
+    the frozen CAE and the encoder)."""
+    two, one = _bases(tmp_path, "two", "one", stem="cae")
+    if phase == 1:
+        module, mark, models = CAE1_MODULE, "_cae1", CAE1_MODELS
+        args = CAE_ARGS + ["--channelscae", *CAE_WIDTH]
+    else:
+        module, mark, models = CAE2_MODULE, "_cae2", CAE2_MODELS
+        args = _phase2_args(tmp_path)
+    out_two, out_one = _run([
+        args + FOLD_7 + ["--ndevices", "2", "--outbasepath", str(two)],
+        args + FOLD_7 + ["--outbasepath", str(one)]], tmp_path, module)
+    assert out_one.count("Size training set: 7 samples") == 1
+    assert out_two.count("Size training set: 7 samples") == 1
+    assert len(_epoch_lines(out_one)) == 4
+    assert _epoch_lines(out_two) == _epoch_lines(out_one)
+    _same_training(two, one, mark, models, CAE_WEIGHT_ABS)
+
+
+def test_cae_distributed_cli_two_processes_equal_one_process(tmp_path):
+    """Phase 2 with ``--distributed`` in two commands (8 training cases at
+    batch 4: each process loads two cases a chunk through the prediction
+    loader's ``process_shard``), each with an output base of its own,
+    against one process: rank 1 prints no epoch line and writes nothing,
+    rank 0 prints the one-process run's lines and writes its files, curves
+    and both final models."""
+    two, other, one = _bases(tmp_path, "two", "other", "one", stem="cae")
+    args = _phase2_args(tmp_path)
+    coordinator = f"127.0.0.1:{common.free_port()}"
+    rank0, rank1, out_one = _run(
+        [args + FOLD_8 + ["--distributed", "--coordinator", coordinator,
+                          "--nprocs", "2", "--procid", str(i),
+                          "--outbasepath", str(base)]
+         for i, base in enumerate((two, other))]
+        + [args + FOLD_8 + ["--outbasepath", str(one)]], tmp_path,
+        CAE2_MODULE)
+    assert len(_epoch_lines(out_one)) == 4
+    assert _epoch_lines(rank0) == _epoch_lines(out_one)
+    assert _epoch_lines(rank1) == [] and "Size training set" not in rank1
+    assert not list(other.parent.iterdir())
+    _same_training(two, one, "_cae2", CAE2_MODELS, CAE_WEIGHT_ABS)

@@ -34,7 +34,8 @@ from stroke_prediction_tpu_torch.models.layers import Conv3d
 from stroke_prediction_tpu_torch.models.unet3d import Unet3D
 from stroke_prediction_tpu_torch.utils import checkpoint
 from stroke_prediction_tpu_torch.utils.args import (
-    PARALLEL_FLAGS, get_args_shape_training, get_args_unet_testing,
+    PARALLEL_FLAGS, get_args_sdm, get_args_shape_prediction_training,
+    get_args_shape_training, get_args_step_training, get_args_unet_testing,
     get_args_unet_training)
 
 torch.set_num_threads(1)
@@ -236,14 +237,29 @@ def test_bare_3x3_conv_matches_jax(padding):
 def test_unported_runtime_flags_raise(flags):
     """Each runtime flag of the data-parallel path raises, naming itself,
     at the entry points whose parallel path is not ported: the U-Net tester
-    and the CAE training CLIs.  U-Net training takes it."""
+    and the SDM tester.  U-Net training and the CAE training parsers
+    (phase 1 and CTP, step learning, phase 2) take it; ``--distributed``
+    there needs its three addresses."""
     assert flags[0].lstrip("-") in PARALLEL_FLAGS
     with pytest.raises(NotImplementedError, match=flags[0]):
         get_args_unet_testing(["unet.model", *flags])
     with pytest.raises(NotImplementedError, match=flags[0]):
-        get_args_shape_training(flags)
-    if flags != ["--distributed"]:      # which needs its three addresses
-        get_args_unet_training(["unet.model", *flags])
+        get_args_sdm(flags)
+    parsers = ((get_args_unet_training, ["unet.model"]),
+               (get_args_shape_training, []),
+               (get_args_step_training, ["cae.model"]),
+               (get_args_shape_prediction_training, ["cae.model"]))
+    for parse, positional in parsers:
+        if flags == ["--distributed"]:
+            with pytest.raises(SystemExit):
+                parse([*positional, *flags])
+            flags_full = [*flags, "--coordinator", "h:1", "--nprocs", "2",
+                          "--procid", "1"]
+            assert parse([*positional, *flags_full]).procid == 1
+        else:
+            args = parse([*positional, *flags])
+            name = flags[0].lstrip("-")
+            assert getattr(args, name) != PARALLEL_FLAGS[name]
     # the JAX parser takes the same command line
     JaxUnetParser().parse_args(["unet.model", *flags])
 
