@@ -175,8 +175,9 @@ non-zero without one.  Phases:
 13. CAE data-parallel phase (``cae_dp_phase``, lines prefixed ``cae dp``):
    (a) the phase-1 and phase-2 CLIs at the reference width (bfloat16,
    batch 4) with ``--distributed --nprocs 1 --procid 0`` over NCCL for one
-   epoch each between two plain runs: K1-K5 launches by the route rule,
-   the curves against the plain runs' spread, the files; (b) two ranks on
+   epoch each beside a plain run: K1-K5 launches by the route rule, the
+   curves equal to the plain run's, the files; phase 2's plain run twice,
+   bit for bit (curves and ``.model`` files); (b) two ranks on
    the one card over gloo (``cae_dp_rank``), each one full-width step of
    each learner (phase 1, the CTP CAE, step learning, phase 2) on 2 rows of
    a global batch of 4: float64 (the plain versions) against the
@@ -190,12 +191,35 @@ non-zero without one.  Phases:
    augmented rows its rows of one process's, each learner's bfloat16 ms per
    rank-step with its all_reduce calls and their share; then K1-K4 per
    layer of a phase-1 rank-step in both types beside cuDNN.
+14. grouped CAE phase (``cae_grouped_phase``, lines prefixed ``cae
+   grouped``), structure batching on (``STROKE_TPU_CAE_BATCH=1``: a
+   branch's structures as one pass with grouped BN) at the reference width
+   on 28x128x128 masks: (a) one phase-1 and one CTP training step (batch
+   4) in bfloat16 and in float32, every K1-K4 call against plain (the
+   entry conv's fused K2 at C_in 1 and 3, which the grouped affine's dx
+   brings in), 13 / 5 / 8 / 8 K1-K4 a step (45 / 15 / 27 / 30 with the
+   passes one structure each), the launches of an unrecorded step, K1-K4
+   per layer of a bfloat16 step beside cuDNN (also at a rank's batch of 2)
+   and the entry convs' K2 in both types; (b) at batch 2, the grouped
+   float32 step and the sequential one against a grouped float64 CPU step
+   (computed in a process of its own from the phase's start) at the
+   STEP_* limits, a control with the entry conv's dx dropped failing them;
+   (c) a tester case and the curve case's sweeps, switch on against off:
+   the measures, K1 launches, every call against plain; (d) two ranks on
+   the one card over gloo, one float64 rank-step of each learner against
+   the one-process grouped step at DP_F64_REL, the all_reduce calls a
+   rank-step (59 / 59 / 42 / 35 on, 169 / 169 / 98 / 54 off) and ms per
+   bfloat16 rank-step on (off: the CAE data-parallel phase's); (e)
+   each learner's one-process bfloat16 ms per step, on and off, with
+   device busy and kernels, and phase 1's and phase 2's with cuDNN's
+   deterministic algorithms against any, 12 steps each, interleaved.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero.
 """
 
 import copy
+import filecmp
 import json
 import math
 import os
@@ -4343,12 +4367,12 @@ def dp_step(torch, inputs, side, mesh=None, distances=True, base=None):
                 launches=launches), learner
 
 
-def rank_step_times(torch, step):
-    """DP_TIMED_STEPS calls of ``step`` (one training step of this rank)
-    back to back after a warm-up call, host clock between synchronizes;
-    then as many again with a synchronize around each all_reduce, whose
-    time is the collectives' -> ms per step, instrumented ms per step,
-    collective ms per step, all_reduce calls per step."""
+def rank_step_times(torch, step, n=DP_TIMED_STEPS):
+    """``n`` calls of ``step`` (one training step of this rank) back to
+    back after a warm-up call, host clock between synchronizes; then as
+    many again with a synchronize around each all_reduce, whose time is the
+    collectives' -> ms per step, instrumented ms per step, collective ms
+    per step, all_reduce calls per step."""
     import torch.distributed as dist
 
     def steps(n):
@@ -4360,7 +4384,7 @@ def rank_step_times(torch, step):
         return 1e3 * (time.perf_counter() - t0) / n
 
     steps(1)
-    step_ms = steps(DP_TIMED_STEPS)
+    step_ms = steps(n)
     real, spent = dist.all_reduce, [0.0, 0]
 
     def timed(t, *a, **kw):
@@ -4374,12 +4398,11 @@ def rank_step_times(torch, step):
 
     dist.all_reduce = timed
     try:
-        inst_ms = steps(DP_TIMED_STEPS)
+        inst_ms = steps(n)
     finally:
         dist.all_reduce = real
     return dict(step_ms=step_ms, instrumented_ms=inst_ms,
-                collective_ms=1e3 * spent[0] / DP_TIMED_STEPS,
-                calls=spent[1] / DP_TIMED_STEPS)
+                collective_ms=1e3 * spent[0] / n, calls=spent[1] / n)
 
 
 def dp_time(torch, inputs, mesh):
@@ -4650,13 +4673,12 @@ def curve_gap(x, y):
 
 def cae_dp_cli(torch, work):
     """(a): the phase-1 and phase-2 CLIs over NCCL as rank 0 of 1, each
-    beside three plain runs: K1-K5 launches of its run by the route rule,
-    its curves within twice the plain runs' spread (their largest pairwise
-    gap) plus DP_CURVE_REL of the nearest plain run's, its files ->
-    (results, {kind: the --distributed run's learner}).  Phase 2's plain
-    runs are not bit-reproducible: its frozen float32 CAE's library convs
-    round differently from run to run, which the thresholded measures and
-    Adam carry into the curves."""
+    beside one plain run: K1-K5 launches of its run by the route rule, its
+    curves within DP_CURVE_REL of the plain run's, its files -> (results,
+    {kind: the --distributed run's learner}).  Phase 2 runs a second plain
+    run, which must equal the first bit for bit (curves and written
+    encoder): its frozen float32 CAE's cuDNN convs take the deterministic
+    algorithms."""
     from stroke_prediction_tpu_torch.cli import train_shape_prediction
     from stroke_prediction_tpu_torch.cli import train_shape_reconstruction
     from stroke_prediction_tpu_torch.cli.common import free_port
@@ -4692,11 +4714,10 @@ def cae_dp_cli(torch, work):
             return (learner, read_launches(), time.perf_counter() - t0,
                     base)
 
-        plain_a = run("plain_a", [])
+        plain = run("plain_a", [])
         dist = run("distributed", ["--distributed", "--coordinator",
                                    f"127.0.0.1:{free_port()}", "--nprocs",
                                    "1", "--procid", "0"])
-        plains = [plain_a, run("plain_b", []), run("plain_c", [])]
         learner, launches, wall, base = dist
         if not (learner._mesh is not None and learner._mesh.world == 1
                 and learner._dataloader_training.process_shard):
@@ -4707,28 +4728,34 @@ def cae_dp_cli(torch, work):
         want = cae_dp_cli_want(kind, steps)
         print(f"\n{what}: CLI --distributed (NCCL, rank 0 of 1), "
               f"{CAE_DP_EPOCHS} epoch in {wall:.2f} s (plain "
-              f"{[round(p[2], 2) for p in plains]} s); steps {steps}; "
-              f"launches {launches}, expected {want}")
+              f"{plain[2]:.2f} s); steps {steps}; launches {launches}, "
+              f"expected {want}")
         if steps["train"] < 1 or steps["eval"] < 1:
             raise AssertionError(f"{what}: steps {steps}")
         for name, n in want.items():
             if launches[name] != n:
                 raise AssertionError(f"{what}: {name} launched "
                                      f"{launches[name]} times, expected {n}")
-        spread = max(curve_gap(x[0], y[0]) for i, x in enumerate(plains)
-                     for y in plains[i + 1:])
-        gaps = [curve_gap(learner, p[0]) for p in plains]
-        gap = min(gaps)
-        print(f"{what}: --distributed curves vs the plain runs: largest "
-              f"relative gap {gaps} (nearest {gap:.3e}); the plain runs' "
-              f"spread {spread:.3e}; limit {2 * spread + DP_CURVE_REL:.3e}; "
-              f"losses "
+        spread = 0.0
+        if kind == "prediction":
+            again = run("plain_b", [])
+            spread = curve_gap(again[0], plain[0])
+            same = [name for name in files if name.endswith(".model") and
+                    not filecmp.cmp(plain[3] + name, again[3] + name,
+                                    shallow=False)]
+            print(f"{what}: two plain runs from one seed: curves "
+                  f"{spread:.3e} apart; .model files that differ: {same}")
+            if spread or same:
+                raise AssertionError(f"{what}: two plain runs from one seed "
+                                     f"differ")
+        gap = curve_gap(learner, plain[0])
+        print(f"{what}: --distributed curves vs the plain run: largest "
+              f"relative gap {gap:.3e} (limit {DP_CURVE_REL:.0e}); losses "
               f"{[m['loss'] for m in learner._metric_dtos['training']]} / "
-              + str([[m["loss"] for m in p[0]._metric_dtos["training"]]
-                     for p in plains]))
-        if gap > 2 * spread + DP_CURVE_REL:
+              f"{[m['loss'] for m in plain[0]._metric_dtos['training']]}")
+        if gap > DP_CURVE_REL:
             raise AssertionError(f"{what}: the --distributed run's curves "
-                                 f"leave the plain runs' spread")
+                                 f"leave the plain run's")
         check_artifacts(base, files, [], what)
         res[kind] = dict(launches=launches, steps=steps, wall_s=wall,
                          curve_gap=gap, curve_spread=spread)
@@ -4912,9 +4939,9 @@ def cae_dp_augment(torch, inputs, kind, mesh=None):
             + [torch.rand(4, generator=gen, device="cuda").cpu()])
 
 
-def cae_dp_time(torch, inputs, kind, mesh):
-    """:func:`rank_step_times` of this rank's bfloat16 step of ``kind``
-    (augmentation on, no distances, as the CLI's step)."""
+def cae_dp_time(torch, inputs, kind, mesh, n=DP_TIMED_STEPS):
+    """:func:`rank_step_times` (``n`` steps) of this rank's bfloat16 step of
+    ``kind`` (augmentation on, no distances, as the CLI's step)."""
     from stroke_prediction_tpu_torch.parallel.mesh import row_sharding
 
     learner = cae_dp_learner(torch, inputs, kind, torch.bfloat16, mesh,
@@ -4927,7 +4954,7 @@ def cae_dp_time(torch, inputs, kind, mesh):
         with sharding.active():
             learner.train_step(batch, CAE_DP_FACTOR[kind])
 
-    return rank_step_times(torch, step)
+    return rank_step_times(torch, step, n)
 
 
 def cae_dp_rank(rank, coordinator, inputs_path, outdir):
@@ -5169,6 +5196,662 @@ def cae_dp_phase(torch, work):
     return dict(cli=cli, **cae_dp_ranks(torch, work, learners))
 
 
+# Structure batching (STROKE_TPU_CAE_BATCH=1, models/cae3d.py): each
+# branch's structures stacked on the batch axis as one grouped pass, at the
+# reference width on 28x128x128 masks
+GROUPED_SWITCH = "STROKE_TPU_CAE_BATCH"
+# K1-K4 launches of one grouped phase-1 or CTP training step, counted from
+# the code before the first card run: one encode of the three structures
+# (K1 at its 7 stride-1 convs; K2 at the entry, whose affined input now
+# needs dx, and at 16 -> 16; K3 + K4 at the five wider layers) and one
+# decode of the four (K1 at 6; K2 at 24 -> 16 and the two 16 -> 16, K3 +
+# K4 at the three wider); 45 / 15 / 27 / 30 with the passes one structure
+# each
+GROUPED_STEP = {"K1": 13, "K2": 5, "K3": 8, "K4": 8}
+# K1 launches of a tester case (one encode, one decode) and of the curve
+# case's three sweeps (each an encode of the core and the penumbra and a
+# decode of them with the sweep's interpolations), switch off and on
+GROUPED_CASE_K1 = {"0": CAE_K1_PER_CASE, "1": 7 + 6}
+GROUPED_SWEEPS_K1 = {"0": 3 * CAE_SWEEP_K1, "1": 3 * (7 + 6)}
+# all_reduce calls a 2-rank rank-step, counted from the code before the
+# first card run: BN one call a layer forward (10 encoder + 12 decoder
+# layers: 22) and one a layer backward where its input carries a gradient
+# (phase 1 and CTP 21: not the entry's, whose input is data; step learning
+# 12: the decoder alone, the head's step reaching it through the
+# interpolation; phase 2 9: its encoder's layers but the entry's), beside
+# the loss's, the measures' and the gradients' calls, which do not change
+# (16 / 16 / 8 / 4); with the switch off one call a layer and structure
+GROUPED_ALL_REDUCE = {"on": {"phase1": 59, "ctp": 59, "step": 42,
+                             "prediction": 35},
+                      "off": {"phase1": 169, "ctp": 169, "step": 98,
+                              "prediction": 54}}
+GROUPED_TIMED_STEPS = 2      # bfloat16 steps and rank-steps timed a side
+# (e): steps a side of phase 1's and phase 2's bfloat16 step with cuDNN's
+# deterministic algorithms and with any, interleaved
+CUDNN_COST_STEPS = 12
+# (b)'s float64 CPU witness (~65 s at CAE_VS_CPU_BATCH on the H100 host's
+# CPU) runs in a process of its own from the phase's start
+GROUPED_WITNESS_TIMEOUT = 300
+GROUPED_MEASURES_ATOL = 1e-4  # a tester's measures, switch on vs off
+
+
+def grouped_step_launches(channels=CAE_CHANNELS):
+    """K1-K4 launches of one grouped training step by the route rule: the
+    encoder's entry input needs a gradient (the grouped affine applied to
+    it), one encode and one decode."""
+    from stroke_prediction_tpu_torch.ops.conv3x3 import bwd_route
+
+    encode, decode = cae_conv_layers(channels)
+    routes = [bwd_route(ci, co) for ci, co, _ in encode] + [
+        bwd_route(*c) for c in decode]
+    return {"K1": len(routes), "K2": routes.count("fused"),
+            "K3": routes.count("split"),
+            "K4": routes.count("split") + routes.count("dw")}
+
+
+def grouped_inputs(torch):
+    """(b)-(e)'s inputs in :func:`cae_dp_inputs`' layout: the global batch
+    of CAE_DP_BATCH synthetic cases (masks and clinical vectors; CBV and
+    TTD padded by CTP_PAD for the CTP CAE; the U-Net segmentations for phase
+    2) and seeded weights, phase 2's frozen CAE the tester phase's
+    calibrated :func:`cae_model`."""
+    from stroke_prediction_tpu_torch.cli.common import make_dataset
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_GLOBAL, KEY_IMAGES, KEY_LABELS, LABEL_CORE, LABEL_LESION,
+        LABEL_PENU, MOD_CBV, MOD_TTD, MOD_UNET_CORE, MOD_UNET_PENU)
+    from stroke_prediction_tpu_torch.models.cae3d import (
+        Cae3D, Cae3DCtp, Dec3D, Enc3D, Enc3DCtp, Enc3DStep)
+    from stroke_prediction_tpu_torch.utils.args import get_args_shape_training
+
+    args = get_args_shape_training(["--synthetic"])
+    labels = [LABEL_CORE, LABEL_PENU, LABEL_LESION]
+    rows = list(TRAIN_FOLD[:CAE_DP_BATCH])
+
+    def batch(mods, pad=None):
+        b = make_dataset(args, mods, labels, pad=pad).stack(rows)
+        return {k: torch.from_numpy(b[k]).float()
+                for k in (KEY_IMAGES, KEY_LABELS, KEY_GLOBAL)}
+
+    ctp = batch([MOD_CBV, MOD_TTD], CTP_PAD)
+    masks = dict(ctp, **{KEY_IMAGES: None})
+    gen = torch.Generator().manual_seed(6)
+    states = {
+        "phase1": Cae3D(Enc3D(CAE_CHANNELS, generator=gen),
+                        Dec3D(CAE_CHANNELS, generator=gen)),
+        "ctp": Cae3DCtp(Enc3DCtp(CTP_CHANNELS, padding=CTP_PAD,
+                                 generator=gen),
+                        Dec3D(CTP_CHANNELS, generator=gen)),
+        "step": Cae3D(Enc3DStep(CAE_CHANNELS, generator=gen),
+                      Dec3D(CAE_CHANNELS, generator=gen)),
+        "prediction": Enc3D(CAE_CHANNELS, generator=gen),
+        "cae": cae_model(torch)}
+    return dict(states={k: m.state_dict() for k, m in states.items()},
+                data={"phase1": masks, "step": masks, "ctp": ctp,
+                      "prediction": batch([MOD_UNET_CORE, MOD_UNET_PENU])})
+
+
+def grouped_kernels(torch, inputs):
+    """(a): one phase-1 training step in bfloat16 and in float32 and one CTP
+    step in both (batch 4, augmentation off, one process), every K1-K4 call
+    on its own inputs against plain (the entry conv's K2 at C_in 1 and 3
+    among them), GROUPED_STEP calls a step; one phase-1 bfloat16 step
+    unrecorded for the launches the wrappers count; K1-K4 per layer of the
+    bfloat16 phase-1 step at batch 4 and at a rank's batch of 2 beside
+    cuDNN, and the entry convs' K2 (C_in 1 and 3) in both types."""
+    if grouped_step_launches() != GROUPED_STEP or \
+            grouped_step_launches(CTP_CHANNELS) != GROUPED_STEP:
+        raise AssertionError(f"cae grouped: the route rule gives "
+                             f"{grouped_step_launches()} a step, not the "
+                             f"predicted {GROUPED_STEP}")
+    recorded, worst = {}, {}
+    for kind in ("phase1", "ctp"):
+        for side in ("bfloat16", "float32"):
+            got, _, calls = cae_dp_step(torch, inputs, kind, side,
+                                        record=True)
+            recorded[(kind, side)] = calls
+            print(f"cae grouped: one {kind} {side} step (batch "
+                  f"{CAE_DP_BATCH}): K1-K4 calls {got['calls']} on their "
+                  f"own inputs against plain, max|err| {got['worst']}")
+            if got["calls"] != GROUPED_STEP:
+                raise AssertionError(f"cae grouped: {kind} {side}: calls "
+                                     f"{got['calls']}, expected "
+                                     f"{GROUPED_STEP}")
+            for k in CAE_KERNELS:
+                worst.setdefault(side, {})[k] = max(
+                    worst.get(side, {}).get(k, 0.0), got["worst"][k])
+    # the launches the wrappers count, in an unrecorded step
+    learner = cae_dp_learner(torch, inputs, "phase1", torch.bfloat16, None,
+                             os.path.join(tempfile.gettempdir(), "grouped"),
+                             distances=False)
+    batch = cae_dp_batch(torch, inputs, "phase1",
+                         grouped_sharding(), torch.bfloat16)
+    learner.train_step(batch)
+    reset_launches()
+    learner.train_step(batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"cae grouped: one phase-1 bfloat16 step unrecorded: launches "
+          f"{launches}")
+    if [launches[w] for w in ("conv3x3", "conv3x3_bwd_fused",
+                              "conv3x3_bwd_dx", "conv3x3_bwd_dw")] != [
+            GROUPED_STEP[k] for k in CAE_KERNELS]:
+        raise AssertionError(f"cae grouped: launches {launches}")
+    times = cae_step_kernel_times(
+        torch, recorded[("phase1", "bfloat16")], GROUPED_STEP,
+        "cae grouped: phase-1 step, bfloat16")
+    # the entry convs (C_in 1 and 3; their input the whole masks), both
+    # types
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    entry = {}
+    for side in ("bfloat16", "float32"):
+        for kind, c_in in (("phase1", 1), ("ctp", 3)):
+            (key,) = [k for k in recorded[(kind, side)] if k[0] == "K1"
+                      and k[2:6] == (*CAE_DHW, c_in)]
+            entry[(c_in, side)] = cae_layer_times(
+                torch, key[1:-1] + ("fused",), getattr(torch, side), gen)
+        for c_in in (1, 3):
+            t = entry[(c_in, side)]["K2"]
+            print(f"cae grouped: the entry conv's K2 at C_in {c_in}, "
+                  f"{side}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+                  f"cuDNN dgrad + wgrad {t['library_ms']:.4f}, bound "
+                  f"{t['bound_ms']:.4f} {t['bound_by']})")
+    # a rank's batch of 2: the shapes of (d)'s rank-steps
+    _, _, calls = cae_dp_step(torch, grouped_half(inputs), "phase1",
+                              "bfloat16", record=True)
+    rank_times = cae_step_kernel_times(
+        torch, calls, GROUPED_STEP, "cae grouped: phase-1 step at a rank's "
+        "batch of 2, bfloat16")
+    return dict(launches=launches, worst=worst, times=times, entry=entry,
+                rank_times=rank_times)
+
+
+def grouped_sharding():
+    """The whole batch of a one-process step."""
+    from stroke_prediction_tpu_torch.parallel.mesh import row_sharding
+
+    return row_sharding(None, CAE_DP_BATCH)
+
+
+def grouped_half(inputs):
+    """``inputs`` with rank 0's rows of the global batch (every other
+    row), a rank's batch for a one-process step."""
+    return dict(inputs, data={
+        kind: {k: None if v is None else v[0::DP_WORLD]
+               for k, v in data.items()}
+        for kind, data in inputs["data"].items()})
+
+
+class _EntryWithoutDx:
+    """``Conv3x3Fn`` with the input of a C_in-1 conv (the entry) detached:
+    its backward then takes K4 alone, as the folded entry conv on data does,
+    and the grouped entry BN gets no gradient (the JAX s2d path's grouped
+    fault)."""
+
+    real = None
+
+    @staticmethod
+    def apply(x, *args):
+        if x.shape[-1] == CAE_CHANNELS[0]:
+            x = x.detach()
+        return _EntryWithoutDx.real.apply(x, *args)
+
+
+def grouped_step(torch, inputs, dev, dt, drop_entry_dx=False):
+    """(b)'s step: one phase-1 training step (forward, loss at
+    CAE_VS_CPU_FACTOR, backward; augmentation off) at batch
+    CAE_VS_CPU_BATCH from the seeded weights, with the switch as set, on
+    ``dev`` in ``dt`` -> (loss, gradients and buffers in float64 on the
+    CPU, seconds)."""
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_GLOBAL, KEY_LABELS)
+    from stroke_prediction_tpu_torch.inference import cae_dto_from_batch
+    from stroke_prediction_tpu_torch.models import layers
+    from stroke_prediction_tpu_torch.models.cae3d import Cae3D, Dec3D, Enc3D
+    from stroke_prediction_tpu_torch.train.cae_learners import cae_loss
+
+    data = inputs["data"]["phase1"]
+    labels = data[KEY_LABELS][:CAE_VS_CPU_BATCH].to(dev, dt)
+    clinical = data[KEY_GLOBAL][:CAE_VS_CPU_BATCH].to(dev, dt)
+    m = Cae3D(Enc3D(CAE_CHANNELS), Dec3D(CAE_CHANNELS))
+    m.load_state_dict(inputs["states"]["phase1"])
+    m = m.to(dev, dt).train()
+    set_cae_dtype(m, dt)
+    t0 = time.perf_counter()
+    _EntryWithoutDx.real = layers.Conv3x3Fn
+    if drop_entry_dx:
+        layers.Conv3x3Fn = _EntryWithoutDx
+    try:
+        loss = cae_loss(m(cae_dto_from_batch(None, labels, clinical)),
+                        CAE_VS_CPU_FACTOR)
+        loss.backward()
+    finally:
+        layers.Conv3x3Fn = _EntryWithoutDx.real
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return (float(loss.detach()),
+            {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+             .cpu().double() for k, p in m.named_parameters()},
+            {k: b.cpu().double() for k, b in m.named_buffers()},
+            time.perf_counter() - t0)
+
+
+def grouped_witness(out_path):
+    """(b)'s witness, the grouped float64 CPU step, in a spawned process
+    that makes its own :func:`grouped_inputs` (seeded, on the CPU) ->
+    out_path."""
+    import torch
+
+    os.environ[GROUPED_SWITCH] = "1"
+    torch.save(grouped_step(torch, grouped_inputs(torch), "cpu",
+                            torch.float64), out_path)
+
+
+def start_grouped_witness(torch, work):
+    """:func:`grouped_witness` started in a process of its own -> (the
+    process, its output path)."""
+    out = os.path.join(work, "grouped_witness.pt")
+    proc = torch.multiprocessing.get_context("spawn").Process(
+        target=grouped_witness, args=(out,), daemon=True)
+    proc.start()
+    return proc, out
+
+
+def grouped_steps_vs_f64(torch, inputs, witness):
+    """(b): :func:`grouped_step` on the card in float32, grouped and
+    sequential, each against the grouped float64 CPU step of ``witness``
+    (the process :func:`start_grouped_witness` started) at the STEP_*
+    limits; the grouped step with the entry conv's dx dropped must fail
+    them."""
+    dropped = "grouped card float32, entry dx dropped"
+    out = {}
+    for side, switch, drop in (("grouped card float32", "1", False),
+                               ("card float32", "0", False),
+                               (dropped, "1", True)):
+        os.environ[GROUPED_SWITCH] = switch
+        out[side] = grouped_step(torch, inputs, "cuda", torch.float32, drop)
+    os.environ[GROUPED_SWITCH] = "1"
+    proc, path = witness
+    t0 = time.perf_counter()
+    proc.join(GROUPED_WITNESS_TIMEOUT)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"cae grouped: the float64 CPU witness exited "
+                             f"with {proc.exitcode}")
+    out["grouped CPU float64"] = torch.load(path)
+    print("\ncae grouped step seconds: " + ", ".join(
+        f"{side} {v[3]:.2f} s" for side, v in out.items()) +
+        f" (its own process; waited for {time.perf_counter() - t0:.1f} s)")
+    what = f"cae grouped step (batch {CAE_VS_CPU_BATCH})"
+    res = {}
+    for side in ("grouped card float32", "card float32", dropped):
+        loss_rel, grad, stats, norm = grad_compare(
+            out, side, "grouped CPU float64", cae_layer_of, what)
+        res[side] = dict(loss_rel=loss_rel, grad_rel=grad[0],
+                         worst_grad=grad[1], stats_err=stats,
+                         layer_rel=max(norm.values()))
+        beyond = (loss_rel > STEP_LOSS_REL or grad[0] > STEP_GRAD_REL
+                  or stats > STEP_STATS_ATOL)
+        if beyond != (side == dropped):
+            verdict = "passes" if side == dropped else "is beyond"
+            raise AssertionError(f"{what}: {side} vs float64 {verdict} the "
+                                 f"STEP_* limits: {res[side]}")
+    entry = [k for k in out[dropped][1] if k.startswith(CAE_ENTRY + ".bn.")]
+    if any(out[dropped][1][k].any() for k in entry) or not all(
+            out["grouped card float32"][1][k].any() for k in entry):
+        raise AssertionError(f"{what}: the entry BN's gradients: zero with "
+                             f"the entry dx dropped, non-zero otherwise")
+    g, s = (res[k]["grad_rel"] for k in ("grouped card float32",
+                                         "card float32"))
+    print(f"{what}: grouped card float32 {g:.3e}, sequential {s:.3e} of its "
+          f"layer's largest gradient off the grouped float64 CPU step "
+          f"(STEP_GRAD_REL {STEP_GRAD_REL}); the entry-dx control "
+          f"{res[dropped]['grad_rel']:.3e} at {res[dropped]['worst_grad']}")
+    return res
+
+
+def grouped_testers(torch, work, inputs):
+    """(c): the curve tester on one case with the switch off and on: the
+    case's measures (one forward) and each of its three sweeps', within
+    GROUPED_MEASURES_ATOL, and K1 launches a case and a curve case's
+    sweeps; with the switch on every K1 and edt_sites call on its own
+    inputs against plain."""
+    from stroke_prediction_tpu_torch.cli.common import make_dataset
+    from stroke_prediction_tpu_torch.data.dataset import (
+        LABEL_CORE, LABEL_LESION, LABEL_PENU, MOD_CBV, MOD_TTD)
+    from stroke_prediction_tpu_torch.data.loader import get_testdata
+    from stroke_prediction_tpu_torch.eval.cae_tester import (
+        CaeReconstructionTesterCurve)
+    from stroke_prediction_tpu_torch.models.cae3d import Cae3D, Dec3D, Enc3D
+    from stroke_prediction_tpu_torch.models.convert import (
+        save_cae_checkpoint)
+    from stroke_prediction_tpu_torch.utils.args import get_args_shape_testing
+
+    model = Cae3D(Enc3D(CAE_CHANNELS), Dec3D(CAE_CHANNELS))
+    model.load_state_dict(inputs["states"]["cae"])
+    ckpt = os.path.join(work, "grouped_cae.model")
+    save_cae_checkpoint(ckpt, model.eval())
+    args = get_args_shape_testing(["--path", ckpt, "--fold", str(FOLD[0]),
+                                   "--synthetic"])
+    dataset = make_dataset(args, [MOD_CBV, MOD_TTD],
+                           [LABEL_CORE, LABEL_PENU, LABEL_LESION],
+                           pad=tuple(args.padding))
+    loader = get_testdata(dataset, [FOLD[0]], seed=args.seed)
+    curve = CaeReconstructionTesterCurve(
+        loader, ckpt, os.path.join(work, "grouped_curve"), 10,
+        device="cuda")
+    batch = loader.dataset.stack([loader.indices[0]])
+    _, sweeps = curve.sweeps(batch)
+    fields = ("dc", "hd", "assd", "precision", "sensitivity", "specificity")
+    got, k1 = {}, {}
+    for switch in ("0", "1"):
+        os.environ[GROUPED_SWITCH] = switch
+        with torch.inference_mode():
+            curve.infer_batch(batch)                    # warm-up
+            reset_launches()
+            case, _ = curve.infer_batch(batch)
+            n_case = read_launches()["conv3x3"]
+            reset_launches()
+            swept = [curve.infer_batch_steps(batch, steps)[0]
+                     for steps, _ in sweeps]
+            n_sweeps = read_launches()["conv3x3"]
+        k1[switch] = (n_case, n_sweeps)
+        got[switch] = [case[p] for p in ("lesion", "core", "penu")] + [
+            m for ms in swept for m in ms]
+        if (n_case, n_sweeps) != (GROUPED_CASE_K1[switch],
+                                  GROUPED_SWEEPS_K1[switch]):
+            raise AssertionError(f"cae grouped tester, switch {switch}: K1 "
+                                 f"{n_case} a case, {n_sweeps} the sweeps")
+    apart = [(i, f, getattr(a, f), getattr(b, f))
+             for i, (a, b) in enumerate(zip(got["1"], got["0"]))
+             for f in fields
+             if not getattr(a, f) == getattr(b, f) == float("inf")]
+    worst = max(abs(on - off) for _, _, on, off in apart)
+    calls, sites, rec_worst = cae_recorded(torch, lambda: (
+        curve.infer_batch(batch),
+        [curve.infer_batch_steps(batch, steps) for steps, _ in sweeps]))
+    edt_want = {(1, *CAE_DHW): CAE_EDT_PER_CASE}
+    for steps, _ in sweeps:
+        key = (len(steps), *CAE_DHW)
+        edt_want[key] = edt_want.get(key, 0) + CAE_SWEEP_EDT
+    cae_check_recorded("the grouped tester case and its three sweeps",
+                       calls, sites, rec_worst,
+                       {"K1": GROUPED_CASE_K1["1"] + GROUPED_SWEEPS_K1["1"]},
+                       edt_want,
+                       prefix="cae grouped")
+    print(f"cae grouped: tester case and sweeps, switch on vs off: "
+          f"{len(got['1'])} measures, largest |difference| {worst:.3e} "
+          f"(limit {GROUPED_MEASURES_ATOL}); K1 a case / the sweeps: off "
+          f"{k1['0']}, on {k1['1']}")
+    if worst > GROUPED_MEASURES_ATOL or len(got["1"]) != len(got["0"]):
+        moved = [m for m in apart if abs(m[2] - m[3]) > GROUPED_MEASURES_ATOL]
+        raise AssertionError(f"cae grouped: the tester's measures move with "
+                             f"the switch (measure index, field, on, off): "
+                             f"{moved}")
+    os.environ[GROUPED_SWITCH] = "1"
+    return dict(worst=worst, k1=k1, recorded=rec_worst)
+
+
+def cae_dp_calls(torch, inputs, kind, mesh):
+    """The all_reduce calls of one of this rank's bfloat16 steps of
+    ``kind`` (:func:`cae_dp_time`'s step), untimed."""
+    import torch.distributed as dist
+
+    from stroke_prediction_tpu_torch.parallel.mesh import row_sharding
+
+    learner = cae_dp_learner(torch, inputs, kind, torch.bfloat16, mesh,
+                             os.path.join(tempfile.gettempdir(), "cae_dp"),
+                             distances=False)
+    sharding = row_sharding(mesh, CAE_DP_BATCH)
+    batch = cae_dp_batch(torch, inputs, kind, sharding, torch.bfloat16)
+    real, calls = dist.all_reduce, [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    dist.all_reduce = counted
+    try:
+        with sharding.active():
+            learner.train_step(batch, CAE_DP_FACTOR[kind])
+    finally:
+        dist.all_reduce = real
+    return calls[0]
+
+
+def cae_grouped_rank(rank, coordinator, inputs_path, outdir):
+    """One rank of (d), on cuda:0 over gloo: each learner's float64 step
+    (the plain versions) with the switch on, its bfloat16 rank-step timed
+    with the switch on, with its all_reduce calls, and those of one
+    rank-step with the switch off -> outdir/rank<rank>.pt."""
+    import torch
+
+    from stroke_prediction_tpu_torch.parallel import distributed
+    from stroke_prediction_tpu_torch.parallel.mesh import make_data_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(coordinator, DP_WORLD, rank, backend="gloo",
+                           device="cuda")
+    mesh = make_data_mesh()
+    inputs = torch.load(inputs_path)
+    out = {"steps": {}, "timing": {}, "off_calls": {}}
+    for kind in CAE_DP_LEARNERS:
+        os.environ[GROUPED_SWITCH] = "1"
+        torch.cuda.empty_cache()
+        out["steps"][kind] = cae_dp_step(torch, inputs, kind, "float64",
+                                         mesh)[0]
+        out["timing"][kind] = cae_dp_time(torch, inputs, kind, mesh,
+                                          GROUPED_TIMED_STEPS)
+        os.environ[GROUPED_SWITCH] = "0"
+        out["off_calls"][kind] = cae_dp_calls(torch, inputs, kind, mesh)
+    out["device"] = str(torch.cuda.current_device())
+    distributed.shutdown()
+    torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def grouped_one_process(torch, inputs):
+    """(d)'s reference: each learner's one-process grouped float64 step on
+    the global batch (the plain versions, on the card)."""
+    os.environ[GROUPED_SWITCH] = "1"
+    return {kind: cae_dp_step(torch, inputs, kind, "float64")[0]
+            for kind in CAE_DP_LEARNERS}
+
+
+def grouped_ranks(torch, work, one):
+    """(d): two ranks on the one card over gloo, one rank-step of each
+    learner on 2 of the global batch of 4 with the switch on: float64 at
+    DP_F64_REL of ``one`` (:func:`grouped_one_process`), the ranks equal;
+    the all_reduce calls a rank-step, on and off, against
+    GROUPED_ALL_REDUCE; ms per bfloat16 rank-step and the collectives'
+    share with the switch on (off: :func:`cae_dp_phase`'s, the same
+    rank-steps in the same run).  The ranks read the inputs that
+    :func:`cae_grouped_phase` saved."""
+    os.environ[GROUPED_SWITCH] = "1"
+    path = os.path.join(work, "grouped_inputs.pt")
+    ranks = run_ranks(torch, cae_grouped_rank, path,
+                      os.path.join(work, "grouped_ranks"), "cae grouped")
+    res = {"vs_one_process": {}, "timing": ranks[0]["timing"]}
+    for kind in CAE_DP_LEARNERS:
+        for r, got in enumerate(ranks):
+            d = dp_distance(got["steps"][kind], one[kind], cae_dp_layer_of)
+            print(f"cae grouped: {kind} rank {r} float64 vs the one-process "
+                  f"grouped float64 step: {d}")
+            if max(d["loss"], d["element"], d["layer"], d["stats"],
+                   d["metrics"]) > DP_F64_REL or d["assd"] > DP_ASSD_REL:
+                raise AssertionError(f"cae grouped: {kind} rank {r}: {d}")
+            res["vs_one_process"][(kind, r)] = d
+            t = got["timing"][kind]
+            print(f"cae grouped: {kind} rank {r} bfloat16 rank-step, switch "
+                  f"on: {t['step_ms']:.3f} ms; all_reduce {t['calls']:g} a "
+                  f"step, {got['off_calls'][kind]} with the switch off "
+                  f"(predicted {GROUPED_ALL_REDUCE['on'][kind]}, "
+                  f"{GROUPED_ALL_REDUCE['off'][kind]}); "
+                  f"{t['collective_ms']:.3f} of {t['instrumented_ms']:.3f} ms "
+                  f"instrumented "
+                  f"({100 * t['collective_ms'] / t['instrumented_ms']:.1f}%)")
+            if (t["calls"], got["off_calls"][kind]) != tuple(
+                    GROUPED_ALL_REDUCE[name][kind] for name in ("on", "off")):
+                raise AssertionError(f"cae grouped: {kind}: {t['calls']} / "
+                                     f"{got['off_calls'][kind]} all_reduce a "
+                                     f"rank-step on / off, predicted "
+                                     f"{GROUPED_ALL_REDUCE}")
+        a, b = (r["steps"][kind] for r in ranks)
+        if a["loss"] != b["loss"] or any(
+                not torch.equal(a["grads"][k], b["grads"][k])
+                for k in a["grads"]):
+            raise AssertionError(f"cae grouped: {kind}: the ranks' losses or "
+                                 f"gradients differ")
+    return res
+
+
+def cudnn_cost(torch, step, n, what):
+    """``step`` (one training step) ``n`` times with cuDNN's deterministic
+    algorithms (as the port runs) and ``n`` times with any, interleaved
+    (ABBA), after a warm-up of each: the mean and spread of each side's
+    device ms between CUDA events around each step, and the difference
+    with its standard error."""
+    real_flags = torch.backends.cudnn.flags
+
+    def any_algorithm(*args, **kw):
+        return real_flags(*args, **dict(kw, deterministic=False))
+
+    order = [i % 4 in (1, 2) for i in range(2 * n)]     # True: any
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4 * n)]
+    try:
+        for free in (False, True):
+            torch.backends.cudnn.flags = any_algorithm if free else real_flags
+            step()
+        torch.cuda.synchronize()
+        for i, free in enumerate(order):
+            torch.backends.cudnn.flags = any_algorithm if free else real_flags
+            marks[2 * i].record()
+            step()
+            marks[2 * i + 1].record()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.flags = real_flags
+    per = {False: [], True: []}
+    for i, free in enumerate(order):
+        per[free].append(marks[2 * i].elapsed_time(marks[2 * i + 1]))
+    stat = {}
+    for free, name in ((False, "deterministic"), (True, "any")):
+        v = per[free]
+        mean = sum(v) / n
+        stat[name] = dict(mean=mean, std=(sum((x - mean) ** 2 for x in v)
+                                          / (n - 1)) ** 0.5)
+    diff = stat["deterministic"]["mean"] - stat["any"]["mean"]
+    se = (sum(v["std"] ** 2 for v in stat.values()) / n) ** 0.5
+    print(f"{what}: cuDNN deterministic vs any algorithm, {n} steps each "
+          f"interleaved: {stat['deterministic']['mean']:.3f} ms (std "
+          f"{stat['deterministic']['std']:.3f}) vs {stat['any']['mean']:.3f}"
+          f" ms (std {stat['any']['std']:.3f}); difference {diff:.3f} ms "
+          f"({100 * diff / stat['any']['mean']:.1f}%), standard error "
+          f"{se:.3f} ms")
+    return dict(stat, diff_ms=diff, se_ms=se)
+
+
+def grouped_learner(torch, inputs, kind):
+    """A one-process bfloat16 learner of ``kind`` and its batch of 4 (the
+    augmentation on, no distances, as its CLI's)."""
+    learner = cae_dp_learner(torch, inputs, kind, torch.bfloat16, None,
+                             os.path.join(tempfile.gettempdir(), "grouped"),
+                             distances=False)
+    return learner, cae_dp_batch(torch, inputs, kind, grouped_sharding(),
+                                 torch.bfloat16)
+
+
+def grouped_step_profiles(torch, inputs):
+    """(e), its profiles: each learner's one-process bfloat16 step with the
+    switch off and on, device busy ms and kernels in a profile of one.
+    Run while (b)'s witness keeps the host's cores busy: the kernels' device
+    time and count do not follow the host's load (the profile's host ms
+    does)."""
+    res = {}
+    for kind in CAE_DP_LEARNERS:
+        learner, batch = grouped_learner(torch, inputs, kind)
+        for name, switch in (("off", "0"), ("on", "1")):
+            os.environ[GROUPED_SWITCH] = switch
+            res[(kind, name)] = cae_profile_step(
+                torch, learner, batch,
+                f"cae grouped: {kind} bfloat16 step, switch {name}")
+    os.environ[GROUPED_SWITCH] = "1"
+    return res
+
+
+def grouped_step_times(torch, inputs, busy):
+    """(e): each learner's one-process bfloat16 step with the switch off
+    and on: ms per step (GROUPED_TIMED_STEPS back to back) beside ``busy``
+    (:func:`grouped_step_profiles`).  Phase 1's and phase 2's, switch off,
+    are timed by :func:`cudnn_cost` instead (the cost of cuDNN's
+    deterministic algorithms; the step's ms its deterministic side's)."""
+    res = {}
+    for kind in CAE_DP_LEARNERS:
+        learner, batch = grouped_learner(torch, inputs, kind)
+
+        def step():
+            learner.train_step(batch, CAE_DP_FACTOR[kind])
+
+        for name, switch in (("off", "0"), ("on", "1")):
+            os.environ[GROUPED_SWITCH] = switch
+            what = f"cae grouped: {kind} bfloat16 step, switch {name}"
+            if switch == "0" and kind in ("phase1", "prediction"):
+                cost = cudnn_cost(torch, step, CUDNN_COST_STEPS, what)
+                res[(kind, name)] = dict(
+                    step_ms=cost["deterministic"]["mean"],
+                    std=cost["deterministic"]["std"], cudnn=cost)
+            else:
+                mean, std, _ = time_steps(torch, step, GROUPED_TIMED_STEPS,
+                                          what)
+                res[(kind, name)] = dict(step_ms=mean, std=std)
+            res[(kind, name)]["busy"] = busy[(kind, name)]
+    os.environ[GROUPED_SWITCH] = "1"
+    return res
+
+
+def cae_grouped_phase(torch, work):
+    """Structure batching on the card: (a) :func:`grouped_kernels`, (b)
+    :func:`grouped_steps_vs_f64`, (c) :func:`grouped_testers`, (d)
+    :func:`grouped_ranks`, (e) :func:`grouped_step_times`; (b)'s witness
+    runs in its own process from the start, beside the parts that time
+    nothing on the host's clock ((a), (c), (d)'s one-process steps, (e)'s
+    profiles); the switch restored after."""
+    before = os.environ.get(GROUPED_SWITCH)
+    os.environ[GROUPED_SWITCH] = "1"
+    seconds = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(torch, *args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    witness = None
+    try:
+        witness = start_grouped_witness(torch, work)
+        inputs = part("inputs", grouped_inputs)
+        torch.save(inputs, os.path.join(work, "grouped_inputs.pt"))
+        kernels = part("a", grouped_kernels, inputs)
+        testers = part("c", grouped_testers, work, inputs)
+        one = part("d, one process", grouped_one_process, inputs)
+        busy = part("e, profiles", grouped_step_profiles, inputs)
+        out = dict(kernels=kernels, testers=testers,
+                   vs_f64=part("b", grouped_steps_vs_f64, inputs, witness),
+                   ranks=part("d", grouped_ranks, work, one),
+                   times=part("e", grouped_step_times, inputs, busy))
+        print(f"cae grouped: seconds by part {seconds}")
+        return out
+    finally:
+        if witness is not None and witness[0].is_alive():
+            witness[0].kill()
+            witness[0].join()
+        if before is None:
+            os.environ.pop(GROUPED_SWITCH, None)
+        else:
+            os.environ[GROUPED_SWITCH] = before
+
+
 def main():
     import torch
 
@@ -5219,6 +5902,7 @@ def main():
         large = timed("large unet", large_unet_phase, work)
         dp = timed("data parallel", dp_phase, work)
         cae_dp = timed("cae data parallel", cae_dp_phase, work)
+        grouped = timed("cae grouped", cae_grouped_phase, work)
 
     def per_step(key, dtype="bfloat16"):
         """Sums over the layers whose route runs ``key`` in one step."""
@@ -5381,6 +6065,38 @@ def main():
                        f"plain; launches: the --distributed CLI run's "
                        f"{DP_EPOCHS} epochs"}
 
+    def grouped_use(key):
+        """A kernel's use on the grouped CAE path (structure batching on):
+        its launches in one unrecorded phase-1 step, per step in each type
+        and per rank's batch of 2 the layers' sums, and K2 at the entry
+        convs (C_in 1 and 3)."""
+        g = grouped["kernels"]
+        fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                  "gflop")
+        use = {"launches": g["launches"][wrapper_of[key]],
+               "launches_per_step": GROUPED_STEP[key],
+               "bfloat16": dict({f: g["times"][key][f] for f in fields},
+                                max_abs_err=g["worst"]["bfloat16"][key]),
+               "float32": {"max_abs_err": g["worst"]["float32"][key]},
+               "rank_step": {f: g["rank_times"][key][f] for f in fields},
+               "per": f"one grouped phase-1 training step (batch "
+                      f"{CAE_DP_BATCH}, channels 1 16 24 32 100 200 1, "
+                      f"28x128x128; one encode of 3 structures, one decode "
+                      f"of 4), bfloat16: each layer's time times its calls; "
+                      f"rank_step: the same at a rank's batch of 2; "
+                      f"max_abs_err: every call of a phase-1 and a CTP step "
+                      f"in the type vs plain; launches: the wrappers' count "
+                      f"in one unrecorded bfloat16 step"}
+        if key == "K2":
+            for c_in in (1, 3):
+                use[f"entry_conv_c_in_{c_in}"] = {
+                    dname: dict({f: g["entry"][(c_in, dname)]["K2"][f]
+                                 for f in fields[:5]},
+                                gflop=g["entry"][(c_in, dname)]["K2"]["ops"]
+                                / 1e9)
+                    for dname in ("bfloat16", "float32")}
+        return use
+
     csrc = "stroke_prediction_tpu_torch/ops/csrc/"
     s2d = "stroke_prediction_tpu/ops/pallas/s2d.py:"
     step_per = (f"one training step (bfloat16, batch {TRAIN_BATCH}, patch "
@@ -5431,7 +6147,8 @@ def main():
              cae_prediction=learner_use("K1", "prediction"),
              cae_ctp=ctp_use("K1"), large_unet=large_use("K1"),
              data_parallel=dp_use("K1"),
-             cae_data_parallel=cae_dp_use(cae_dp, "K1")),
+             cae_data_parallel=cae_dp_use(cae_dp, "K1"),
+             cae_grouped=grouped_use("K1")),
         dict({"name": "conv3x3_bwd_fused", "route": "cuda",
               "source": csrc + "conv3x3_bwd_tc.cu", "replaces": s2d + "491",
               "launches": launches["conv3x3_bwd_fused"]}, **per_step("K2"),
@@ -5446,7 +6163,8 @@ def main():
                         "the entry is over FUSED_DW_BYTES (split route), "
                         "the entry conv takes dW only"},
              data_parallel=dp_use("K2"),
-             cae_data_parallel=cae_dp_use(cae_dp, "K2")),
+             cae_data_parallel=cae_dp_use(cae_dp, "K2"),
+             cae_grouped=grouped_use("K2")),
         dict({"name": "conv3x3_bwd_dx", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dx_tc.cu",
               "replaces": s2d + "589",
@@ -5458,7 +6176,8 @@ def main():
              cae_prediction=learner_use("K3", "prediction"),
              cae_ctp=ctp_use("K3"), large_unet=large_use("K3"),
              data_parallel=dp_use("K3"),
-             cae_data_parallel=cae_dp_use(cae_dp, "K3")),
+             cae_data_parallel=cae_dp_use(cae_dp, "K3"),
+             cae_grouped=grouped_use("K3")),
         dict({"name": "conv3x3_bwd_dw", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dw_tc.cu",
               "replaces": s2d + "623",
@@ -5469,7 +6188,8 @@ def main():
              cae_prediction=learner_use("K4", "prediction"),
              cae_ctp=ctp_use("K4"), large_unet=large_use("K4"),
              data_parallel=dp_use("K4"),
-             cae_data_parallel=cae_dp_use(cae_dp, "K4")),
+             cae_data_parallel=cae_dp_use(cae_dp, "K4"),
+             cae_grouped=grouped_use("K4")),
         {"name": "edt_sites", "route": "cuda",
          "source": csrc + "edt_sites.cu",
          "replaces": "stroke_prediction_tpu/ops/edt.py:80",
@@ -5660,8 +6380,9 @@ def main():
               f"{r['timing']['calls']:.0f} all_reduce a step)"
               for i, r in enumerate(dp["ranks"])))
     print("CAE data parallel: --distributed CLIs (NCCL) curves vs plain "
-          + "; ".join(f"{k} {r['curve_gap']:.3e} (two plain runs "
-                      f"{r['curve_spread']:.3e})"
+          + "; ".join(f"{k} {r['curve_gap']:.3e} (two plain runs of "
+                      f"phase 2 {r['curve_spread']:.3e} apart)"
+                      if k == "prediction" else f"{k} {r['curve_gap']:.3e}"
                       for k, r in cae_dp["cli"].items())
           + f"; {DP_WORLD} gloo ranks on the one card, bfloat16 ms per "
           f"rank-step (batch {CAE_DP_BATCH // DP_WORLD} a rank; collectives "
@@ -5671,6 +6392,29 @@ def main():
                   f"{t['instrumented_ms']:.3f}, {t['calls']:.0f})"
                   for kind, t in r["timing"].items())
               for i, r in enumerate(cae_dp["ranks"])))
+    gv, gt, gr = grouped["vs_f64"], grouped["testers"], grouped["ranks"]
+    print(f"CAE grouped (STROKE_TPU_CAE_BATCH=1): float32 step vs float64 "
+          f"(of its layer's largest gradient) grouped "
+          f"{gv['grouped card float32']['grad_rel']:.3e}, sequential "
+          f"{gv['card float32']['grad_rel']:.3e}, entry-dx control "
+          f"{gv['grouped card float32, entry dx dropped']['grad_rel']:.3e}; "
+          f"tester measures on vs off {gt['worst']:.3e}, K1 a case / sweeps "
+          f"off {gt['k1']['0']} on {gt['k1']['1']}; rank 0 bfloat16 "
+          f"rank-steps, switch on (ms, collectives ms of instrumented, "
+          f"all_reduce; off: the CAE data-parallel line's): "
+          + "; ".join(f"{kind} {t['step_ms']:.3f} ("
+                      f"{t['collective_ms']:.3f} of {t['instrumented_ms']:.3f}"
+                      f", {t['calls']:.0f})"
+                      for kind, t in gr["timing"].items())
+          + "; one-process bfloat16 steps (ms, busy ms, kernels): "
+          + "; ".join(f"{kind} {name} {t['step_ms']:.3f}"
+                      + (f" ({t['busy']['busy_ms']:.3f}, "
+                         f"{t['busy']['kernels']})" if t["busy"] else "")
+                      for (kind, name), t in grouped["times"].items())
+          + "; cuDNN deterministic less any algorithm (ms, standard "
+            "error): " + "; ".join(
+              f"{kind} {t['cudnn']['diff_ms']:.3f} ({t['cudnn']['se_ms']:.3f})"
+              for (kind, _), t in grouped["times"].items() if "cudnn" in t))
     print(f"phase seconds: {phase_s}")
     print(f"CAE learners' visual forward vs one forward a step: "
           f"{cae_ln['vis']}; U-Net bfloat16 step card vs CPU "

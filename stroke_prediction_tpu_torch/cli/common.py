@@ -9,8 +9,11 @@ reads them (the cases are byte-identical, only the files are not shared).
 Data parallelism from the flags: ``--ndevices N`` runs N local processes,
 one card each (``--device cpu``: N gloo processes on the CPU), which
 :func:`spawn_ranks` starts; ``--distributed`` joins this process to the
-process group at ``--coordinator`` as rank ``--procid`` of ``--nprocs``.
-In each process :func:`make_mesh` returns the mesh and the device.
+process group at ``--coordinator`` as rank ``--procid`` of ``--nprocs``,
+and the mesh spans the group, as the JAX package's spans the global devices
+(``--ndevices``, where given, must then equal ``--nprocs``: a process
+drives one card).  In each process :func:`make_mesh` returns the mesh and
+the device.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from stroke_prediction_tpu_torch.data.dataset import (
 from stroke_prediction_tpu_torch.device import resolve_device
 from stroke_prediction_tpu_torch.parallel import distributed
 from stroke_prediction_tpu_torch.parallel.mesh import Mesh, make_data_mesh
+from stroke_prediction_tpu_torch.utils.args import NDEVICES_ERROR
 
 # The reference's institute-share defaults; only used when --datadir /
 # --clinicalcsv are given or reachable.
@@ -107,9 +111,9 @@ def make_mesh(args) -> Tuple[Optional[Mesh], torch.device]:
     :func:`spawn_ranks` (``--ndevices N`` with the addresses filled in):
     joins the process group and returns the mesh over it and this rank's
     device.  Otherwise (None, the ``--device``)."""
-    if args.distributed and args.ndevices > 1:
-        raise NotImplementedError("--distributed with --ndevices > 1 (more "
-                                  "than one card a process) is not ported")
+    if args.distributed and args.ndevices > 1 and \
+            args.ndevices != args.nprocs:
+        raise ValueError(NDEVICES_ERROR.format(args.ndevices, args.nprocs))
     if args.procid is None:
         return None, resolve_device(args.device)
     device = distributed.initialize(args.coordinator, args.nprocs,

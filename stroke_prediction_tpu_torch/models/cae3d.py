@@ -15,9 +15,14 @@ models/cae3d.py).
 The channel list ``[in, origin, down2x, down4x, down8x, fc, ..., classes]``
 is the ``--channelscae`` contract.  Structures (core, penumbra, lesion,
 interpolation) are encoded and decoded one pass each, the JAX package's
-default (``structure_batching()`` off).  The stride-1 3^3 convs run in K1
-(:mod:`..ops.conv3x3`): the encoder's z-SAME convs and its fc conv with BN
-folded in, the decoder's (1, 2, 2)-padded convs after BN.  The stride-2 and
+default; with ``STROKE_TPU_CAE_BATCH=1`` (:func:`structure_batching`, read
+at every call, as in the JAX package) the present structures of a branch
+are stacked on the batch axis, group-major, and run as one pass with
+grouped BN (per-structure batch statistics, the running ones chained in
+stacking order; ``models/layers.py``), which is the same function.  The
+stride-1 3^3 convs run in K1 (:mod:`..ops.conv3x3`): the encoder's z-SAME
+convs and its fc conv with BN folded in (with grouped BN in training, after
+it), the decoder's (1, 2, 2)-padded convs after BN.  The stride-2 and
 transposed convs are cuDNN's, the 1^3 convs matmuls.  ``train()`` uses BN
 batch statistics (the running ones chain over the structures' passes, in
 call order), ``eval()`` the running ones.  The volumes run in
@@ -30,6 +35,7 @@ and the sigmoid's output stay float32.
 
 from __future__ import annotations
 
+import os
 from dataclasses import replace
 from typing import List, Optional, Sequence, Tuple
 
@@ -46,6 +52,38 @@ from stroke_prediction_tpu_torch.ops.conv3x3 import activation
 
 def elu(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
     return activation(x, "elu", alpha)
+
+
+def structure_batching() -> bool:
+    """Whether the CAE encodes and decodes a branch's structures as one
+    group-stacked pass (cae3d.py ``structure_batching``): opt in with
+    ``STROKE_TPU_CAE_BATCH=1``, the variable the JAX package reads, with
+    its default ``"0"``."""
+    return os.environ.get("STROKE_TPU_CAE_BATCH", "0") == "1"
+
+
+def _run_many(trunk: nn.Module, xs: List[Optional[torch.Tensor]]
+              ) -> List[Optional[torch.Tensor]]:
+    """``trunk`` over each of ``xs``, None kept: one pass each, or with
+    :func:`structure_batching` and two or more present, one pass over them
+    concatenated on the batch axis with ``groups`` = their number, split
+    back into their slots (cae3d.py ``_encode_many`` / ``_decode_many``).
+    In training the groups must hold equal batches (grouped BN); in
+    evaluation BN uses the running statistics, so the curve tester's sweep
+    (a core and a penumbra of one row, interpolations of one a step) stacks
+    too."""
+    present = [i for i, x in enumerate(xs) if x is not None]
+    if len(present) < 2 or not structure_batching():
+        return [None if x is None else trunk(x) for x in xs]
+    sizes = [xs[i].shape[0] for i in present]
+    if trunk.training and len(set(sizes)) > 1:
+        raise ValueError(f"grouped BN needs equal batches, got {sizes}")
+    parts = trunk(torch.cat([xs[i] for i in present]),
+                  groups=len(present)).split(sizes)
+    out: List[Optional[torch.Tensor]] = [None] * len(xs)
+    for i, part in zip(present, parts):
+        out[i] = part
+    return out
 
 
 def cae_latent_spatial(spatial: Tuple[int, int, int]) -> Tuple[int, int, int]:
@@ -101,13 +139,15 @@ class EncoderStack(nn.Module):
             BnConvActBlock(ci, co, act="elu", act_param=alpha, **kw)
             for ci, co, kw in layers])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        """The latents of x; ``groups`` equal blocks of rows take their own
+        BN statistics in training."""
         # the entry BN's moments of x as given (float32: the mask, or CBV
         # and TTD, whose bfloat16 rounding would reach them), then the cast
         # to compute_dtype, as layers.py ``BatchNorm`` does
         self.blocks[0].conv_dtype = self.compute_dtype
         for block in self.blocks:
-            x = block(x)
+            x = block(x, groups)
         return x
 
 
@@ -147,11 +187,13 @@ class DecoderStack(nn.Module):
             BatchNorm(lists[kind][i].kernel.shape[-2])
             for kind, i in self.ORDER])
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        """The reconstructions of z; ``groups`` equal blocks of rows take
+        their own BN statistics in training."""
         x = z.to(self.compute_dtype)
         last = len(self.ORDER) - 1
         for n, ((kind, i), bn) in enumerate(zip(self.ORDER, self.bns)):
-            x = bn(x)
+            x = bn(x, groups)
             if kind == "ct":
                 x = elu(self.cts[i](x), self.alpha)
             else:
@@ -188,7 +230,7 @@ class Enc3D(nn.Module):
         pass
 
     def _encode_many(self, xs: List[Optional[torch.Tensor]]):
-        return [None if x is None else self.encoder(x) for x in xs]
+        return _run_many(self.encoder, xs)
 
     def _get_step(self, dto: CaeDto) -> Optional[torch.Tensor]:
         return dto.given_variables.time_to_treatment
@@ -303,7 +345,7 @@ class Dec3D(nn.Module):
         _reset(self, generator)
 
     def _decode_many(self, zs: List[Optional[torch.Tensor]]):
-        return [None if z is None else self.decoder(z) for z in zs]
+        return _run_many(self.decoder, zs)
 
     def forward(self, dto: CaeDto,
                 branches: CaeBranches = BRANCH_GTRUTH) -> CaeDto:

@@ -10,9 +10,11 @@ JAX package.
 BN is folded into the following stride-1 VALID or z-SAME 3^3 conv
 (``fold_bn``, ``fold_bn_zsame``) and the activation runs in the conv
 kernel's epilogue, as on the JAX package's s2d path.  Where the conv's
-padding holds BN outputs in H or W, or the conv has stride 2, BN is applied
-to its input instead.  The stride-2 and transposed convs are cuDNN's.  In
-training the fold uses the batch statistics, so the conv's kernel and bias
+padding holds BN outputs in H or W, or the conv has stride 2, or BN is
+grouped (per-structure statistics of a stacked batch, in training), BN is
+applied to its input instead.  The stride-2 and transposed convs are
+cuDNN's, with its deterministic algorithms.  In training the fold uses the
+batch statistics, so the conv's kernel and bias
 gradients flow back through the fold to BN's ``scale`` / ``bias`` and,
 through the batch mean and variance, to the input.
 """
@@ -108,7 +110,8 @@ class Conv3d(_ConvParams):
                 x = F.pad(x, (0, 0, pw, pw, ph, ph))
             return Conv3x3Fn.apply(x.contiguous(), self.kernel, self.bias,
                                    act, alpha, "s" if pd else "v")
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                        deterministic=True):
             y = F.conv3d(x.permute(0, 4, 1, 2, 3),
                          self.kernel.to(x.dtype).permute(4, 3, 0, 1, 2),
                          stride=self.strides, padding=self.pads)
@@ -133,7 +136,8 @@ class ConvTranspose3d(_ConvParams):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.kernel.to(x.dtype).flip(0, 1, 2).permute(3, 4, 0, 1, 2)
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                        deterministic=True):
             y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w,
                                    stride=self.strides)
         return y.permute(0, 2, 3, 4, 1) + self.bias.to(x.dtype)
@@ -182,7 +186,17 @@ class BatchNorm(nn.Module):
     mean of per-rank variances would drop the between-rank term), so every
     rank normalises and updates its running statistics alike.  The count
     is this rank's times the world, exact as an integer: the row rule gives
-    every rank of a sharded step the same number of rows."""
+    every rank of a sharded step the same number of rows.
+
+    ``groups`` > 1 (structure batching, ``models/cae3d.py``): the batch
+    axis holds ``groups`` equal blocks of rows, group-major, and in
+    training each block takes its own moments, ``(G, C)``, whose sums all
+    go through one ``reduce_sums`` call (one collective a layer whatever
+    G is).  The running statistics then take one update per group, chained
+    in stacking order, ``m^G * ra + sum_g (1 - m) * m^(G-1-g) * batch_g``
+    (``_BNCore``), as G calls of one group each would chain them, and the
+    affine is ``(G, C)`` (:func:`apply_affine`).  In evaluation the
+    running statistics serve every group."""
 
     def __init__(self, features: int, epsilon: float = 1e-5,
                  momentum: float = 0.9):
@@ -194,28 +208,59 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def affine(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def affine(self, x: torch.Tensor, groups: int = 1
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.training:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            axes = tuple(range(x.ndim - 1))
-            s1, s2 = reduce_sums(xf.sum(axes), (xf * xf).sum(axes))
-            n = current().global_size(x.numel() // x.shape[-1])
+            if groups == 1:
+                axes = tuple(range(x.ndim - 1))
+                sums = xf.sum(axes), (xf * xf).sum(axes)
+            else:
+                if x.shape[0] % groups:
+                    raise ValueError(f"a batch of {x.shape[0]} rows does "
+                                     f"not split into {groups} groups")
+                xg = xf.reshape(groups, -1, x.shape[-1])
+                sums = xg.sum(1), (xg * xg).sum(1)
+            s1, s2 = reduce_sums(*sums)
+            n = current().global_size(x.numel() // x.shape[-1] // groups)
             mean = s1 / n
             var = torch.clamp(s2 / n - mean * mean, min=0.0)
             with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
+                self._update_running(mean, var)
         else:
             mean, var = self.mean, self.var
         s = self.scale * torch.rsqrt(var + self.epsilon)
         return s, self.bias - mean * s
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        if mean.ndim == 1:
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+            return
+        g = mean.shape[0]
+        w = (1 - m) * m ** torch.arange(g - 1, -1, -1, dtype=mean.dtype,
+                                        device=mean.device)
+        self.mean.copy_(m ** g * self.mean + w @ mean)
+        self.var.copy_(m ** g * self.var + w @ var)
+
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
         """``bn(x) = x*s + t`` in x's type (layers.py ``BatchNorm`` on a
-        logical tensor)."""
-        s, t = self.affine(x)
-        return x * s.to(x.dtype) + t.to(x.dtype)
+        logical tensor), per group for ``groups`` > 1."""
+        return apply_affine(x, *self.affine(x, groups))
+
+
+def apply_affine(x: torch.Tensor, s: torch.Tensor,
+                 t: torch.Tensor) -> torch.Tensor:
+    """``x*s + t`` over the channel axis in x's type (``s`` and ``t`` cast
+    to it): a ``(C,)`` affine for every row, or a ``(G, C)`` one broadcast
+    over each of the G equal blocks of rows (layers.py:338-344)."""
+    s, t = s.to(x.dtype), t.to(x.dtype)
+    if s.ndim == 1:
+        return x * s + t
+    view = (s.shape[0],) + (1,) * (x.ndim - 1) + (s.shape[1],)
+    xg = x.reshape(s.shape[0], -1, *x.shape[1:])
+    return (xg * s.reshape(view) + t.reshape(view)).reshape(x.shape)
 
 
 class BnConvActBlock(nn.Module):
@@ -230,7 +275,16 @@ class BnConvActBlock(nn.Module):
     conv runs in: BN's moments are taken of the input as given and the
     input is cast after them (the JAX ``BatchNorm`` of an encoder's entry,
     ``x.astype(float32)`` for the moments, ``x.astype(compute_dtype)`` for
-    the output)."""
+    the output).
+
+    ``groups`` > 1 in training: a per-group affine cannot fold into the one
+    kernel that the stacked groups share, so it is applied to the (cast)
+    input and K1 runs with the layer's own kernel and bias, as the JAX lax
+    path does.  The affined input then needs a gradient (through BN's
+    ``scale`` and ``bias``), so the entry conv's backward computes dx too
+    (K2 at C_in 1 or 3) where the folded entry conv on data takes K4 alone.
+    (The JAX s2d path puts the grouped affine in front of its dW-only entry
+    conv and so gives the entry BN a zero gradient.)"""
 
     def __init__(self, in_features: int, features: int,
                  strides: Tuple[int, int, int] = (1, 1, 1), padding="VALID",
@@ -245,13 +299,12 @@ class BnConvActBlock(nn.Module):
         self.act, self.act_param = act, act_param
         self.conv_dtype: Optional[torch.dtype] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s, t = self.bn.affine(x)
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        s, t = self.bn.affine(x, groups)
         if self.conv_dtype is not None:
             x = x.to(self.conv_dtype)
-        if self.conv.strides != (1, 1, 1):
-            return self.conv(x * s.to(x.dtype) + t.to(x.dtype), self.act,
-                             self.act_param)
+        if self.conv.strides != (1, 1, 1) or s.ndim == 2:
+            return self.conv(apply_affine(x, s, t), self.act, self.act_param)
         if self.conv.pads[0]:
             kernel, bias = fold_bn_zsame(self.conv.kernel, self.conv.bias,
                                          s, t, x.shape[1])

@@ -192,9 +192,11 @@ class CaeReconstructionLearner(Learner):
         self._model.train()
         loss, dto = self.forward_loss(batch, factor)
         self._optimizer.zero_grad(set_to_none=True)
-        # cuDNN reads its TF32 flag when the stride-2 and transposed convs'
-        # backward runs: float32 stays float32 there as in their forward
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        # cuDNN reads its TF32 and determinism flags when the stride-2 and
+        # transposed convs' backward runs: float32 stays float32 there as in
+        # their forward, and the algorithms are the deterministic ones
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                        deterministic=True):
             loss.backward()
         # a trainable parameter off the loss's path (Enc3DStep's head when
         # the time is given) gets a zero gradient, as jax.grad gives it, so

@@ -13,10 +13,11 @@ The runtime flags of the parallel path (``--ndevices``, ``--distributed``
 and its addresses) parse as in the JAX package.  U-Net training and the
 CAE training entry points read them (``get_args_unet_training``,
 ``get_args_shape_training``, ``get_args_step_training``,
-``get_args_shape_prediction_training``; ``cli/common.py::make_mesh``); the
-testers, which run on one process as the JAX testers do, raise
-``NotImplementedError`` naming the flag when one is set to anything but
-its default.
+``get_args_shape_prediction_training``; ``cli/common.py::make_mesh``);
+there ``--distributed`` takes ``--ndevices`` only equal to ``--nprocs``.
+The U-Net and SDM testers take them and ignore them: they run on one
+process, as the JAX testers do, which build no mesh.  The shape-testing
+parser has no such flags, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,9 +25,13 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
-# flag -> default; any other value raises where ``parallel`` is off
+# flag -> default; the U-Net and SDM testers read none of them
 PARALLEL_FLAGS = {"ndevices": 1, "distributed": False, "coordinator": None,
                   "nprocs": None, "procid": None}
+# a process drives one card, so with --distributed the mesh spans the
+# process group, and --ndevices can only name its size
+NDEVICES_ERROR = ("--ndevices {} with --distributed: each process drives one "
+                  "card, so --ndevices must equal --nprocs ({})")
 
 
 def _add_device(parser: argparse.ArgumentParser) -> None:
@@ -37,8 +42,9 @@ def _add_device(parser: argparse.ArgumentParser) -> None:
 
 
 class ExpParser(argparse.ArgumentParser):
-    """The common flags; ``parallel`` lets the data-parallel flags through
-    (the entry points whose parallel path is ported)."""
+    """The common flags; ``parallel`` marks the entry points that read the
+    data-parallel flags (``--distributed`` there needs its addresses); the
+    others take them and ignore them."""
 
     def __init__(self, parallel: bool = False, **kw):
         super().__init__(**kw)
@@ -98,16 +104,12 @@ class ExpParser(argparse.ArgumentParser):
 
     def parse_args(self, args=None, namespace=None):
         ns = super().parse_args(args, namespace)
-        if not self.parallel:
-            for name, default in PARALLEL_FLAGS.items():
-                if getattr(ns, name) != default:
-                    raise NotImplementedError(
-                        f"--{name}: this entry point's data-parallel path "
-                        f"is not ported yet")
-        elif ns.distributed and None in (ns.coordinator, ns.nprocs,
-                                         ns.procid):
-            self.error("--distributed needs --coordinator, --nprocs and "
-                       "--procid")
+        if self.parallel and ns.distributed:
+            if None in (ns.coordinator, ns.nprocs, ns.procid):
+                self.error("--distributed needs --coordinator, --nprocs "
+                           "and --procid")
+            if ns.ndevices > 1 and ns.ndevices != ns.nprocs:
+                self.error(NDEVICES_ERROR.format(ns.ndevices, ns.nprocs))
         print(ns)
         return ns
 
@@ -172,7 +174,7 @@ def get_args_unet_training(argv: Optional[Sequence[str]] = None):
 
 def get_args_unet_testing(argv: Optional[Sequence[str]] = None):
     """The U-Net tester's flags (those of training; the data-parallel ones
-    raise)."""
+    are ignored)."""
     return UnetParser().parse_args(argv)
 
 

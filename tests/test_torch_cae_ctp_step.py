@@ -13,7 +13,10 @@ error there.  Here the gradients that reach the decoder cancel far below
 their terms, and JAX's float32 step is 1.9e-4 to 5.1e-4 of a decoder
 kernel's max|grad| off float64 (the port's 0.9e-4 to 2.2e-4, at most 0.99x
 JAX's error at every parameter), above the 5e-5 that the masks' step
-meets.  Controls with a wrong entry gradient must fail those limits."""
+meets.  Controls with a wrong entry gradient must fail those limits.  With
+structure batching on, the grouped step is held to JAX's float64 step in
+float64 and bfloat16 at the same limits, bfloat16 without the latent L1
+term (``GROUPED_BF16_FACTOR``)."""
 
 import types
 
@@ -43,16 +46,17 @@ def variables():
     return _variables()
 
 
-def _jax_step64(variables, factor):
+def _jax_step64(variables, factors):
     """value_and_grad of ``CaeReconstructionLearner._loss`` at train=True in
-    float64 -> (loss, grads, new batch_stats)."""
+    float64, per factor (one trace: the factor is an argument) -> [(loss,
+    grads, new batch_stats)]."""
     images, labels, clinical = _batch()
     loss_self = types.SimpleNamespace(_label_weights=(1.0,))
 
     def run():
         model = _jax_model(jnp.float64)
 
-        def loss_fn(p):
+        def loss_fn(p, factor):
             dto = jax_inference.cae_dto_from_batch(
                 *(jnp.asarray(a, jnp.float64) for a in (images, labels,
                                                          clinical)),
@@ -64,10 +68,16 @@ def _jax_step64(variables, factor):
             return jax_cae_learners.CaeReconstructionLearner._loss(
                 loss_self, out, factor), mut
 
-        (loss, mut), grads = jax.jit(jax.value_and_grad(
-            loss_fn, has_aux=True))(_cast64(variables["params"]))
-        return (float(loss), jax.tree_util.tree_map(np.asarray, grads),
-                jax.tree_util.tree_map(np.asarray, mut["batch_stats"]))
+        fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+        out = []
+        for factor in factors:
+            (loss, mut), grads = fn(_cast64(variables["params"]),
+                                    jnp.asarray(factor, jnp.float64))
+            out.append((float(loss),
+                        jax.tree_util.tree_map(np.asarray, grads),
+                        jax.tree_util.tree_map(np.asarray,
+                                               mut["batch_stats"])))
+        return out
 
     return _jax64(run)
 
@@ -109,17 +119,40 @@ def _jax_step32(variables, factor):
     return jax.tree_util.tree_map(np.asarray, grads)
 
 
-@pytest.fixture(scope="module")
-def witness(variables):
-    """JAX's float64 step (loss, gradients, statistics), the size of each
-    bias-like gradient's sum (the phase-1 step test's ``_sum_terms`` on
-    this model) and JAX's float32 gradients."""
+# the grouped bfloat16 step's curriculum factor: the latent L1 term off.
+# Its gradient is a sign, and the CTP encoder's latents nearly coincide:
+# the grouped bfloat16 step's rounding put one of the interpolation
+# latent's 96 elements on the other side of the lesion latent's than
+# float64 (the sequential step's rounding none), which moves every encoder
+# gradient by up to 0.16 of its max (ROADMAP §3: a non-smooth loss term,
+# not a fault of either side; chip_smoke.py's CTP card-vs-CPU step is at
+# factor 0 for it).  The grouped float64 step holds the term at FACTOR.
+GROUPED_BF16_FACTOR = 0.0
+
+
+def _sum_terms(variables, factor):
+    """The phase-1 step test's ``_sum_terms`` on this model."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(phase1_step, "_port_step",
                    lambda v, step, f, dt: _port_step(v, f, dt))
-        terms = phase1_step._sum_terms(variables, False, FACTOR)
-    return (*_jax_step64(variables, FACTOR), terms,
-            _jax_step32(variables, FACTOR))
+        return phase1_step._sum_terms(variables, False, factor)
+
+
+@pytest.fixture(scope="module")
+def witnesses(variables):
+    """By factor (FACTOR and GROUPED_BF16_FACTOR, one trace): JAX's
+    float64 step (loss, gradients, statistics), the size of each bias-like
+    gradient's sum and, at FACTOR, JAX's float32 gradients."""
+    steps = _jax_step64(variables, [FACTOR, GROUPED_BF16_FACTOR])
+    return {FACTOR: (*steps[0], _sum_terms(variables, FACTOR),
+                     _jax_step32(variables, FACTOR)),
+            GROUPED_BF16_FACTOR: (*steps[1], _sum_terms(
+                variables, GROUPED_BF16_FACTOR), None)}
+
+
+@pytest.fixture(scope="module")
+def witness(witnesses):
+    return witnesses[FACTOR]
 
 
 def _check(dtype, grads, witness):
@@ -147,15 +180,10 @@ def _check(dtype, grads, witness):
         assert err.max() <= limit, (key, err.max() / np.abs(ref).max())
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
-def test_ctp_train_step_matches_jax(variables, witness, dtype):
-    """One CTP training step against JAX float64: the loss, every parameter
-    gradient (the entry BN's scale and bias and the entry kernel's among
-    them, each non-zero) and the running statistics after the step (at the
-    step's limit times max(1, |statistic|))."""
+def _check_step(variables, witness, dtype, factor=FACTOR):
     want_loss, _, want_stats, terms, _ = witness
     tol_loss, _, _, tol_stats = phase1_step._tols(dtype)
-    loss, model = _port_step(variables, FACTOR, getattr(torch, dtype))
+    loss, model = _port_step(variables, factor, getattr(torch, dtype))
     assert abs(loss - want_loss) <= tol_loss, (loss, want_loss)
     grads = phase1_step._grads(model)
     _check(dtype, grads, witness)
@@ -171,6 +199,30 @@ def test_ctp_train_step_matches_jax(variables, witness, dtype):
             err = np.abs(buffers[key].double().numpy() - ref)
             assert (err <= tol_stats * np.maximum(np.abs(ref), 1.0)).all(), (
                 key, err.max())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+def test_ctp_train_step_matches_jax(variables, witness, dtype):
+    """One CTP training step against JAX float64: the loss, every parameter
+    gradient (the entry BN's scale and bias and the entry kernel's among
+    them, each non-zero) and the running statistics after the step (at the
+    step's limit times max(1, |statistic|))."""
+    _check_step(variables, witness, dtype)
+
+
+@pytest.mark.parametrize("dtype, factor", [("float64", FACTOR),
+                                           ("bfloat16", GROUPED_BF16_FACTOR)],
+                         ids=["float64", "bfloat16"])
+def test_ctp_grouped_train_step_matches_jax(variables, witnesses,
+                                            monkeypatch, dtype, factor):
+    """The CTP step with structure batching on (one encode of the three
+    masks with CBV and TTD, C_in 3, one decode of four) against JAX's
+    float64 step (the sequential one: JAX's grouped step is the same
+    function, test_torch_cae_train_step.py), at the same limits: float64
+    at FACTOR, bfloat16 at GROUPED_BF16_FACTOR; the entry BN's gradients
+    arrive through the entry conv's dx and are non-zero."""
+    monkeypatch.setenv(phase1_step.SWITCH, "1")
+    _check_step(variables, witnesses[factor], dtype, factor)
 
 
 @pytest.mark.parametrize("dtype, key", [

@@ -14,7 +14,9 @@ scale's to the float64 sum of its terms' sizes, the entry BN's non-zero),
 the encoder's running statistics, and the frozen CAE's parameters and
 statistics unchanged bit for bit with no gradient; a wrong gradient must
 fail the check.  The augmentation core on JAX's fields within 1e-6; the
-``.optim`` of the ``enc3d`` tree byte-identical to JAX's."""
+``.optim`` of the ``enc3d`` tree byte-identical to JAX's.  With structure
+batching on, the grouped step is held to JAX's float64 step in float64 and
+bfloat16 at the same limits."""
 
 import os
 import types
@@ -63,7 +65,7 @@ from stroke_prediction_tpu_torch.utils.args import (
 
 from test_torch_cae_step_learner import _loader, write_phase1_cae
 from test_torch_cae_train_step import (
-    BATCH, CHANNELS, SPATIAL, _batch, _config, _jax_model, _tols,
+    BATCH, CHANNELS, SPATIAL, SWITCH, _batch, _config, _jax_model, _tols,
     _variables)
 from test_torch_train import ULP, _Float64Numpy, _leaf
 from test_torch_unet import _random_variables
@@ -235,7 +237,8 @@ def _sum_terms(variables):
     the calls of |g| (a bias) or |g * x_hat| (a BN scale)}."""
     kept = []
 
-    def bn_forward(self, x):
+    def bn_forward(self, x, groups=1):
+        assert groups == 1       # the passes one structure each
         s, t = self.affine(x)
         out = x * s + t
         if out.requires_grad:
@@ -260,8 +263,8 @@ def _sum_terms(variables):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(layers.BatchNorm, "forward", bn_forward)
         mp.setattr(layers.BnConvActBlock, "forward",
-                   lambda self, x: self.conv(self.bn(x), self.act,
-                                             self.act_param))
+                   lambda self, x, groups=1: self.conv(
+                       self.bn(x, groups), self.act, self.act_param))
         mp.setattr(layers.Conv3d, "forward", keep_bias(layers.Conv3d.forward))
         _, _, enc, _ = _learner_step(variables, torch.float64)
     terms = {}
@@ -295,9 +298,8 @@ def _check_grads(grads, grads64, terms, tol, sum_tol):
             assert err.max() <= tol * np.abs(ref).max(), (key, err.max())
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
-def test_prediction_train_step_matches_jax(variables, jax_step64, dtype):
-    want_loss, grads64, want_stats, terms = jax_step64
+def _check_step(variables, witness, dtype):
+    want_loss, grads64, want_stats, terms = witness
     tol_loss, tol_grad, tol_sum, tol_stats = _tols(dtype)
     metrics, cae, enc, cae_before = _learner_step(variables,
                                                   getattr(torch, dtype))
@@ -319,6 +321,23 @@ def test_prediction_train_step_matches_jax(variables, jax_step64, dtype):
         assert torch.equal(value, cae_before[key]), key
     assert all(p.grad is None and not p.requires_grad
                for p in cae.parameters())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+def test_prediction_train_step_matches_jax(variables, jax_step64, dtype):
+    _check_step(variables, jax_step64, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "bfloat16"])
+def test_prediction_grouped_train_step_matches_jax(variables, jax_step64,
+                                                   monkeypatch, dtype):
+    """Phase 2's step with structure batching on (the new encoder over the
+    inputs branch's two groups, the frozen decoder over its three, the
+    frozen CAE's gtruth branch) against JAX's float64 step (the sequential
+    one: JAX's grouped step is the same function,
+    test_torch_cae_train_step.py), at the same limits."""
+    monkeypatch.setenv(SWITCH, "1")
+    _check_step(variables, jax_step64, dtype)
 
 
 @pytest.mark.parametrize("dtype, key", [

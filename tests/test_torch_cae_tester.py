@@ -153,6 +153,27 @@ def test_batched_sweep_matches_jax(sweeps):
         assert a.hd == pytest.approx(b.hd, abs=1e-3), i
 
 
+@pytest.mark.parametrize("step", [None, 5.0])
+def test_structure_batching_keeps_the_measures(testers, monkeypatch, step):
+    """The tester with structure batching on (``STROKE_TPU_CAE_BATCH=1``:
+    one encode, one decode; the sweep's one-row core and penumbra stacked
+    with its interpolations) gives the measures of the tester with it
+    off: a case's, and each of a sweep's."""
+    port, _ = testers
+    got = {}
+    for switch in ("0", "1"):
+        monkeypatch.setenv("STROKE_TPU_CAE_BATCH", switch)
+        with torch.inference_mode():
+            metrics, _ = port.infer_batch(_batch(port), step)
+            swept, _ = port.infer_batch_steps(_batch(port), SWEEP)
+        got[switch] = metrics, swept
+    (m0, s0), (m1, s1) = got["0"], got["1"]
+    for part in ("lesion", "core", "penu"):
+        _assert_measures_equal(m1[part], m0[part], part)
+    for i, (a, b) in enumerate(zip(s1, s0)):
+        _assert_measures_equal(a, b, f"sweep {i}")
+
+
 def _case_lines(out):
     return [ln for ln in out.splitlines() if ln.startswith("Case Id=")]
 

@@ -25,7 +25,19 @@ element.  (Relative to its own value the float32 step put the entry BN's
 bias 5.9e-5 off float64, above TRAIN_STEP_TOL's 5e-5; bfloat16 a decoder
 bias 0.76 off, where JAX's own bfloat16 step is 19.5 off.)  A gradient that
 cancels below what a type's rounding resolves passes whatever its value;
-the controls show a wrong one that the type resolves failing."""
+the controls show a wrong one that the type resolves failing.
+
+With structure batching on (``STROKE_TPU_CAE_BATCH=1``, set before the
+JAX function is traced, which must then ask the switch and stack) the
+same step runs as one grouped encode and one grouped decode, and is held
+to JAX's grouped step in float64 and bfloat16 at the same limits.  JAX's
+grouped step is the same function as its sequential one (its
+``tests/test_models.py`` equivalence; here equal to 1e-12 at both
+factors), so the grouped ``Enc3DStep``, and the CTP and phase-2 steps in
+their own files, are held to JAX's sequential float64 steps, which cost no
+second trace.  The entry BN's affine is applied to the entry conv's
+input, so its gradients arrive through that conv's dx: a control that
+drops that dx (the JAX s2d path's grouped fault) must fail the check."""
 
 import types
 
@@ -47,6 +59,7 @@ from stroke_prediction_tpu_torch.models.cae3d import (
     Cae3D, Dec3D, Enc3D, Enc3DStep)
 from stroke_prediction_tpu_torch.models.convert import (
     _key_map, state_from_jax)
+from stroke_prediction_tpu_torch.ops import conv3x3
 from stroke_prediction_tpu_torch.ops.conv3x3 import activation
 from stroke_prediction_tpu_torch.train.cae_learners import cae_loss
 
@@ -196,7 +209,8 @@ def _sum_terms(variables, step, factor):
     layer's output."""
     kept = []
 
-    def bn_forward(self, x):
+    def bn_forward(self, x, groups=1):
+        assert groups == 1       # the passes one structure each
         s, t = self.affine(x)
         out = x * s + t
         out.retain_grad()
@@ -219,8 +233,8 @@ def _sum_terms(variables, step, factor):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(layers.BatchNorm, "forward", bn_forward)
         mp.setattr(layers.BnConvActBlock, "forward",
-                   lambda self, x: self.conv(self.bn(x), self.act,
-                                             self.act_param))
+                   lambda self, x, groups=1: self.conv(
+                       self.bn(x, groups), self.act, self.act_param))
         for cls in (layers.Conv3d, layers.ConvTranspose3d, layers.Dense):
             mp.setattr(cls, "forward", keep_bias(cls.forward))
         _, model = _port_step(variables, step, factor, torch.float64)
@@ -266,13 +280,14 @@ def _grads(model):
             for k, p in model.named_parameters()}
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
-@pytest.mark.parametrize("variant", ["enc3d", "enc3d_factor", "enc3d_step"])
-def test_cae_train_step_matches_jax(jax_enc3d, jax_enc3d_step, variant,
-                                    dtype):
+def _check_step(witness, variant, dtype):
+    """The port's step of ``variant`` at ``dtype`` against ``witness``
+    (JAX's float64 steps by factor): the loss, every gradient, the entry
+    BN's non-zero, the step head's off the path, and the running
+    statistics."""
     step = variant == "enc3d_step"
     factor = 0.4 if variant == "enc3d_factor" else 0.0
-    variables, by_factor = jax_enc3d_step if step else jax_enc3d
+    variables, by_factor = witness
     want_loss, grads64, want_stats, terms = by_factor[factor]
     tol_loss, tol_grad, tol_sum, tol_stats = _tols(dtype)
 
@@ -296,6 +311,116 @@ def test_cae_train_step_matches_jax(jax_enc3d, jax_enc3d_step, variant,
     assert len(head) == (6 if step else 0)
     for key in head:              # off the path with the time given
         assert named[key].grad is None, key
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["enc3d", "enc3d_factor", "enc3d_step"])
+def test_cae_train_step_matches_jax(jax_enc3d, jax_enc3d_step, variant,
+                                    dtype):
+    _check_step(jax_enc3d_step if variant == "enc3d_step" else jax_enc3d,
+                variant, dtype)
+
+
+SWITCH = "STROKE_TPU_CAE_BATCH"
+
+
+def grouped_jax(run):
+    """``run()`` with the JAX package's structure batching switched on;
+    fails unless its models asked the switch and were told to stack."""
+    asked = []
+    real = jax_cae3d.structure_batching
+
+    def spy():
+        asked.append(real())
+        return asked[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(SWITCH, "1")
+        mp.setattr(jax_cae3d, "structure_batching", spy)
+        out = run()
+    assert asked and all(asked), asked
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_enc3d_grouped(jax_enc3d):
+    """JAX's grouped float64 steps from ``jax_enc3d``'s variables, with
+    its sums' sizes: the grouped step is the same function as the
+    sequential one, so the sizes of its sums are those of the sequential
+    passes."""
+    variables, by_factor = jax_enc3d
+    out = grouped_jax(lambda: _jax_step64(variables, False, FACTORS))
+    return variables, {f: (*o, by_factor[f][3]) for f, o in zip(FACTORS,
+                                                                out)}
+
+
+# JAX's grouped step against its sequential one (float64): the loss and a
+# statistic relative to max(1, |value|), a gradient to its tensor's max
+JAX_GROUPED_TOL = 1e-12
+
+
+@pytest.mark.parametrize("factor", FACTORS)
+def test_jax_grouped_step_equals_its_sequential_step(jax_enc3d,
+                                                     jax_enc3d_grouped,
+                                                     factor):
+    """JAX's grouped float64 step is its sequential step: the witness that
+    the grouped ``Enc3DStep``, CTP and phase-2 steps are held to."""
+    (loss, grads, stats, _), (loss_g, grads_g, stats_g, _) = (
+        w[1][factor] for w in (jax_enc3d, jax_enc3d_grouped))
+    assert abs(loss_g - loss) <= JAX_GROUPED_TOL * max(1.0, abs(loss))
+    for tree, tree_g, rel in ((grads, grads_g, True),
+                              (stats, stats_g, False)):
+        flat = jax.tree_util.tree_leaves_with_path(tree)
+        flat_g = jax.tree_util.tree_leaves(tree_g)
+        assert len(flat) == len(flat_g)
+        for (path, ref), got in zip(flat, flat_g):
+            scale = np.abs(ref).max() if rel else max(1.0,
+                                                      np.abs(ref).max())
+            err = np.abs(got - ref).max()
+            assert err <= JAX_GROUPED_TOL * scale, (path, err / scale)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "bfloat16"])
+@pytest.mark.parametrize("variant", ["enc3d", "enc3d_factor", "enc3d_step"])
+def test_cae_grouped_train_step_matches_jax(jax_enc3d_grouped,
+                                            jax_enc3d_step,
+                                            monkeypatch, variant, dtype):
+    """The step with structure batching on (one encode of three groups,
+    one decode of four, grouped BN) against JAX's grouped step (the
+    ``Enc3DStep``: JAX's sequential step, the same function), at the
+    sequential step's limits: the loss, every gradient (the entry BN's
+    non-zero: its affine now reaches the loss through the entry conv's dx)
+    and the running statistics, chained over the groups."""
+    monkeypatch.setenv(SWITCH, "1")
+    _check_step(jax_enc3d_step if variant == "enc3d_step"
+                else jax_enc3d_grouped, variant, dtype)
+
+
+class _EntryWithoutDx:
+    """``Conv3x3Fn`` with the input of a C_in-1 conv (the entry) detached:
+    its backward takes K4 alone, as the folded entry conv on data does."""
+
+    @staticmethod
+    def apply(x, *args):
+        return conv3x3.Conv3x3Fn.apply(
+            x.detach() if x.shape[-1] == CHANNELS[0] else x, *args)
+
+
+def test_cae_grouped_step_check_sees_a_dropped_entry_dx(jax_enc3d_grouped,
+                                                        monkeypatch):
+    """Control: the grouped float32 step with the entry conv's dx dropped
+    (the JAX s2d path's grouped fault) gives the entry BN zero gradients,
+    and the gradient check fails on them."""
+    monkeypatch.setenv(SWITCH, "1")
+    monkeypatch.setattr(layers, "Conv3x3Fn", _EntryWithoutDx)
+    variables, by_factor = jax_enc3d_grouped
+    _, grads64, _, terms = by_factor[0.0]
+    _, model = _port_step(variables, False, 0.0, torch.float32)
+    grads = _grads(model)
+    for key in ENTRY_BN:        # off the graph: no gradient at all
+        assert grads[key] is None, key
+    with pytest.raises(AssertionError, match="enc.encoder.blocks.0.bn"):
+        _check_grads(False, grads, grads64, terms, *_tols("float32")[1:3])
 
 
 @pytest.mark.parametrize("dtype, key", [

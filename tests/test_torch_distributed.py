@@ -218,14 +218,20 @@ def test_distributed_cli_two_processes_equal_one_process(tmp_path):
     _same_training(two, one)
 
 
-def test_parallel_flags_refuse_what_is_not_there(monkeypatch):
-    """``--distributed`` with ``--ndevices 2`` is not ported; ``--ndevices
-    2`` on the card needs two cards (here: none, then one faked) and starts
-    no process otherwise; ``--distributed`` needs its three addresses."""
-    args = get_args_unet_training(
-        ["u.model", "--distributed", "--coordinator", "127.0.0.1:1",
-         "--nprocs", "2", "--procid", "0", "--ndevices", "2"])
-    with pytest.raises(NotImplementedError, match="--ndevices"):
+def test_parallel_flags_refuse_what_is_not_there(monkeypatch, capsys):
+    """``--distributed`` with an ``--ndevices`` other than ``--nprocs`` is
+    refused, by the parser and by ``make_mesh``, naming both flags (a
+    process drives one card); ``--ndevices 2`` on the card needs two cards
+    (here: none, then one faked) and starts no process otherwise;
+    ``--distributed`` needs its three addresses."""
+    argv = ["u.model", "--distributed", "--coordinator", "127.0.0.1:1",
+            "--nprocs", "2", "--procid", "0", "--ndevices", "3"]
+    with pytest.raises(SystemExit):
+        get_args_unet_training(argv)
+    assert "--ndevices 3 with --distributed" in capsys.readouterr().err
+    args = get_args_unet_training(argv[:-1] + ["2"])
+    args.ndevices = 3
+    with pytest.raises(ValueError, match="--ndevices must equal --nprocs"):
         cli.train(args)
     args = get_args_unet_training(["u.model", "--ndevices", "2"])
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -238,6 +244,34 @@ def test_parallel_flags_refuse_what_is_not_there(monkeypatch):
         cli.train(args)
     with pytest.raises(SystemExit):
         get_args_unet_training(["u.model", "--distributed"])
+
+
+@pytest.mark.parametrize("ndevices", [1, 2])
+def test_distributed_ndevices_equal_to_nprocs_spans_the_group(monkeypatch,
+                                                              ndevices):
+    """``--distributed --ndevices N`` with N equal to ``--nprocs`` (or left
+    at 1): the process joins the group and the mesh spans it, as the JAX
+    package's spans the global devices; no process is spawned."""
+    joined = []
+
+    def initialize(coordinator, nprocs, procid, device=None):
+        joined.append((coordinator, nprocs, procid, device))
+        return torch.device("cpu")
+
+    monkeypatch.setattr(common.distributed, "initialize", initialize)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 1)
+    monkeypatch.setattr(torch.multiprocessing, "start_processes",
+                        lambda *a, **k: pytest.fail("a rank was started"))
+    args = get_args_unet_training(
+        ["u.model", "--distributed", "--coordinator", "127.0.0.1:1",
+         "--nprocs", "2", "--procid", "1", "--ndevices", str(ndevices),
+         "--device", "cpu"])
+    assert not common.spawned(cli.__name__, args)
+    mesh, device = common.make_mesh(args)
+    assert joined == [("127.0.0.1:1", 2, 1, "cpu")]
+    assert (mesh.rank, mesh.world, device.type) == (1, 2, "cpu")
 
 
 # ------------------------------------------------------------ the CAE CLIs

@@ -22,9 +22,13 @@ from stroke_prediction_tpu.data import dataset as jax_dataset
 from stroke_prediction_tpu.data import loader as jax_loader
 from stroke_prediction_tpu.models.unet3d import Unet3D as JaxUnet3D
 from stroke_prediction_tpu.train import checkpoint as jax_checkpoint
+from stroke_prediction_tpu.utils.args import SDMParser as JaxSDMParser
 from stroke_prediction_tpu.utils.args import UnetParser as JaxUnetParser
+from stroke_prediction_tpu.utils.args import (
+    get_args_shape_testing as jax_get_args_shape_testing)
 from stroke_prediction_tpu.utils.nifti import read_nifti
 from stroke_prediction_tpu_torch.cli import common as port_common
+from stroke_prediction_tpu_torch.cli import test_sdm_resampling as sdm_cli
 from stroke_prediction_tpu_torch.cli import test_unet_segmentation as port_cli
 from stroke_prediction_tpu_torch.data import dataset, loader
 from stroke_prediction_tpu_torch.device import resolve_device
@@ -32,11 +36,12 @@ from stroke_prediction_tpu_torch.models.convert import save_unet_checkpoint
 from stroke_prediction_tpu_torch.models.factory import build_model, load_model
 from stroke_prediction_tpu_torch.models.layers import Conv3d
 from stroke_prediction_tpu_torch.models.unet3d import Unet3D
+from stroke_prediction_tpu_torch.parallel import distributed
 from stroke_prediction_tpu_torch.utils import checkpoint
 from stroke_prediction_tpu_torch.utils.args import (
     PARALLEL_FLAGS, get_args_sdm, get_args_shape_prediction_training,
     get_args_shape_training, get_args_step_training, get_args_unet_testing,
-    get_args_unet_training)
+    get_args_shape_testing, get_args_unet_training)
 
 torch.set_num_threads(1)
 
@@ -231,20 +236,62 @@ def test_bare_3x3_conv_matches_jax(padding):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
+@pytest.fixture(scope="module")
+def tester_inputs(tmp_path_factory):
+    """A tiny U-Net checkpoint and a synthetic case cache that the testers
+    below share."""
+    out = tmp_path_factory.mktemp("tester_flags")
+    unet = str(out / "unet.model")
+    _random_unet_checkpoint(unet)
+    return out, unet
+
+
 @pytest.mark.parametrize("flags", [
     ["--ndevices", "4"], ["--distributed"], ["--coordinator", "h:1"],
     ["--nprocs", "2"], ["--procid", "0"]])
-def test_unported_runtime_flags_raise(flags):
-    """Each runtime flag of the data-parallel path raises, naming itself,
-    at the entry points whose parallel path is not ported: the U-Net tester
-    and the SDM tester.  U-Net training and the CAE training parsers
-    (phase 1 and CTP, step learning, phase 2) take it; ``--distributed``
-    there needs its three addresses."""
+def test_testers_take_and_ignore_runtime_flags(flags, tester_inputs,
+                                               monkeypatch, capsys):
+    """Each runtime flag of the data-parallel path parses where the JAX
+    package's parser takes it.  The U-Net and SDM testers take it and run
+    on one process, as the JAX testers, which build no mesh, do: nothing
+    starts a rank or joins a process group, and each prints its one case.
+    The shape-testing parser refuses it, as JAX's does.  U-Net training
+    and the CAE training parsers (phase 1 and CTP, step learning, phase 2)
+    read it; ``--distributed`` there needs its three addresses."""
     assert flags[0].lstrip("-") in PARALLEL_FLAGS
-    with pytest.raises(NotImplementedError, match=flags[0]):
-        get_args_unet_testing(["unet.model", *flags])
-    with pytest.raises(NotImplementedError, match=flags[0]):
-        get_args_sdm(flags)
+    out, unet = tester_inputs
+    name = flags[0].lstrip("-")
+
+    def refuse(*args, **kw):
+        raise AssertionError("a tester started a data-parallel run")
+
+    monkeypatch.setattr(port_common, "spawn_ranks", refuse)
+    monkeypatch.setattr(distributed, "initialize", refuse)
+    monkeypatch.setattr(port_common, "synthetic_cache_dir",
+                        lambda: str(out / "cache"))
+    base = str(out / name)
+    args = get_args_unet_testing(
+        [unet, *flags, "--synthetic", "--xyoriginal", "24", "--zsize", "24",
+         "--fold", "0", "--channels", *map(str, CHANNELS), "--outbasepath",
+         base, "--device", "cpu"])
+    assert getattr(args, name) != PARALLEL_FLAGS[name]
+    port_cli.test(args)
+    args = get_args_sdm([*flags, "--synthetic", "--xyoriginal", "96",
+                         "--zsize", "12", "--fold", "0", "--outbasepath",
+                         base, "--device", "cpu"])
+    assert getattr(args, name) != PARALLEL_FLAGS[name]
+    sdm_cli.infer(args)
+    printed = capsys.readouterr().out
+    assert len(re.findall(r"^Case Id", printed, re.M)) == 1, printed
+    assert "TO-->TR" in printed
+    assert not torch.distributed.is_initialized()
+    shape_argv = ["--path", "cae.model", "--fold", "0", *flags]
+    with pytest.raises(SystemExit):
+        get_args_shape_testing(shape_argv)
+    monkeypatch.setattr(sys, "argv", ["prog", *shape_argv])
+    with pytest.raises(SystemExit):
+        jax_get_args_shape_testing()
+
     parsers = ((get_args_unet_training, ["unet.model"]),
                (get_args_shape_training, []),
                (get_args_step_training, ["cae.model"]),
@@ -258,10 +305,10 @@ def test_unported_runtime_flags_raise(flags):
             assert parse([*positional, *flags_full]).procid == 1
         else:
             args = parse([*positional, *flags])
-            name = flags[0].lstrip("-")
             assert getattr(args, name) != PARALLEL_FLAGS[name]
-    # the JAX parser takes the same command line
+    # the JAX parsers take the same command lines
     JaxUnetParser().parse_args(["unet.model", *flags])
+    JaxSDMParser().parse_args(flags)
 
 
 def test_profile_flag_parses():
