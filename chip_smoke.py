@@ -97,7 +97,7 @@ non-zero without one.  Phases:
    in bfloat16 and in float32 held on its own inputs against its plain
    version (K2-K4 run twice, bit-identical); K1-K4 at each distinct layer
    of a step in both types beside plain and cuDNN's forward, dgrad and
-   wgrad with the bound, summed per step; 20 bfloat16 steps back to back
+   wgrad with the bound, summed per step; 10 bfloat16 steps back to back
    and a torch.profiler trace of one; one float32 and one bfloat16 step
    (batch 2, same weights, batch, flips and fields) on the card against
    the CPU, float32 also against a float64 CPU step.
@@ -114,7 +114,7 @@ non-zero without one.  Phases:
    counted by kernel and type; the frozen parameters after the runs as
    ``_cae1.model``'s, the step learner's BN statistics moved,
    ``_cae2.model`` the phase-1 CAE byte for byte; K1-K4 per layer of a
-   step beside cuDNN; 20 timed steps and a profile of one each; a float32
+   step beside cuDNN; 10 timed steps and a profile of one each; a float32
    step of each from its trained weights on the card against a float64 CPU
    step, with a control that must fail (the CPU's float32 step printed
    beside: the folded BN's kernel gradient can be ill-conditioned there); the
@@ -128,7 +128,7 @@ non-zero without one.  Phases:
    the artifacts, the ``cae3d_ctp`` header; every K1-K4 and edt_sites call
    of one bfloat16 and one float32 step and of one validation batch against
    plain (K1 and K4 at C_in 3 among them); K1-K4 per layer beside cuDNN, the
-   entry conv apart; 20 timed steps and a profile; one float32 step (batch
+   entry conv apart; 10 timed steps and a profile; one float32 step (batch
    2, seeded weights) card vs CPU at the STEP_* limits with two controls,
    the entry BN and entry kernel gradients against a float64 step (the
    plain versions, run on the card).
@@ -213,6 +213,22 @@ non-zero without one.  Phases:
    each learner's one-process bfloat16 ms per step, on and off, with
    device busy and kernels, and phase 1's and phase 2's with cuDNN's
    deterministic algorithms against any, 12 steps each, interleaved.
+
+15. spatial phase (``spatial_phase``, lines prefixed ``spatial``): the H
+   axis sharded over the ranks (the ``space`` mesh axis) on the reference
+   U-Net, four ranks on the one card over gloo (``spatial_rank``), on the
+   data-parallel phase's global batch of 6 (H 104): (a) a float32 and (b)
+   a bfloat16 training step at {data: 2, space: 2} within DP_FACTOR times
+   the one-process step's distance to float64 plus DP_FLOOR, a float64
+   step at DP_F64_REL of the one-process float64 step and two float64
+   controls that must fail it (the row exchanges' adjoint dropped, BN's
+   count a rank's positions times the world); (c) the float32 eval forward
+   at {data: 1, space: 4} against one process; (d) every K1-K4 call of
+   each rank's float32 and bfloat16 step against plain, and K1-K4 per
+   layer of rank 0's step beside cuDNN; (e) each rank's bfloat16 ms per
+   rank-step with the shares of exchange_rows and all_reduce, the
+   exchanges a step and their bytes beside an all-gather's, and its K1-K4
+   launches.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero.
@@ -306,6 +322,26 @@ def reset_launches():
 
 def read_launches():
     return {fn.__name__: fn.launches for fn in all_wrappers()}
+
+
+def yardstick_ms(torch, fn):
+    """:func:`cuda_ms` of a plain version or a library call, its warm-up
+    call timed too: over 5 calls, or 2 where that call took longer than
+    YARDSTICK_SLOW_MS."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    iters = 2 if start.elapsed_time(end) > YARDSTICK_SLOW_MS else 5
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def cuda_ms(torch, fn, iters):
@@ -469,8 +505,9 @@ def edt_bound(shape):
 
 # torch.profiler sessions on the card's machine now and then record no
 # device time: three times in one run of this script on an NVIDIA H100
-# 80GB HBM3, each once, and twice in a row for one SDM call in another
-PROFILE_ATTEMPTS = 4
+# 80GB HBM3, each once, twice in a row for one SDM call in another, and
+# four times in a row for one SDM call in a third
+PROFILE_ATTEMPTS = 8
 
 
 def profiled(torch, run, what):
@@ -492,13 +529,16 @@ def profiled(torch, run, what):
         print(f"{what}: no device time in the trace"
               + (", profiling again" if attempt + 1 < PROFILE_ATTEMPTS
                  else ""))
+        time.sleep(0.5)
     return prof
 
 
-def device_ms(torch, fn, reps):
+def device_ms(torch, fn, reps, events=False):
     """Device time per call and kernels per call, from the kernels' device
     time in a torch.profiler trace of ``reps`` calls after a warm-up call,
-    and {kernel name: device ms per call}.  A trace on the card's machine
+    and {kernel name: device ms per call}.  ``events``: where no trace
+    holds device time, the calls' time between CUDA events instead, with
+    the kernels not measured (nan, {}).  A trace on the card's machine
     now and then lacks a kernel's event (seen: 19 of 20 calls' kernel A of
     ``edt_sites``; 38 of its 40 events): a kernel seen in most calls but
     not in all counts round(count / reps) launches a call, each at its
@@ -511,7 +551,13 @@ def device_ms(torch, fn, reps):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     if not sum(e.self_device_time_total for e in kernels):
-        raise AssertionError("no device time in the profiler's trace")
+        if not events:
+            raise AssertionError("no device time in the profiler's trace")
+        ms = cuda_ms(torch, fn, reps)
+        print(f"device_ms: no device time in {PROFILE_ATTEMPTS} traces: "
+              f"{ms:.4f} ms a call between CUDA events (kernels not "
+              f"measured)")
+        return ms, float("nan"), {}
     n_k, per = 0.0, {}
     for e in kernels:
         n = e.count / reps
@@ -2104,7 +2150,12 @@ def bf16_step_check(out, layer_of, what, controls):
 # share of the run short
 CAE_TRAIN_BATCH = 4
 CAE_TRAIN_EPOCHS = 3
-CAE_TIMED_STEPS = 20
+CAE_TIMED_STEPS = 10
+# the plain version and cuDNN beside each kernel in the per-layer tables:
+# timed over 5 calls, or over 2 where one call takes longer than
+# YARDSTICK_SLOW_MS (a CAE step's plain dW alone takes ~0.7 s a call, and
+# the script's time limit is shared by every phase)
+YARDSTICK_SLOW_MS = 20.0
 CAE_VS_CPU_BATCH = 2
 CAE_VS_CPU_FACTOR = 0.4          # the latent L1 term on
 # one bfloat16 CAE step, card vs CPU (the CPU's plain versions round to
@@ -2345,8 +2396,8 @@ def cae_layer_times(torch, key, dtype, gen):
     for kern, (fn, plain, lib) in runs.items():
         bms, by = bound_ms(ops[kern], nbytes[kern], peak_key(kern, dname))
         out[kern] = dict(ms=cuda_ms(torch, fn, 5),
-                         plain_ms=cuda_ms(torch, plain, 5),
-                         library_ms=cuda_ms(torch, lib, 5), bound_ms=bms,
+                         plain_ms=yardstick_ms(torch, plain),
+                         library_ms=yardstick_ms(torch, lib), bound_ms=bms,
                          bound_by=by, ops=ops[kern], bytes=nbytes[kern],
                          t_ops=ops[kern] / PEAK_FLOPS[peak_key(kern, dname)]
                          * 1e3, t_bytes=nbytes[kern] / PEAK_BYTES * 1e3)
@@ -3047,7 +3098,7 @@ def cae_ctp_phase(torch, work):
     best-valid model loaded; every K1-K4 and edt_sites call of one bfloat16
     and one float32 step and of one validation batch on its own inputs
     against plain, K1 and K4 at the entry conv at C_in 3 among them; K1-K4
-    per layer beside cuDNN; 20 timed steps and a profile; one float32 step
+    per layer beside cuDNN; 10 timed steps and a profile; one float32 step
     card vs CPU (:func:`ctp_step_vs_cpu`)."""
     from stroke_prediction_tpu_torch.cli import (
         train_shape_reconstruction_with_ctp as ctp_cli)
@@ -3454,7 +3505,8 @@ def sdm_phase(torch, work):
     if not busy:
         raise AssertionError("sdm case profile: no device time in the trace")
     # each call traced on its own: device_ms counts a kernel by its calls
-    timed_calls = [device_ms(torch, lambda m=m: real(m), 10) for m in kept]
+    timed_calls = [device_ms(torch, lambda m=m: real(m), 10, events=True)
+                   for m in kept]
     k5_ms = sum(t[0] for t in timed_calls)
     k5_kernels = sum(t[1] for t in timed_calls)
     plain_ms = cuda_ms(torch, lambda: [edt_mod.edt_sites_plain(m)
@@ -3632,7 +3684,7 @@ LARGE_PAD = (44, 44, 44)
 LARGE_OUT_DHW = (28, 132, 132)
 LARGE_PATCH_WHD = (124, 124, 116)
 LARGE_EPOCHS = 2
-LARGE_TIMED_STEPS = 20
+LARGE_TIMED_STEPS = 10
 LARGE_CPU_DHW = (92, 92, 92)      # the card-vs-CPU forward: output 4^3
 LARGE_VS_CPU_BATCH = 2
 # The float32 LargeUnet3D step (batch 2, seeded weights) is too
@@ -4215,7 +4267,7 @@ DP_FACTOR, DP_FLOOR = 2.0, 1e-4
 # the --distributed CLI's curves against a plain run's: within twice two
 # plain runs' spread plus DP_CURVE_REL of the value
 DP_CURVE_REL = 1e-6
-DP_TIMED_STEPS = 10
+DP_TIMED_STEPS = 4
 DP_RANK_TIMEOUT = 600           # seconds for both ranks together
 
 
@@ -4371,9 +4423,13 @@ def rank_step_times(torch, step, n=DP_TIMED_STEPS):
     """``n`` calls of ``step`` (one training step of this rank) back to
     back after a warm-up call, host clock between synchronizes; then as
     many again with a synchronize around each all_reduce, whose time is the
-    collectives' -> ms per step, instrumented ms per step, collective ms
-    per step, all_reduce calls per step."""
+    collectives', and around each transfer of the row exchanges
+    (``collectives._transport``, under H sharding) -> ms per step,
+    instrumented ms per step, collective ms per step, all_reduce calls per
+    step, exchange ms and transfers per step."""
     import torch.distributed as dist
+
+    from stroke_prediction_tpu_torch.parallel import collectives
 
     def steps(n):
         torch.cuda.synchronize()
@@ -4396,13 +4452,26 @@ def rank_step_times(torch, step, n=DP_TIMED_STEPS):
         spent[1] += 1
         return work
 
-    dist.all_reduce = timed
+    transport, moved = collectives._transport, [0.0, 0]
+
+    def timed_transport(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = transport(*a)
+        torch.cuda.synchronize()
+        moved[0] += time.perf_counter() - t0
+        moved[1] += 1
+        return got
+
+    dist.all_reduce, collectives._transport = timed, timed_transport
     try:
         inst_ms = steps(n)
     finally:
         dist.all_reduce = real
+        collectives._transport = transport
     return dict(step_ms=step_ms, instrumented_ms=inst_ms,
-                collective_ms=1e3 * spent[0] / n, calls=spent[1] / n)
+                collective_ms=1e3 * spent[0] / n, calls=spent[1] / n,
+                exchange_ms=1e3 * moved[0] / n, exchange_calls=moved[1] / n)
 
 
 def dp_time(torch, inputs, mesh):
@@ -4451,8 +4520,8 @@ def dp_rank(rank, coordinator, inputs_path, outdir):
     torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
 
 
-def run_ranks(torch, rank_fn, inputs_path, outdir, what):
-    """``rank_fn(rank, coordinator, inputs_path, outdir)`` in DP_WORLD
+def run_ranks(torch, rank_fn, inputs_path, outdir, what, world=DP_WORLD):
+    """``rank_fn(rank, coordinator, inputs_path, outdir)`` in ``world``
     spawned processes on the one card, within DP_RANK_TIMEOUT (killed
     after it) -> each rank's ``outdir/rank<r>.pt``."""
     from stroke_prediction_tpu_torch.cli.common import free_port
@@ -4462,7 +4531,7 @@ def run_ranks(torch, rank_fn, inputs_path, outdir, what):
     t0 = time.perf_counter()
     ctx = torch.multiprocessing.start_processes(
         rank_fn, args=(f"127.0.0.1:{free_port()}", inputs_path, outdir),
-        nprocs=DP_WORLD, join=False, start_method="spawn")
+        nprocs=world, join=False, start_method="spawn")
     while not ctx.join(timeout=5):
         if time.perf_counter() - t0 > DP_RANK_TIMEOUT:
             for p in ctx.processes:
@@ -4470,8 +4539,8 @@ def run_ranks(torch, rank_fn, inputs_path, outdir, what):
             raise AssertionError(f"{what}: the ranks did not end in "
                                  f"{DP_RANK_TIMEOUT} s")
     ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"))
-             for r in range(DP_WORLD)]
-    print(f"\n{what}: {DP_WORLD} ranks on {[r['device'] for r in ranks]} "
+             for r in range(world)]
+    print(f"\n{what}: {world} ranks on {[r['device'] for r in ranks]} "
           f"over gloo in {time.perf_counter() - t0:.1f} s")
     return ranks
 
@@ -4497,8 +4566,8 @@ def dp_distance(got, ref, layer_of=unet_layer_of):
         r2[lay] = r2.get(lay, 0.0) + float((g ** 2).sum())
     worst = max(elem, key=elem.get)
     metric = {}
-    for k, v in ref["metrics"].items():
-        w = got["metrics"][k]
+    for k, w in got["metrics"].items():
+        v = ref["metrics"][k]
         metric[k] = (abs(w - v) / max(abs(v), 1e-30) if math.isfinite(v)
                      else (0.0 if w == v else math.inf))
     return dict(
@@ -4509,7 +4578,8 @@ def dp_distance(got, ref, layer_of=unet_layer_of):
                   / max(float(b.abs().max()), 1e-30)
                   for k, b in ref["stats"].items()),
         metrics=max(v for k, v in metric.items() if not k.endswith("assd")),
-        assd=max(v for k, v in metric.items() if k.endswith("assd")))
+        assd=max((v for k, v in metric.items() if k.endswith("assd")),
+                 default=0.0))
 
 
 def dp_ranks(torch, work, learner):
@@ -4612,7 +4682,7 @@ def dp_ranks(torch, work, learner):
                            per, {}, "dp")
         recorded[side] = worst
         times[side] = cae_step_kernel_times(torch, calls, per, "dp")
-    res.update(recorded=recorded, times=times)
+    res.update(recorded=recorded, times=times, one=one, inputs=path)
     return res
 
 
@@ -4621,6 +4691,257 @@ def dp_phase(torch, work):
     :func:`dp_ranks`."""
     cli, learner = dp_cli(torch, work)
     return dict(cli=cli, **dp_ranks(torch, work, learner))
+
+
+# The H axis sharded over the ranks (the ``space`` mesh axis) on the
+# reference U-Net: four ranks on cuda:0 over gloo (NCCL refuses ranks that
+# share a card), each on its rows and its block of H of the data-parallel
+# phase's global batch of 6 (patch 68x104x104, H 104): (a) a float32 and
+# (b) a bfloat16 training step at {data: 2, space: 2} under the
+# data-parallel rule, with a float64 step and two float64 controls; (c) the
+# eval forward at {data: 1, space: 4}; (d) every K1-K4 call of a rank's
+# float32 and bfloat16 step against plain; (e) ms per rank-step and its
+# exchanges.
+SPATIAL_MESH = (2, 2)
+SPATIAL_FORWARD_MESH = (1, 4)
+SPATIAL_WORLD = 4
+SPATIAL_SIDES = ("float64", "float32", "bfloat16", "float64, no adjoint",
+                 "float64, BN count per rank")
+SPATIAL_FORWARD_REL = 1e-5      # (c): of the one-process output's largest
+
+
+def spatial_step(torch, inputs, side, mesh, record=False):
+    """One U-Net training step of ``side`` (a SPATIAL_SIDES entry) on this
+    rank's rows and block of H of ``inputs``' global batch: float64 with the
+    plain versions of K1-K4, float32 and bfloat16 with the kernels; the
+    controls drop the row exchanges' adjoint (no gradient sent back to a
+    row's owner) or count BN's positions as this rank's times the world.
+    ``record``: under :func:`cae_recorded` (every K1-K4 call against
+    plain) -> ({loss, grads, stats, metrics, launches, exchanges}, the
+    recorded (calls, worst) or None)."""
+    import dataclasses
+
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+    from stroke_prediction_tpu_torch.parallel import collectives, spatial
+    from stroke_prediction_tpu_torch.parallel.mesh import (
+        batch_sharding, shard_batch)
+
+    dtype = getattr(torch, side.split(",")[0])
+    learner = dp_learner(torch, inputs, dtype, mesh, False,
+                         os.path.join(tempfile.gettempdir(), "spatial"))
+    sharding = batch_sharding(mesh, spatial=True)
+    local = shard_batch(mesh, {"images": inputs["images"],
+                               "labels": inputs["labels"]}, spatial=True)
+    imgs = local["images"].contiguous().to("cuda")
+    labs = local["labels"].contiguous().to(
+        "cuda", torch.promote_types(dtype, torch.float32))
+    names = ("conv3x3", "conv3x3_bwd_fused", "conv3x3_bwd_dx",
+             "conv3x3_bwd_dw")
+    real = {n: getattr(cm, n) for n in names}
+    scatter, count = collectives._scatter_add, spatial.global_count
+    got = {}
+
+    def run():
+        with sharding.active():
+            got["metrics"] = learner.train_patches(imgs, labs)
+
+    try:
+        if dtype == torch.float64:
+            for n in names:
+                setattr(cm, n, getattr(cm, n + "_plain"))
+        if "no adjoint" in side:
+            collectives._scatter_add = lambda g, plan, shape: scatter(
+                g, dataclasses.replace(plan, send=(), recv=()), shape)
+        if "BN count" in side:
+            spatial.global_count = (
+                lambda x: x.numel() // x.shape[-1] * mesh.world)
+        reset_launches()
+        collectives.reset_exchange_counts()
+        recorded = None
+        if record:
+            calls, _, worst = cae_recorded(torch, run, grad=True)
+            recorded = (calls, worst)
+        else:
+            run()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        exchanges = dict(collectives.EXCHANGE_COUNTS)
+    finally:
+        for n in names:
+            setattr(cm, n, real[n])
+        collectives._scatter_add, spatial.global_count = scatter, count
+    model = learner._model
+    return dict(loss=float(got["metrics"]["loss"]),
+                grads={k: p.grad.cpu().double()
+                       for k, p in model.named_parameters()},
+                stats={k: b.cpu().double() for k, b in model.named_buffers()},
+                metrics={k: float(v) for k, v in got["metrics"].items()
+                         if not k.endswith(("_hd", "_assd"))},
+                launches=launches, exchanges=exchanges), recorded
+
+
+def spatial_forward(torch, inputs, mesh=None):
+    """The float32 eval forward of ``inputs``' images: this rank's block of
+    H under a spatial ``mesh``, the whole batch without one -> (output on
+    the host, launches)."""
+    from stroke_prediction_tpu_torch.models.unet3d import Unet3D
+    from stroke_prediction_tpu_torch.parallel.mesh import (
+        batch_sharding, shard_batch)
+
+    model = Unet3D(CHANNELS)
+    model.load_state_dict(inputs["state"])
+    model.to("cuda").eval()
+    images = shard_batch(mesh, {"images": inputs["images"]},
+                         spatial=True)["images"].contiguous().to("cuda")
+    reset_launches()
+    with batch_sharding(mesh, spatial=True).active(), torch.no_grad():
+        y = model(images)
+    torch.cuda.synchronize()
+    return y.cpu(), read_launches()
+
+
+def spatial_rank(rank, coordinator, inputs_path, outdir):
+    """One rank of the spatial phase, on cuda:0 over gloo: each
+    SPATIAL_SIDES step at SPATIAL_MESH (the float32 and a second bfloat16
+    step recorded), the bfloat16 rank-step timed with its exchanges and
+    all_reduce calls, then the eval forward at SPATIAL_FORWARD_MESH ->
+    outdir/rank<rank>.pt."""
+    import torch
+
+    from stroke_prediction_tpu_torch.parallel import distributed
+    from stroke_prediction_tpu_torch.parallel.mesh import (
+        batch_sharding, make_mesh, shard_batch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(coordinator, SPATIAL_WORLD, rank, backend="gloo",
+                           device="cuda")
+    mesh = make_mesh(*SPATIAL_MESH)
+    inputs = torch.load(inputs_path)
+    out, recorded = {}, {}
+    for side in SPATIAL_SIDES:
+        out[side], rec = spatial_step(torch, inputs, side, mesh,
+                                      record=side == "float32")
+        if rec:
+            recorded["float32"] = rec
+    recorded["bfloat16"] = spatial_step(torch, inputs, "bfloat16", mesh,
+                                        record=True)[1]
+    out["recorded"] = recorded
+
+    learner = dp_learner(torch, inputs, torch.bfloat16, mesh, False,
+                         os.path.join(tempfile.gettempdir(), "spatial_time"))
+    sharding = batch_sharding(mesh, spatial=True)
+    local = shard_batch(mesh, {"images": inputs["images"],
+                               "labels": inputs["labels"]}, spatial=True)
+    imgs = local["images"].contiguous().to("cuda")
+    labs = local["labels"].contiguous().to("cuda", torch.float32)
+
+    def step():
+        with sharding.active():
+            learner.train_patches(imgs, labs)
+
+    out["timing"] = rank_step_times(torch, step)
+    out["forward"] = spatial_forward(torch, inputs,
+                                     make_mesh(*SPATIAL_FORWARD_MESH))
+    out["device"] = str(torch.cuda.current_device())
+    distributed.shutdown()
+    torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def spatial_phase(torch, work, dp):
+    """(a)-(e) on the data-parallel phase's inputs, against its one-process
+    card steps on the whole batch (float64 with the plain versions,
+    float32, bfloat16)."""
+    one, path = dp["one"], dp["inputs"]
+    inputs = torch.load(path)
+    height = inputs["images"].shape[2]
+    ranks = run_ranks(torch, spatial_rank, path,
+                      os.path.join(work, "spatial_ranks"), "spatial",
+                      world=SPATIAL_WORLD)
+    per = dp_launches()
+    want = {"conv3x3": per["K1"], "conv3x3_bwd_fused": per["K2"],
+            "conv3x3_bwd_dx": per["K3"], "conv3x3_bwd_dw": per["K4"],
+            "edt_sites": 0, "edt_parabola": 0}
+    one_f64 = {side: dp_distance(one[side], one["float64"])
+               for side in ("float32", "bfloat16")}
+    res = {"ranks": []}
+    for r, got in enumerate(ranks):
+        d = {side: dp_distance(got[side], one["float64"])
+             for side in SPATIAL_SIDES}
+        for side in SPATIAL_SIDES:
+            print(f"spatial: rank {r} {side} vs the one-process float64 "
+                  f"step: {d[side]}; launches {got[side]['launches']}")
+        f64 = d["float64"]
+        if max(f64["loss"], f64["element"], f64["layer"], f64["stats"],
+               f64["metrics"]) > DP_F64_REL:
+            raise AssertionError(f"spatial: rank {r}'s float64 step is off "
+                                 f"the one-process step: {f64}")
+        for side in SPATIAL_SIDES[3:]:
+            if d[side]["element"] <= DP_F64_REL:
+                raise AssertionError(f"spatial: rank {r}: the control "
+                                     f"'{side}' passes: {d[side]}")
+        for side in ("float32", "bfloat16"):
+            limit = {m: DP_FACTOR * one_f64[side][m] + DP_FLOOR
+                     for m in ("loss", "element", "layer", "stats")}
+            over = {m: d[side][m] for m in limit if d[side][m] > limit[m]}
+            print(f"spatial: rank {r} {side}: limits {limit}")
+            if over:
+                raise AssertionError(f"spatial: rank {r} {side} beyond "
+                                     f"{limit}: {over}")
+        if got["bfloat16"]["launches"] != want:
+            raise AssertionError(f"spatial: rank {r} bfloat16 launches "
+                                 f"{got['bfloat16']['launches']}, expected "
+                                 f"{want}")
+        for dname, (calls, worst) in got["recorded"].items():
+            cae_check_recorded(f"rank {r}'s {dname} step", calls, {}, worst,
+                               per, {}, "spatial")
+        ex, t = got["bfloat16"]["exchanges"], got["timing"]
+        print(f"spatial: rank {r} bfloat16 rank-step (rows "
+              f"{TRAIN_BATCH // SPATIAL_MESH[0]} a rank, H {height} over "
+              f"{SPATIAL_MESH[1]}, {SPATIAL_WORLD} ranks on the one card): "
+              f"{t['step_ms']:.3f} ms; instrumented {t['instrumented_ms']:.3f}"
+              f" ms, of it exchange_rows {t['exchange_ms']:.3f} ms "
+              f"({t['exchange_calls']:.0f} transfers) and all_reduce "
+              f"{t['collective_ms']:.3f} ms ({t['calls']:.0f} calls); "
+              f"{ex['exchanges']} exchanges + {ex['adjoints']} adjoints a "
+              f"step, {ex['bytes']} bytes received against "
+              f"{ex['all_gather_bytes']} for an all-gather of the same "
+              f"tensors; K1-K4 launches {got['bfloat16']['launches']}")
+        res["ranks"].append(dict(
+            vs_f64={s: {m: d[s][m] for m in ("loss", "element", "layer",
+                                              "stats", "metrics")}
+                    for s in SPATIAL_SIDES},
+            launches_per_step=got["bfloat16"]["launches"], exchanges=ex,
+            timing=t, recorded={k: v[1] for k, v in
+                                got["recorded"].items()}))
+    for side in SPATIAL_SIDES:
+        a = ranks[0][side]
+        for b in ranks[1:]:
+            if a["loss"] != b[side]["loss"] or any(
+                    not torch.equal(a["grads"][k], b[side]["grads"][k])
+                    for k in a["grads"]):
+                raise AssertionError(f"spatial: {side}: the ranks' losses or "
+                                     f"gradients differ")
+
+    ref, ref_launches = spatial_forward(torch, inputs)
+    got = torch.cat([rk["forward"][0] for rk in ranks], dim=2)
+    err = rel_err(got, ref)
+    res["forward"] = dict(rel_err=err, bit_equal=bool(torch.equal(got, ref)),
+                          launches=[rk["forward"][1]["conv3x3"]
+                                    for rk in ranks])
+    print(f"spatial: eval forward at {SPATIAL_FORWARD_MESH} (H {height}, "
+          f"output H {ref.shape[2]}) vs one process: "
+          f"{err:.3e} of max|ref| (limit {SPATIAL_FORWARD_REL}), bit-equal "
+          f"{res['forward']['bit_equal']}; K1 launches a rank "
+          f"{res['forward']['launches']} (one process "
+          f"{ref_launches['conv3x3']})")
+    if got.shape != ref.shape or err > SPATIAL_FORWARD_REL:
+        raise AssertionError(f"spatial: the forward at {SPATIAL_FORWARD_MESH}"
+                             f" is {err:.3e} of max|ref| off one process")
+    res["times"] = {dname: cae_step_kernel_times(
+        torch, ranks[0]["recorded"][dname][0], per,
+        f"spatial ({dname})") for dname in ("bfloat16", "float32")}
+    return res
 
 
 # Data-parallel training of the four CAE learners on the one card.  (a) the
@@ -5901,6 +6222,7 @@ def main():
         sdm = timed("sdm", sdm_phase, work)
         large = timed("large unet", large_unet_phase, work)
         dp = timed("data parallel", dp_phase, work)
+        spatial = timed("spatial", spatial_phase, work, dp)
         cae_dp = timed("cae data parallel", cae_dp_phase, work)
         grouped = timed("cae grouped", cae_grouped_phase, work)
 
@@ -6065,6 +6387,27 @@ def main():
                        f"plain; launches: the --distributed CLI run's "
                        f"{DP_EPOCHS} epochs"}
 
+    def spatial_use(key):
+        """A kernel's use on the spatial path: a rank's launches a bfloat16
+        rank-step, its largest error against plain over every call of a
+        float32 and a bfloat16 rank-step, and per rank-step at rank 0's
+        shapes the layers' sums (both types)."""
+        return {"launches_per_step_per_rank": [
+                    r["launches_per_step"][wrapper_of[key]]
+                    for r in spatial["ranks"]],
+                **{side: dict({f: spatial["times"][side][key][f] for f in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "gflop")}, max_abs_err=max(
+                        r["recorded"][side][key] for r in spatial["ranks"]))
+                   for side in ("bfloat16", "float32")},
+                "per": f"one training step of one rank at {{data: "
+                       f"{SPATIAL_MESH[0]}, space: {SPATIAL_MESH[1]}}} "
+                       f"(global batch {TRAIN_BATCH}, patch 68x104x104, "
+                       f"rank 0's rows and block of H with its halo rows): "
+                       f"each layer's time times its calls; max_abs_err: "
+                       f"every call of a float32 and a bfloat16 rank-step "
+                       f"on every rank vs plain"}
+
     def grouped_use(key):
         """A kernel's use on the grouped CAE path (structure batching on):
         its launches in one unrecorded phase-1 step, per step in each type
@@ -6146,7 +6489,7 @@ def main():
              cae_step=learner_use("K1", "step"),
              cae_prediction=learner_use("K1", "prediction"),
              cae_ctp=ctp_use("K1"), large_unet=large_use("K1"),
-             data_parallel=dp_use("K1"),
+             data_parallel=dp_use("K1"), spatial=spatial_use("K1"),
              cae_data_parallel=cae_dp_use(cae_dp, "K1"),
              cae_grouped=grouped_use("K1")),
         dict({"name": "conv3x3_bwd_fused", "route": "cuda",
@@ -6162,7 +6505,7 @@ def main():
                  "per": "K2 does not run on LargeUnet3D: every 3^3 conv but "
                         "the entry is over FUSED_DW_BYTES (split route), "
                         "the entry conv takes dW only"},
-             data_parallel=dp_use("K2"),
+             data_parallel=dp_use("K2"), spatial=spatial_use("K2"),
              cae_data_parallel=cae_dp_use(cae_dp, "K2"),
              cae_grouped=grouped_use("K2")),
         dict({"name": "conv3x3_bwd_dx", "route": "cuda",
@@ -6175,7 +6518,7 @@ def main():
              cae_step=learner_use("K3", "step"),
              cae_prediction=learner_use("K3", "prediction"),
              cae_ctp=ctp_use("K3"), large_unet=large_use("K3"),
-             data_parallel=dp_use("K3"),
+             data_parallel=dp_use("K3"), spatial=spatial_use("K3"),
              cae_data_parallel=cae_dp_use(cae_dp, "K3"),
              cae_grouped=grouped_use("K3")),
         dict({"name": "conv3x3_bwd_dw", "route": "cuda",
@@ -6187,7 +6530,7 @@ def main():
              cae_train=cae_train_use("K4"),
              cae_prediction=learner_use("K4", "prediction"),
              cae_ctp=ctp_use("K4"), large_unet=large_use("K4"),
-             data_parallel=dp_use("K4"),
+             data_parallel=dp_use("K4"), spatial=spatial_use("K4"),
              cae_data_parallel=cae_dp_use(cae_dp, "K4"),
              cae_grouped=grouped_use("K4")),
         {"name": "edt_sites", "route": "cuda",
@@ -6392,6 +6735,25 @@ def main():
                   f"{t['instrumented_ms']:.3f}, {t['calls']:.0f})"
                   for kind, t in r["timing"].items())
               for i, r in enumerate(cae_dp["ranks"])))
+    print(f"spatial (H over the ranks, {SPATIAL_WORLD} gloo ranks on the one "
+          f"card): " + "; ".join(
+              f"rank {i} {SPATIAL_MESH} float64 vs one process "
+              f"{r['vs_f64']['float64']['element']:.3e}, float32 "
+              f"{r['vs_f64']['float32']['element']:.3e}, bfloat16 "
+              f"{r['vs_f64']['bfloat16']['element']:.3e} (controls "
+              f"{r['vs_f64'][SPATIAL_SIDES[3]]['element']:.3e}, "
+              f"{r['vs_f64'][SPATIAL_SIDES[4]]['element']:.3e}); bfloat16 "
+              f"rank-step {r['timing']['step_ms']:.3f} ms (exchange_rows "
+              f"{r['timing']['exchange_ms']:.3f}, all_reduce "
+              f"{r['timing']['collective_ms']:.3f} of "
+              f"{r['timing']['instrumented_ms']:.3f} ms instrumented), "
+              f"{r['exchanges']['exchanges']} + {r['exchanges']['adjoints']} "
+              f"exchanges, {r['exchanges']['bytes']} bytes (all-gather "
+              f"{r['exchanges']['all_gather_bytes']})"
+              for i, r in enumerate(spatial["ranks"]))
+          + f"; forward at {SPATIAL_FORWARD_MESH} "
+          f"{spatial['forward']['rel_err']:.3e} of max|ref| off one process "
+          f"(bit-equal {spatial['forward']['bit_equal']})")
     gv, gt, gr = grouped["vs_f64"], grouped["testers"], grouped["ranks"]
     print(f"CAE grouped (STROKE_TPU_CAE_BATCH=1): float32 step vs float64 "
           f"(of its layer's largest gradient) grouped "

@@ -8,7 +8,9 @@ In a sharded data-parallel step (``parallel.mesh.current()``) the Dice
 loss, :func:`monotonicity_hinge` and :func:`binary_measures` are those of
 the global batch: their sums (the Dice's three, the hinge's, the measures'
 counts and distance sums, the distance maximum) are reduced over the ranks
-before any ratio is formed.
+before any ratio is formed.  Under H sharding each rank sums its own rows
+of H (the labels cut by the same block rule as the outputs); HD and ASSD
+are refused there.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 from stroke_prediction_tpu_torch.core.dto import BinaryMeasures
 from stroke_prediction_tpu_torch.ops.edt import edt_to_sites
+from stroke_prediction_tpu_torch.parallel import spatial
 from stroke_prediction_tpu_torch.parallel.collectives import (
     global_mean, reduce_max, reduce_sums)
 
@@ -28,7 +31,8 @@ def batch_dice_loss(outputs: torch.Tensor, targets: torch.Tensor,
                     label_weights: Sequence[float] = (1.0,),
                     epsilon: float = 1e-7) -> torch.Tensor:
     """Soft Dice loss over the flattened batch, per (last-axis) label
-    channel, weighted."""
+    channel, weighted.  Under H sharding its three sums accumulate in
+    float64 (``parallel.spatial.sum_dtype``)."""
     if targets.shape[-1] != len(label_weights):
         raise ValueError("Ground truth number of labels does not match "
                          "label weight vector")
@@ -37,9 +41,11 @@ def batch_dice_loss(outputs: torch.Tensor, targets: torch.Tensor,
     t = targets.to(wide)
     axes = tuple(range(o.ndim - 1))
     # global sums first; epsilon is added once, to the global sums
-    inter, oo, tt = reduce_sums(torch.sum(o * t, dim=axes),
-                                torch.sum(o * o, dim=axes),
-                                torch.sum(t * t, dim=axes))
+    acc = spatial.sum_dtype(o)
+    inter, oo, tt = (s.to(wide) for s in reduce_sums(
+        torch.sum(o * t, dim=axes, dtype=acc),
+        torch.sum(o * o, dim=axes, dtype=acc),
+        torch.sum(t * t, dim=axes, dtype=acc)))
     dice = (2.0 * inter + epsilon) / (oo + tt + epsilon)
     w = torch.as_tensor(label_weights, dtype=wide, device=o.device)
     return 1.0 - torch.sum(w * dice)
@@ -102,6 +108,9 @@ def _measure_sums(r: torch.Tensor, t: torch.Tensor, n: int,
             "fn": torch.sum((1 - rf) * tf, 1),
             "tn": torch.sum((1 - rf) * (1 - tf), 1)}
     if with_distances:
+        if spatial.active():
+            raise NotImplementedError("HD / ASSD under H sharding (the EDT "
+                                      "along H) are not ported")
         r3, t3 = _to_b3(r), _to_b3(t)
         m1, s1, n1 = (v.reshape(n, -1) for v in
                       _surface_distance_stats(r3, t3))

@@ -30,8 +30,8 @@ from torch import nn
 
 from stroke_prediction_tpu_torch.ops.conv3x3 import (
     Conv3x3Fn, activation, fold_bn, fold_bn_zsame)
+from stroke_prediction_tpu_torch.parallel import spatial
 from stroke_prediction_tpu_torch.parallel.collectives import reduce_sums
-from stroke_prediction_tpu_torch.parallel.mesh import current
 
 
 def check_compute_dtype(compute_dtype: torch.dtype) -> None:
@@ -99,6 +99,9 @@ class Conv3d(_ConvParams):
         * stride 2: cuDNN's conv in float32 (the JAX package runs it as
           XLA convs, a stride-1 conv sliced), then bias and activation.
         """
+        if self.kernel.shape[0] != 1 and spatial.active():
+            raise NotImplementedError("a bare 3^3 conv under H sharding is "
+                                      "not ported")
         if self.kernel.shape[0] == 1:
             acc = torch.promote_types(x.dtype, torch.float32)
             k = self.kernel[0, 0, 0].to(x.dtype).to(acc)
@@ -135,6 +138,9 @@ class ConvTranspose3d(_ConvParams):
         self.strides = tuple(strides)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.active():
+            raise NotImplementedError("a transposed conv under H sharding is "
+                                      "not ported")
         w = self.kernel.to(x.dtype).flip(0, 1, 2).permute(3, 4, 0, 1, 2)
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
                                         deterministic=True):
@@ -177,7 +183,8 @@ class BatchNorm(nn.Module):
     variance), in float32 (float64 for a float64 input) and kept in the
     autograd graph, and the running statistics take
     ``ra = 0.9 * ra + 0.1 * batch`` (flax momentum 0.9); in evaluation the
-    running statistics are used.
+    running statistics are used.  Under H sharding the sums of x and x^2
+    accumulate in float64 (``parallel.spatial.sum_dtype``).
 
     The moments are global in a sharded data-parallel step: the
     per-channel sums of x and x^2 go through
@@ -185,8 +192,10 @@ class BatchNorm(nn.Module):
     global count (the pmean of E[x] and E[x^2] of ``layers.py:324-330``; a
     mean of per-rank variances would drop the between-rank term), so every
     rank normalises and updates its running statistics alike.  The count
-    is this rank's times the world, exact as an integer: the row rule gives
-    every rank of a sharded step the same number of rows.
+    is the global batch's, exact as an integer
+    (``parallel.spatial.global_count``): this rank's times the data
+    ranks, or under H sharding, where a rank sums its own rows of H alone,
+    ``B · D · H · W`` with the global B and H.
 
     ``groups`` > 1 (structure batching, ``models/cae3d.py``): the batch
     axis holds ``groups`` equal blocks of rows, group-major, and in
@@ -212,17 +221,21 @@ class BatchNorm(nn.Module):
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.training:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            if groups > 1 and spatial.active():
+                raise NotImplementedError("grouped BN under H sharding is "
+                                          "not ported")
+            acc = spatial.sum_dtype(xf)
             if groups == 1:
                 axes = tuple(range(x.ndim - 1))
-                sums = xf.sum(axes), (xf * xf).sum(axes)
+                sums = xf.sum(axes, dtype=acc), (xf * xf).sum(axes, dtype=acc)
             else:
                 if x.shape[0] % groups:
                     raise ValueError(f"a batch of {x.shape[0]} rows does "
                                      f"not split into {groups} groups")
                 xg = xf.reshape(groups, -1, x.shape[-1])
-                sums = xg.sum(1), (xg * xg).sum(1)
-            s1, s2 = reduce_sums(*sums)
-            n = current().global_size(x.numel() // x.shape[-1] // groups)
+                sums = xg.sum(1, dtype=acc), (xg * xg).sum(1, dtype=acc)
+            s1, s2 = (s.to(xf.dtype) for s in reduce_sums(*sums))
+            n = spatial.global_count(x) // groups
             mean = s1 / n
             var = torch.clamp(s2 / n - mean * mean, min=0.0)
             with torch.no_grad():
@@ -284,7 +297,13 @@ class BnConvActBlock(nn.Module):
     ``scale`` and ``bias``), so the entry conv's backward computes dx too
     (K2 at C_in 1 or 3) where the folded entry conv on data takes K4 alone.
     (The JAX s2d path puts the grouped affine in front of its dW-only entry
-    conv and so gives the entry BN a zero gradient.)"""
+    conv and so gives the entry BN a zero gradient.)
+
+    Under H sharding (stride 1, one group) BN's moments are those of the
+    rows this rank owns, summed over the ranks, and the conv runs on the
+    rows its block of the output reads, two more than it owns, fetched
+    from their owners (``parallel/spatial.py``); the conv's input gradient
+    of a fetched row goes back to its owner."""
 
     def __init__(self, in_features: int, features: int,
                  strides: Tuple[int, int, int] = (1, 1, 1), padding="VALID",
@@ -301,10 +320,13 @@ class BnConvActBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
         s, t = self.bn.affine(x, groups)
+        h = spatial.height(x) if spatial.active() else None
         if self.conv_dtype is not None:
             x = x.to(self.conv_dtype)
         if self.conv.strides != (1, 1, 1) or s.ndim == 2:
             return self.conv(apply_affine(x, s, t), self.act, self.act_param)
+        if h is not None:
+            x, h = spatial.conv_rows(x, h)
         if self.conv.pads[0]:
             kernel, bias = fold_bn_zsame(self.conv.kernel, self.conv.bias,
                                          s, t, x.shape[1])
@@ -312,5 +334,6 @@ class BnConvActBlock(nn.Module):
         else:
             kernel, bias = fold_bn(self.conv.kernel, self.conv.bias, s, t)
             mode = "v"
-        return Conv3x3Fn.apply(x.contiguous(), kernel, bias, self.act,
-                               self.act_param, mode)
+        y = Conv3x3Fn.apply(x.contiguous(), kernel, bias, self.act,
+                            self.act_param, mode)
+        return y if h is None else spatial.record(y, h)

@@ -14,6 +14,12 @@ batch statistics (models/layers.py), ``eval()`` the running ones.  The
 input is cast to ``compute_dtype`` (float32 or bfloat16) at entry, the
 convs, pools, upsamples and the 1^3 head run in it, and the sigmoid runs in
 float32 (unet3d.py:112, 140-143).
+
+Under a spatial step (``parallel.mesh.batch_sharding(mesh, spatial=True)``)
+the forward is the same code on this rank's block of H: each conv, pool,
+upsample and skip crop fetches the rows it reads from their owners
+(``parallel/spatial.py``), and the output is this rank's block of the
+one-process output.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from stroke_prediction_tpu_torch.models.layers import (
 from stroke_prediction_tpu_torch.ops.pooling import max_pool3d
 from stroke_prediction_tpu_torch.ops.resize import (
     center_crop, upsample2x_trilinear)
+from stroke_prediction_tpu_torch.parallel import spatial
 
 
 def unet_output_spatial(spatial: Sequence[int],
@@ -71,7 +78,8 @@ def _up_block(block: UnetBlock, low: torch.Tensor,
     """A decoder stage: upsample, concatenate ``[upsampled, cropped skip]``,
     then the block."""
     u = upsample2x_trilinear(low)
-    return block(torch.cat([u, center_crop(skip, u.shape[1:4])], dim=-1))
+    skip = center_crop(skip, spatial.spatial_shape(u))
+    return block(spatial.like(torch.cat([u, skip], dim=-1), u))
 
 
 def _head(head: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:

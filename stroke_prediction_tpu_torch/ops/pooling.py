@@ -5,11 +5,18 @@ package's equality mask (``_max_pool3d_2x_bwd``): every input equal to its
 window's max receives the window's full gradient, so tied maxima (common in
 bfloat16) each get all of it, where ``torch.amax``'s own backward would
 split it evenly among them.  Floor-cropped tails get zero.
+
+Under a spatial step (H sharded over the ranks, ``parallel/spatial.py``)
+each rank pools its block of the output from input rows ``[2 lo, 2 hi)``,
+fetched from their owners, so no window straddles two ranks; the gradient
+of a fetched row goes back to its owner.
 """
 
 from __future__ import annotations
 
 import torch
+
+from stroke_prediction_tpu_torch.parallel import spatial
 
 
 def _pool(x: torch.Tensor) -> torch.Tensor:
@@ -55,4 +62,8 @@ def max_pool3d(x: torch.Tensor) -> torch.Tensor:
     ``(..., D, H, W, C)``, VALID (odd dims are floored, like
     ``nn.MaxPool3d(2, 2)``), with the JAX package's tie rule in its
     gradient."""
-    return _MaxPool3d2x.apply(x)
+    if not spatial.active():
+        return _MaxPool3d2x.apply(x)
+    h = spatial.height(x)
+    x = spatial.rows(x, h, h // 2, lambda lo, hi: (2 * lo, 2 * hi))
+    return spatial.record(_MaxPool3d2x.apply(x), h // 2)

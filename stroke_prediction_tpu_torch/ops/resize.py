@@ -4,6 +4,12 @@ Per-axis linear resizes are small dense (out, n) matrices contracted on the
 target axis, as in the JAX package: ``align_corners=True`` matches torch-0.3
 trilinear upsampling and scipy zoom's grid.  :func:`zoom_inplane_xyz` is the
 numpy form the host-side data and NIfTI code use.
+
+Under a spatial step (H sharded over the ranks, ``parallel/spatial.py``)
+:func:`upsample2x_trilinear` and :func:`center_crop` compute this rank's
+block of their output along H from the input rows it reads, fetched from
+their owners: the upsample with the rows of the global ``(2h, h)`` matrix
+that the block owns, the crop at the global offset.
 """
 
 from __future__ import annotations
@@ -13,6 +19,8 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from stroke_prediction_tpu_torch.parallel import spatial
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,19 +113,45 @@ def zoom_inplane_xyz(vol_xyz: np.ndarray, factor: float,
     return np.ascontiguousarray(v)
 
 
+def _input_span(m: np.ndarray, lo: int, hi: int) -> Tuple[int, int]:
+    """The input rows ``[a, b)`` that output rows ``[lo, hi)`` of the
+    resize matrix ``m`` read."""
+    cols = np.flatnonzero(m[lo:hi].any(axis=0))
+    return int(cols[0]), int(cols[-1]) + 1
+
+
 def upsample2x_trilinear(x: torch.Tensor) -> torch.Tensor:
     """x2 trilinear upsample of ``(B, D, H, W, C)`` (align_corners=True)."""
     d, h, w = x.shape[-4:-1]
-    return resize_linear(x, (2 * d, 2 * h, 2 * w),
-                         (x.ndim - 4, x.ndim - 3, x.ndim - 2),
-                         align_corners=True)
+    axes = (x.ndim - 4, x.ndim - 3, x.ndim - 2)
+    if not spatial.active():
+        return resize_linear(x, (2 * d, 2 * h, 2 * w), axes,
+                             align_corners=True)
+    h = spatial.height(x)
+    m = _linear_matrix(h, 2 * h, True)
+    x = spatial.rows(x, h, 2 * h, lambda lo, hi: _input_span(m, lo, hi))
+    lo, hi = spatial.own_block(2 * h)
+    a, b = _input_span(m, lo, hi) if hi > lo else (0, 0)
+    x = _axis_linear(x, axes[0], 2 * d)
+    x = _apply_axis_matrix(x, m[lo:hi, a:b], axes[1])
+    return spatial.record(_axis_linear(x, axes[2], 2 * w), 2 * h)
 
 
 def center_crop(x: torch.Tensor,
                 target_spatial: Sequence[int]) -> torch.Tensor:
-    """Center-crop the spatial (D, H, W) axes of ``(B, D, H, W, C)``."""
+    """Center-crop the spatial (D, H, W) axes of ``(B, D, H, W, C)`` (H
+    global under a spatial step, where each rank keeps its block of the
+    cropped H)."""
+    axes = (x.ndim - 4, x.ndim - 3, x.ndim - 2)
+    target = list(target_spatial)
+    if spatial.active():
+        h, t = spatial.height(x), target[1]
+        start = (h - t) // 2
+        x = spatial.rows(x, h, t, lambda lo, hi: (lo + start, hi + start))
+        target[1] = x.shape[axes[1]]
     slices = [slice(None)] * x.ndim
-    for ax, t in zip((x.ndim - 4, x.ndim - 3, x.ndim - 2), target_spatial):
+    for ax, t in zip(axes, target):
         start = (x.shape[ax] - t) // 2
         slices[ax] = slice(start, start + t)
-    return x[tuple(slices)]
+    y = x[tuple(slices)]
+    return spatial.record(y, target_spatial[1]) if spatial.active() else y

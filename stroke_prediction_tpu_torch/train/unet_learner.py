@@ -10,7 +10,10 @@ the running ones.  Console line, loss/Dice curve plot and the 6-sample x
 In a sharded data-parallel step the crop offsets are drawn for the global
 batch and each rank takes its rows' (so N ranks crop what one process
 crops), and the loss, its gradients, BN's moments and the measures are
-those of the global batch (``train/learner.py``).
+those of the global batch (``train/learner.py``).  Under H sharding
+(``parallel/spatial.py``) :meth:`train_patches` takes this rank's block of
+H of its rows' patches and labels; the learner's own loop shards rows
+only, as the JAX learner does.
 """
 
 from __future__ import annotations
@@ -76,6 +79,10 @@ class UnetSegmentationLearner(Learner):
         batch, this rank's rows of them."""
         images, labels = batch[KEY_IMAGES], batch[KEY_LABELS]
         sharding = current()
+        if sharding.spatial:
+            raise NotImplementedError("the learner crops whole patches: "
+                                      "under H sharding pass each rank's "
+                                      "blocks to train_patches")
         offsets = random_offsets(self._generator,
                                  sharding.global_size(images.shape[0]),
                                  tuple(images.shape[1:4]), self._patch)

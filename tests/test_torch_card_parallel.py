@@ -17,6 +17,15 @@ element whose gradient is near zero can move either way in the two runs
 (one element of 6912 was 1.1e-4 apart on four H100s), while a missing or
 per-rank reduction changes the update throughout (the criterion of the
 JAX package's tests/test_parallel.py).
+
+The ``space`` axis across two cards: one float32 U-Net training step
+(reference width, batch 2, patch 68x104x104) at ``{data: 1, space: 2}``,
+each card holding its block of H and the row exchanges going over NCCL,
+against the same step in one process under the data-parallel rule: the
+loss and each layer's gradients no further from a float64 one-process
+step (the plain versions of the kernels) than twice the float32
+one-process step's distance plus 1e-4 (a dropped exchange adjoint or
+reduction moves a layer's gradients by about their size).
 """
 
 import os
@@ -25,14 +34,24 @@ import subprocess
 import sys
 from pathlib import Path
 
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from stroke_prediction_tpu_torch.cli.common import free_port
 from stroke_prediction_tpu_torch.models.cae3d import Cae3D, Dec3D, Enc3D
 from stroke_prediction_tpu_torch.models.convert import (
     state_to_jax, unet_state_to_jax)
-from stroke_prediction_tpu_torch.models.unet3d import Unet3D
+from stroke_prediction_tpu_torch.models.unet3d import (
+    Unet3D, unet_output_spatial)
+from stroke_prediction_tpu_torch.parallel import distributed
+from stroke_prediction_tpu_torch.parallel.mesh import (
+    batch_sharding, make_mesh, shard_batch)
+from stroke_prediction_tpu_torch.train.optim import make_optimizer
+from stroke_prediction_tpu_torch.train.unet_learner import (
+    UnetSegmentationLearner)
 from stroke_prediction_tpu_torch.utils import checkpoint
 
 pytestmark = pytest.mark.card
@@ -47,6 +66,8 @@ ARGS = ["unused.model", *COMMON]
 UNET = "stroke_prediction_tpu_torch.cli.train_unet_segmentation"
 CAE = "stroke_prediction_tpu_torch.cli.train_shape_reconstruction"
 CAE_CHANNELS = (1, 16, 24, 32, 100, 200, 1)         # the CLI's defaults
+SPATIAL_PATCH, SPATIAL_BATCH = (68, 104, 104), 2
+SPATIAL_FACTOR, SPATIAL_FLOOR = 2.0, 1e-4        # PERF.md's data-parallel rule
 
 
 def _leaves(tree, path=()):
@@ -130,3 +151,91 @@ def test_cae_ndevices_on_the_cards_equals_one_process(tmp_path):
                  Dec3D(CAE_CHANNELS, generator=gen))
     start = state_to_jax(init.state_dict(), init.config)["params"]
     _check(n, (many, one), (out_many, out_one), "_cae1", start)
+
+
+
+def _spatial_inputs():
+    gen = torch.Generator().manual_seed(SEED)
+    model = Unet3D(CHANNELS, generator=gen)
+    images = torch.rand(SPATIAL_BATCH, *SPATIAL_PATCH, 2, generator=gen) * 4
+    labels = (torch.rand(SPATIAL_BATCH, *unet_output_spatial(SPATIAL_PATCH),
+                         2, generator=gen) > 0.5).float()
+    return {"state": model.state_dict(), "images": images, "labels": labels}
+
+
+def _spatial_step(inputs, mesh, device, dtype=torch.float32):
+    """(loss, {name: gradient}) of one training step on this rank's block
+    of H (the whole batch without a mesh); float64 with the plain versions
+    of K1-K4."""
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+
+    model = Unet3D(CHANNELS, compute_dtype=dtype)
+    model.load_state_dict(inputs["state"])
+    model.to(device, dtype)
+    learner = UnetSegmentationLearner(
+        types.SimpleNamespace(batch_size=SPATIAL_BATCH), None, model,
+        make_optimizer(model.parameters(), 1e-3), None, 1,
+        patch_whd=SPATIAL_PATCH[::-1], device=device, mesh=mesh)
+    local = shard_batch(mesh, {k: inputs[k] for k in ("images", "labels")},
+                        spatial=True)
+    names = ("conv3x3", "conv3x3_bwd_fused", "conv3x3_bwd_dx",
+             "conv3x3_bwd_dw")
+    real = {n: getattr(cm, n) for n in names}
+    try:
+        if dtype == torch.float64:
+            for n in names:
+                setattr(cm, n, getattr(cm, n + "_plain"))
+        with batch_sharding(mesh, spatial=True).active():
+            metrics = learner.train_patches(
+                local["images"].contiguous().to(device, dtype),
+                local["labels"].contiguous().to(device, dtype))
+    finally:
+        for n in names:
+            setattr(cm, n, real[n])
+    return float(metrics["loss"]), {k: p.grad.cpu().double()
+                                    for k, p in model.named_parameters()}
+
+
+def _spatial_rank(rank, coordinator, inputs_path, outdir):
+    """Rank ``rank`` of the two-card spatial step: NCCL, cuda:rank."""
+    distributed.initialize(coordinator, 2, rank)
+    loss, grads = _spatial_step(torch.load(inputs_path), make_mesh(1, 2),
+                                torch.device("cuda", rank))
+    distributed.shutdown()
+    torch.save({"loss": loss, "grads": grads},
+               os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def _distance(step, ref):
+    """(loss relative, the largest gradient distance of a layer relative
+    to its norm) of ``step`` from ``ref``."""
+    (loss, grads), (ref_loss, ref_grads) = step, ref
+    layers = {}
+    for k, g in ref_grads.items():
+        layer = re.sub(r"\.(bn|conv)\..*$|\.(kernel|bias)$", "", k)
+        d2, r2 = layers.get(layer, (0.0, 0.0))
+        layers[layer] = (d2 + float(((grads[k] - g) ** 2).sum()),
+                         r2 + float((g ** 2).sum()))
+    return (abs(loss - ref_loss) / abs(ref_loss),
+            max((d2 / r2) ** 0.5 for d2, r2 in layers.values()))
+
+
+def test_space_axis_on_two_cards_equals_one_process(tmp_path):
+    _cards()
+    inputs = _spatial_inputs()
+    path = tmp_path / "inputs.pt"
+    torch.save(inputs, path)
+    torch.multiprocessing.start_processes(
+        _spatial_rank, args=(f"127.0.0.1:{free_port()}", str(path),
+                             str(tmp_path)),
+        nprocs=2, join=True, start_method="spawn")
+    dev = torch.device("cuda", 0)
+    f64 = _spatial_step(inputs, None, dev, torch.float64)
+    one = _distance(_spatial_step(inputs, None, dev), f64)
+    limit = [SPATIAL_FACTOR * d + SPATIAL_FLOOR for d in one]
+    for rank in range(2):
+        got = torch.load(tmp_path / f"rank{rank}.pt")
+        dist = _distance((got["loss"], got["grads"]), f64)
+        print(f"space axis, rank {rank}: (loss, worst layer) off float64 "
+              f"{dist}, one process {one}, limits {limit}")
+        assert dist[0] <= limit[0] and dist[1] <= limit[1]

@@ -382,12 +382,14 @@ def test_row_rule_and_shard_batch():
 
 
 def test_mesh_refuses_what_is_not_ported():
-    """No ``space`` axis, no spatial sharding, and no mesh wider than the
-    process group (here one process)."""
-    with pytest.raises(NotImplementedError):
+    """No mesh wider than the process group (here one process), with or
+    without a ``space`` axis; spatial sharding without a mesh is the local
+    sharding."""
+    with pytest.raises(ValueError):
         mesh.make_mesh(data=1, space=2)
-    with pytest.raises(NotImplementedError):
-        mesh.batch_sharding(None, spatial=True)
+    local = mesh.batch_sharding(None, spatial=True)
+    assert local == mesh.batch_sharding(None)
+    assert not local.reduces and not local.spatial
     with pytest.raises(ValueError):
         mesh.make_data_mesh(2)
     assert mesh.make_data_mesh() == mesh.Mesh(0, 1)
