@@ -202,7 +202,7 @@ non-zero without one.  Phases:
    per layer of a bfloat16 step beside cuDNN (also at a rank's batch of 2)
    and the entry convs' K2 in both types; (b) at batch 2, the grouped
    float32 step and the sequential one against a grouped float64 CPU step
-   (computed in a process of its own from the phase's start) at the
+   (computed in the witnesses' pool from the phase's start) at the
    STEP_* limits, a control with the entry conv's dx dropped failing them;
    (c) a tester case and the curve case's sweeps, switch on against off:
    the measures, K1 launches, every call against plain; (d) two ranks on
@@ -229,6 +229,41 @@ non-zero without one.  Phases:
    rank-step with the shares of exchange_rows and all_reduce, the
    exchanges a step and their bytes beside an all-gather's, and its K1-K4
    launches.
+
+16. spatial CAE phase (``spatial_cae_phase``, lines prefixed ``spatial
+   cae``): the rest of the ``space`` axis, four ranks on the one card over
+   gloo (``spatial_cae_rank``) on the CAE data-parallel phase's global
+   batch of 4 (28x128x128; the CTP images padded to 68x168x168, each cut
+   by its own block rule): (a) each of the four learners' float64, float32
+   and bfloat16 rank-steps at {data: 2, space: 2}: float64 at
+   SPATIAL_F64_REL of the one-process float64 step, float32 and bfloat16
+   within DP_FACTOR times the one-process steps' distance to float64 plus
+   DP_FLOOR, every K1-K4 and edt_sites call of the float32 and bfloat16
+   rank-steps against plain and counted (45 / 15 / 27 / 30 a phase-1
+   rank-step, as one process), phase 1's augmented float64 rank-step
+   against one process's, and two float64 controls that must fail (the
+   padded convs padding each rank's block; the elastic noise drawn over a
+   rank's block of H); (b) eval_step on the CAE tester phase's calibrated
+   CAE at {data: 1, space: 4}: float64 (HD bit for bit, Dice at
+   DP_F64_REL, ASSD at DP_ASSD_REL of one process) and float32, every K1
+   and edt_sites call against plain; (c) a float64 LargeUnet3D step at
+   {2, 2} on 116x220x220 patches at DP_F64_REL of one process and a
+   bfloat16 one under the data-parallel rule, launches as one process's;
+   (d) each rank's phase-1 bfloat16 ms per rank-step with the shares of
+   exchange_rows and all_reduce, the exchanges and their bytes beside an
+   all-gather's, and K1-K4 per layer of rank 0's rank-step beside cuDNN;
+   (e) K4's repeat check: the U-Net spatial rank-step of phase 15 and the
+   phase-1 CAE rank-step three times each on every rank with every K4
+   call's inputs and outputs hashed and compared, then K4 (bfloat16 and
+   float32) 200 times at (3, 18, 19, 36, 32), where one rank-step's K4
+   once gave two results on the same inputs, and K4 and K2 ten
+   times at each of their rank-step shapes, their partials filled with NaN
+   before each launch, bit-equal and finite.
+
+The CPU witnesses of phases 6-9, 11 and 14 (their float32, bfloat16 and
+float64 CPU steps) run in a pool of WITNESS_WORKERS processes started after
+the kernel build; their checks run after the last phase (phase 14's within
+it).
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero.
@@ -301,6 +336,102 @@ def rel_err(got, ref):
     """max |got - ref| / max |ref|, in float32."""
     ref = ref.float()
     return float((got.float() - ref).abs().max() / ref.abs().max())
+
+
+# The CPU witnesses (the earlier phases' float32 / bfloat16 / float64 CPU
+# steps that a card step is held to) run in a pool of processes started at
+# the script's beginning, so that they overlap the card's phases: a witness
+# function submits its CPU sides there (:func:`witness`) when their inputs
+# exist, computes its card sides, and returns a :class:`Deferred` whose
+# comparisons run when the script resolves it, after the last phase.  The
+# pool keeps the host's other cores for the card's phases.
+WITNESS_WORKERS, WITNESS_THREADS = 2, 2
+_WITNESS_POOL = []
+
+
+def _witness_init():
+    import torch
+
+    torch.set_num_threads(WITNESS_THREADS)
+
+
+def start_witnesses():
+    """The witnesses' process pool (spawned processes: they import this
+    script again, not its main)."""
+    import concurrent.futures
+    import multiprocessing
+
+    _WITNESS_POOL.append(concurrent.futures.ProcessPoolExecutor(
+        WITNESS_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_witness_init))
+
+
+def stop_witnesses():
+    """Stop the pool's processes, whatever they are running."""
+    for pool in _WITNESS_POOL:
+        for proc in list(getattr(pool, "_processes", {}).values()):
+            proc.kill()
+        pool.shutdown(wait=False, cancel_futures=True)
+    _WITNESS_POOL.clear()
+
+
+def _run_witness(name, args):
+    import torch
+
+    return globals()[name](torch, *args)
+
+
+def witness(fn, *args):
+    """``fn(torch, *args)`` (a module-level function) in the witnesses'
+    pool -> a future of its result; at once where no pool runs."""
+    import concurrent.futures
+
+    if _WITNESS_POOL:
+        return _WITNESS_POOL[0].submit(_run_witness, fn.__name__, args)
+    import torch
+
+    done = concurrent.futures.Future()
+    done.set_result(fn(torch, *args))
+    return done
+
+
+class Deferred:
+    """A check that waits for its CPU witnesses: ``finish()`` runs at
+    :meth:`resolve` (the script's end, :func:`resolve_witnesses`), and the
+    deferred value formats and indexes as its result."""
+
+    pending = []
+
+    def __init__(self, finish):
+        self._finish, self._done, self._value = finish, False, None
+        Deferred.pending.append(self)
+
+    def resolve(self):
+        if not self._done:
+            self._value, self._done = self._finish(), True
+        return self._value
+
+    def __getitem__(self, key):
+        return self.resolve()[key]
+
+    def __format__(self, spec):
+        return format(self.resolve(), spec)
+
+
+def resolve_witnesses(torch):
+    """Every deferred witness check, in the order the phases made them."""
+    for d in Deferred.pending:
+        d.resolve()
+
+
+def learner_stub(learner):
+    """A picklable stand-in for ``learner``'s ``make_dto`` and ``loss``: an
+    instance of its class with the attributes those read."""
+    stub = type(learner).__new__(type(learner))
+    stub.__dict__.update({k: v for k, v in learner.__dict__.items()
+                          if k in ("_norm_hours", "_inputs_from_images",
+                                   "_label_weights")})
+    return stub
 
 
 def tile_efficiency(plane, tile):
@@ -1950,28 +2081,13 @@ def trace_kernels(torch, run, what, wall_ms):
     return busy_ms, n_kernels, groups
 
 
-def step_vs_cpu(torch, learner):
-    """One float32 training step (forward, loss, backward; no optimizer
-    step) at full width and patch, batch 2, on the card and on the CPU from
-    the same weights and crop; the same step in float64 on the CPU says
-    which float32 side is further off, and by which gradient.  The same
-    step in bfloat16 on the card and on the CPU, with two controls
-    (:func:`unet_bf16_step_check`)."""
-    from stroke_prediction_tpu_torch.data.augment import (
-        crop_patch, random_offsets)
-    from stroke_prediction_tpu_torch.data.dataset import (
-        KEY_IMAGES, KEY_LABELS)
-    from stroke_prediction_tpu_torch.models.unet3d import Unet3D
+def unet_step_side(torch, model, imgs, labs, stub, side, dev, dtype):
+    """One side of :func:`step_vs_cpu`: the U-Net training step (forward,
+    loss, backward) of ``model`` in ``dtype`` on ``dev`` -> (loss,
+    gradients, running statistics, seconds); "zeroed" in ``side`` zeroes
+    the entry conv's K4 output."""
     from stroke_prediction_tpu_torch.ops import conv3x3 as cm
 
-    data, _ = learner.device_data(learner._dataloader_training)
-    images = data[KEY_IMAGES][:2].cpu()
-    labels = data[KEY_LABELS][:2].cpu()
-    offsets = random_offsets(torch.Generator().manual_seed(2), 2,
-                             tuple(images.shape[1:4]), PATCH_DHW[::-1])
-    imgs, labs = crop_patch(images, labels, offsets, PATCH_DHW[::-1],
-                            (20, 20, 20))
-    model = Unet3D(CHANNELS, generator=torch.Generator().manual_seed(3))
     real_dw = cm.conv3x3_bwd_dw
 
     def entry_dw_zeroed(x, *args):
@@ -1981,36 +2097,69 @@ def step_vs_cpu(torch, learner):
                 if x.shape[-1] == CHANNELS[0] else out)
 
     entry_dw_zeroed.launches = 0
-    out = {}
-    for side, dev, dtype in (("card", "cuda", torch.float32),
-                             ("CPU", "cpu", torch.float32),
-                             ("CPU float64", "cpu", torch.float64),
-                             ("card bfloat16", "cuda", torch.bfloat16),
-                             ("card bfloat16, entry K4 zeroed", "cuda",
-                              torch.bfloat16),
-                             ("CPU bfloat16", "cpu", torch.bfloat16)):
-        wide = torch.promote_types(dtype, torch.float32)
-        m = copy.deepcopy(model).to(dev, wide).train()
-        m.compute_dtype = dtype
-        t0 = time.perf_counter()
-        seg = m(imgs.to(dev))
-        labs_d = labs.to(dev, wide)
-        loss = learner.loss(seg[..., 0:1], seg[..., 1:2], labs_d[..., 0:1],
-                            labs_d[..., 1:2])
-        if "zeroed" in side:
-            cm.conv3x3_bwd_dw = entry_dw_zeroed
-        try:
-            loss.backward()
-        finally:
-            cm.conv3x3_bwd_dw = real_dw
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        out[side] = (float(loss.detach()),
-                     {k: p.grad.cpu().double()
-                      for k, p in m.named_parameters()},
-                     {k: b.cpu().double() for k, b in m.named_buffers()},
-                     secs)
+    wide = torch.promote_types(dtype, torch.float32)
+    m = copy.deepcopy(model).to(dev, wide).train()
+    m.compute_dtype = dtype
+    t0 = time.perf_counter()
+    seg = m(imgs.to(dev))
+    labs_d = labs.to(dev, wide)
+    loss = stub.loss(seg[..., 0:1], seg[..., 1:2], labs_d[..., 0:1],
+                     labs_d[..., 1:2])
+    if "zeroed" in side:
+        cm.conv3x3_bwd_dw = entry_dw_zeroed
+    try:
+        loss.backward()
+    finally:
+        cm.conv3x3_bwd_dw = real_dw
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (float(loss.detach()),
+            {k: p.grad.cpu().double() for k, p in m.named_parameters()},
+            {k: b.cpu().double() for k, b in m.named_buffers()}, secs)
+
+
+def step_vs_cpu(torch, learner):
+    """One float32 training step (forward, loss, backward; no optimizer
+    step) at full width and patch, batch 2, on the card and on the CPU from
+    the same weights and crop; the same step in float64 on the CPU says
+    which float32 side is further off, and by which gradient.  The same
+    step in bfloat16 on the card and on the CPU, with two controls
+    (:func:`unet_bf16_step_check`).  The CPU sides run in the witnesses'
+    pool; the comparisons when the returned :class:`Deferred` resolves."""
+    from stroke_prediction_tpu_torch.data.augment import (
+        crop_patch, random_offsets)
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_IMAGES, KEY_LABELS)
+    from stroke_prediction_tpu_torch.models.unet3d import Unet3D
+
+    data, _ = learner.device_data(learner._dataloader_training)
+    images = data[KEY_IMAGES][:2].cpu()
+    labels = data[KEY_LABELS][:2].cpu()
+    offsets = random_offsets(torch.Generator().manual_seed(2), 2,
+                             tuple(images.shape[1:4]), PATCH_DHW[::-1])
+    imgs, labs = crop_patch(images, labels, offsets, PATCH_DHW[::-1],
+                            (20, 20, 20))
+    model = Unet3D(CHANNELS, generator=torch.Generator().manual_seed(3))
+    stub = learner_stub(learner)
+    sides = (("card", "cuda", torch.float32),
+             ("CPU", "cpu", torch.float32),
+             ("CPU float64", "cpu", torch.float64),
+             ("card bfloat16", "cuda", torch.bfloat16),
+             ("card bfloat16, entry K4 zeroed", "cuda", torch.bfloat16),
+             ("CPU bfloat16", "cpu", torch.bfloat16))
+    cpu = {side: witness(unet_step_side, model, imgs, labs, stub, side,
+                         dev, dtype)
+           for side, dev, dtype in sides if dev == "cpu"}
+    out = {side: unet_step_side(torch, model, imgs, labs, stub, side, dev,
+                                dtype)
+           for side, dev, dtype in sides if dev != "cpu"}
+    return Deferred(lambda: step_vs_cpu_check(out, cpu))
+
+
+def step_vs_cpu_check(out, cpu):
+    """:func:`step_vs_cpu`'s comparisons, its CPU sides in."""
+    out.update({side: f.result() for side, f in cpu.items()})
 
     def compare(a, b):
         """(loss rel, (worst grad err / max|grad|, its name), stats err)."""
@@ -2524,6 +2673,55 @@ def cae_layer_of(key):
                     else parts[:2])
 
 
+def cae_step_side(torch, model, labels, clinical, noise, flip, stub, side,
+                  dev, dt):
+    """One side of :func:`cae_steps_vs_cpu`: the CAE training step
+    (augmentation by the given flips and noise, forward, loss at
+    CAE_VS_CPU_FACTOR, backward) of ``model`` in ``dt`` on ``dev`` ->
+    (loss, gradients, running statistics, seconds); "zeroed" in ``side``
+    zeroes the entry conv's K4 output."""
+    from stroke_prediction_tpu_torch.data.augment import (
+        elastic_deform_batch, hemispheric_flip)
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+    from stroke_prediction_tpu_torch.ops.warp import elastic_fields
+    from stroke_prediction_tpu_torch.train.cae_learners import cae_loss
+
+    real_dw = cm.conv3x3_bwd_dw
+
+    def entry_dw_zeroed(x, *args):
+        """K4 with the entry conv's (data input) dW and db zeroed."""
+        out = real_dw(x, *args)
+        return (tuple(torch.zeros_like(t) for t in out)
+                if x.shape[-1] == CAE_CHANNELS[0] else out)
+
+    entry_dw_zeroed.launches = 0
+    m = copy.deepcopy(model).to(dev).train()
+    if dt == torch.float64:
+        m.double()
+    set_cae_dtype(m, dt)
+    wide = torch.promote_types(dt, torch.float32)
+    t0 = time.perf_counter()
+    labs = elastic_deform_batch(
+        hemispheric_flip(labels.to(dev, wide), flip.to(dev)),
+        elastic_fields(noise.to(dev, wide)))
+    dto = m(stub.make_dto(labs, clinical.to(dev, wide)))
+    loss = cae_loss(dto, CAE_VS_CPU_FACTOR)
+    if "zeroed" in side:
+        cm.conv3x3_bwd_dw = entry_dw_zeroed
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            loss.backward()
+    finally:
+        cm.conv3x3_bwd_dw = real_dw
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return (float(loss.detach()),
+            {k: p.grad.cpu().double()
+             for k, p in m.named_parameters() if p.grad is not None},
+            {k: b.cpu().double() for k, b in m.named_buffers()},
+            time.perf_counter() - t0)
+
+
 def cae_steps_vs_cpu(torch, learner):
     """One CAE training step (forward, loss at CAE_VS_CPU_FACTOR, backward;
     no optimizer step) at batch 2 on the same batch, flips and displacement
@@ -2537,16 +2735,14 @@ def cae_steps_vs_cpu(torch, learner):
       its squared mean makes the folded BN's kernel gradient
       ``dk' * s + t * db'`` two large terms that cancel, and the CPU's
       sums' order put it 3.9e-3 of its layer's largest gradient off
-      float64 on the card's first run, the card 1.4e-5."""
-    from stroke_prediction_tpu_torch.data.augment import (
-        elastic_deform_batch, hemispheric_flip)
+      float64 on the card's first run, the card 1.4e-5.
+
+    The CPU sides run in the witnesses' pool; the comparisons when the
+    returned :class:`Deferred` resolves."""
     from stroke_prediction_tpu_torch.data.dataset import (
         KEY_GLOBAL, KEY_LABELS)
     from stroke_prediction_tpu_torch.models.cae3d import Cae3D, Dec3D, Enc3D
-    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
-    from stroke_prediction_tpu_torch.ops.warp import (
-        elastic_fields, elastic_noise)
-    from stroke_prediction_tpu_torch.train.cae_learners import cae_loss
+    from stroke_prediction_tpu_torch.ops.warp import elastic_noise
 
     data, _ = learner.device_data(learner._dataloader_training)
     labels = data[KEY_LABELS][:CAE_VS_CPU_BATCH].cpu()
@@ -2558,59 +2754,37 @@ def cae_steps_vs_cpu(torch, learner):
     seeded = Cae3D(Enc3D(CAE_CHANNELS, generator=gen),
                    Dec3D(CAE_CHANNELS, generator=gen))
     trained = copy.deepcopy(learner._model).cpu()
-    real_dw = cm.conv3x3_bwd_dw
+    stub = learner_stub(learner)
+    sides = (("card float32", seeded, "cuda", torch.float32),
+             ("CPU float32", seeded, "cpu", torch.float32),
+             ("card bfloat16", seeded, "cuda", torch.bfloat16),
+             ("card bfloat16, entry K4 zeroed", seeded, "cuda",
+              torch.bfloat16),
+             ("CPU bfloat16", seeded, "cpu", torch.bfloat16),
+             ("CPU float64", seeded, "cpu", torch.float64),
+             ("trained card float32", trained, "cuda", torch.float32),
+             ("trained CPU float32", trained, "cpu", torch.float32),
+             ("trained CPU float64", trained, "cpu", torch.float64))
+    args = (labels, clinical, noise, flip, stub)
+    cpu = {side: witness(cae_step_side, model, *args, side, dev, dt)
+           for side, model, dev, dt in sides if dev == "cpu"}
+    out = {side: cae_step_side(torch, model, *args, side, dev, dt)
+           for side, model, dev, dt in sides if dev != "cpu"}
+    n_params = len(list(seeded.parameters()))
+    return Deferred(lambda: cae_steps_vs_cpu_check(out, cpu, n_params))
 
-    def entry_dw_zeroed(x, *args):
-        """K4 with the entry conv's (data input) dW and db zeroed."""
-        out = real_dw(x, *args)
-        return (tuple(torch.zeros_like(t) for t in out)
-                if x.shape[-1] == CAE_CHANNELS[0] else out)
 
-    entry_dw_zeroed.launches = 0
-    out = {}
-    for side, model, dev, dt in (
-            ("card float32", seeded, "cuda", torch.float32),
-            ("CPU float32", seeded, "cpu", torch.float32),
-            ("card bfloat16", seeded, "cuda", torch.bfloat16),
-            ("card bfloat16, entry K4 zeroed", seeded, "cuda",
-             torch.bfloat16),
-            ("CPU bfloat16", seeded, "cpu", torch.bfloat16),
-            ("CPU float64", seeded, "cpu", torch.float64),
-            ("trained card float32", trained, "cuda", torch.float32),
-            ("trained CPU float32", trained, "cpu", torch.float32),
-            ("trained CPU float64", trained, "cpu", torch.float64)):
-        m = copy.deepcopy(model).to(dev).train()
-        if dt == torch.float64:
-            m.double()
-        set_cae_dtype(m, dt)
-        wide = torch.promote_types(dt, torch.float32)
-        t0 = time.perf_counter()
-        labs = elastic_deform_batch(
-            hemispheric_flip(labels.to(dev, wide), flip.to(dev)),
-            elastic_fields(noise.to(dev, wide)))
-        dto = m(learner.make_dto(labs, clinical.to(dev, wide)))
-        loss = cae_loss(dto, CAE_VS_CPU_FACTOR)
-        if "zeroed" in side:
-            cm.conv3x3_bwd_dw = entry_dw_zeroed
-        try:
-            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-                loss.backward()
-        finally:
-            cm.conv3x3_bwd_dw = real_dw
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        out[side] = (float(loss.detach()),
-                     {k: p.grad.cpu().double()
-                      for k, p in m.named_parameters() if p.grad is not None},
-                     {k: b.cpu().double() for k, b in m.named_buffers()},
-                     time.perf_counter() - t0)
+def cae_steps_vs_cpu_check(out, cpu, n_params):
+    """:func:`cae_steps_vs_cpu`'s comparisons, its CPU sides in."""
+    import torch
+
+    out.update({side: f.result() for side, f in cpu.items()})
     print("\ncae step seconds: " + ", ".join(f"{side} {v[3]:.2f} s"
                                             for side, v in out.items()))
     entry_bn = {k: torch.zeros_like(g) if k.startswith(CAE_ENTRY + ".bn.")
                 else g for k, g in out["card bfloat16"][1].items()}
     out["card bfloat16, entry BN zeroed"] = (out["card bfloat16"][0],
                                              entry_bn) + out["card bfloat16"][2:]
-    n_params = len(list(seeded.parameters()))
     if any(len(v[1]) != n_params for v in out.values()):
         raise AssertionError(f"cae step: {n_params} gradients expected")
     what = f"cae step (batch {CAE_VS_CPU_BATCH})"
@@ -2908,6 +3082,44 @@ def learner_layer_of(key):
     return ".".join(parts[:3] if "blocks" in parts else parts[:-1])
 
 
+def learner_step_side(torch, models, batch, stub, kind, dev, dt):
+    """One side of :func:`learner_step_vs_cpu`: the step of ``kind`` from
+    the trained ``models`` in ``dt`` on ``dev`` -> (loss, trained
+    gradients, running statistics, seconds)."""
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_GLOBAL, KEY_IMAGES, KEY_LABELS)
+    from stroke_prediction_tpu_torch.inference import cae_enc_inference
+
+    ms = [copy.deepcopy(m).to(dev) for m in models]
+    if dt == torch.float64:
+        for m in ms:
+            m.double()
+    if kind == "step":
+        set_cae_dtype(ms[0], dt)
+    else:
+        set_cae_dtype(ms[0], torch.promote_types(dt, torch.float32))
+        ms[1].encoder.compute_dtype = dt
+    wide = torch.promote_types(dt, torch.float32)
+    b = {k: None if v is None else v.to(dev, wide) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    dto = stub.make_dto(b[KEY_LABELS], b[KEY_GLOBAL], images=b[KEY_IMAGES])
+    if kind == "step":
+        dto = ms[0].train()(dto)
+    else:
+        dto = cae_enc_inference(ms[0], ms[1], dto, True)
+    loss = stub.loss(dto, 0.0)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        loss.backward()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    trained = ms[-1]
+    return (float(loss.detach()),
+            {k: p.grad.cpu().double()
+             for k, p in trained.named_parameters() if p.requires_grad},
+            {k: v.cpu().double() for k, v in trained.named_buffers()},
+            time.perf_counter() - t0)
+
+
 def learner_step_vs_cpu(torch, learner, kind):
     """One float32 step of a learner (forward, loss, backward; no optimizer
     step, no augmentation) at batch 2 from its trained weights, on the card,
@@ -2921,55 +3133,31 @@ def learner_step_vs_cpu(torch, learner, kind):
     squared mean makes the folded BN's kernel gradient two large terms that
     cancel, and the CPU's sums' order put phase 2's encoder.blocks.9 kernel
     gradient 1.48e-3 of its layer's largest off float64 in one run on an
-    NVIDIA H100 80GB HBM3 (700 W), the card 9.0e-7."""
-    from stroke_prediction_tpu_torch.data.dataset import (
-        KEY_GLOBAL, KEY_IMAGES, KEY_LABELS)
-    from stroke_prediction_tpu_torch.inference import cae_enc_inference
-
+    NVIDIA H100 80GB HBM3 (700 W), the card 9.0e-7.  The CPU sides run in
+    the witnesses' pool; the comparisons when the returned
+    :class:`Deferred` resolves."""
     data, _ = learner.device_data(learner._dataloader_training)
     batch = {k: None if v is None else v[:CAE_VS_CPU_BATCH].cpu()
              for k, v in data.items()}
     models = ((learner._model,) if kind == "step"
               else (learner._cae, learner._model))
-    out = {}
+    models = tuple(copy.deepcopy(m).cpu() for m in models)
+    stub = learner_stub(learner)
+    card, cpu, f64 = "card float32", "CPU float32", "CPU float64"
+    pool = {side: witness(learner_step_side, models, batch, stub, kind,
+                          "cpu", dt)
+            for side, dt in ((cpu, torch.float32), (f64, torch.float64))}
+    out = {card: learner_step_side(torch, models, batch, stub, kind, "cuda",
+                                   torch.float32)}
+    return Deferred(lambda: learner_step_vs_cpu_check(out, pool, kind))
 
-    def run(side, dev, dt):
-        ms = [copy.deepcopy(m).to(dev) for m in models]
-        if dt == torch.float64:
-            for m in ms:
-                m.double()
-        if kind == "step":
-            set_cae_dtype(ms[0], dt)
-        else:
-            set_cae_dtype(ms[0], torch.promote_types(dt, torch.float32))
-            ms[1].encoder.compute_dtype = dt
-        wide = torch.promote_types(dt, torch.float32)
-        b = {k: None if v is None else v.to(dev, wide)
-             for k, v in batch.items()}
-        t0 = time.perf_counter()
-        dto = learner.make_dto(b[KEY_LABELS], b[KEY_GLOBAL],
-                               images=b[KEY_IMAGES])
-        if kind == "step":
-            dto = ms[0].train()(dto)
-        else:
-            dto = cae_enc_inference(ms[0], ms[1], dto, True)
-        loss = learner.loss(dto, 0.0)
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            loss.backward()
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        trained = ms[-1]
-        out[side] = (float(loss.detach()),
-                     {k: p.grad.cpu().double()
-                      for k, p in trained.named_parameters()
-                      if p.requires_grad},
-                     {k: v.cpu().double() for k, v in trained.named_buffers()},
-                     time.perf_counter() - t0)
+
+def learner_step_vs_cpu_check(out, pool, kind):
+    """:func:`learner_step_vs_cpu`'s comparisons, its CPU sides in."""
+    import torch
 
     card, cpu, f64 = "card float32", "CPU float32", "CPU float64"
-    run(card, "cuda", torch.float32)
-    run(cpu, "cpu", torch.float32)
-    run(f64, "cpu", torch.float64)
+    out.update({side: f.result() for side, f in pool.items()})
     control = ("enc.step_head.kernel",) if kind == "step" else tuple(
         f"encoder.blocks.0.bn.{n}" for n in ("scale", "bias"))
     c = out[card]
@@ -3224,38 +3412,19 @@ def cae_ctp_phase(torch, work):
                 vs_cpu=vs_cpu, wall=wall)
 
 
-def ctp_step_vs_cpu(torch, learner):
-    """One float32 CTP training step (forward, loss at CTP_VS_CPU_FACTOR,
-    backward; no optimizer step) at batch 2 from seeded weights, on the
-    same masks, images, flips and displacement fields, on the card and on
-    the CPU: the loss, every gradient (relative to its layer's largest)
-    and the running statistics at the STEP_* limits; two controls (the
-    entry conv's K4 output zeroed on the card, the card's entry BN
-    gradients zeroed) must fail the gradient limit; the entry BN's scale
-    and bias and the entry kernel's gradients, card and CPU, against a
-    float64 step (the plain versions, run on the card) within
-    CTP_ENTRY_F64_REL of their own max|ref|."""
+def ctp_step_side(torch, seeded, labels, images, clinical, noise, flip,
+                  stub, side, dev, dt):
+    """One side of :func:`ctp_step_vs_cpu`: the CTP training step of
+    ``seeded`` in ``dt`` on ``dev`` (float64 with the plain versions of
+    K1-K4; "zeroed" in ``side``: the entry conv's K4 output zeroed) ->
+    ((loss, gradients, running statistics, seconds), the signs of
+    z_interp - z_lesion)."""
     from stroke_prediction_tpu_torch.data.augment import (
         elastic_deform_batch, hemispheric_flip)
-    from stroke_prediction_tpu_torch.data.dataset import (
-        KEY_GLOBAL, KEY_IMAGES, KEY_LABELS)
-    from stroke_prediction_tpu_torch.models.cae3d import (
-        Cae3DCtp, Dec3D, Enc3DCtp)
     from stroke_prediction_tpu_torch.ops import conv3x3 as cm
-    from stroke_prediction_tpu_torch.ops.warp import (
-        elastic_fields, elastic_noise)
+    from stroke_prediction_tpu_torch.ops.warp import elastic_fields
     from stroke_prediction_tpu_torch.train.cae_learners import cae_loss
 
-    data, _ = learner.device_data(learner._dataloader_training)
-    nb = CAE_VS_CPU_BATCH
-    labels = data[KEY_LABELS][:nb].cpu()
-    images = data[KEY_IMAGES][:nb].cpu()
-    clinical = data[KEY_GLOBAL][:nb].cpu()
-    noise = elastic_noise(torch.Generator().manual_seed(5), nb, CAE_DHW)
-    flip = torch.tensor([True, False])
-    gen = torch.Generator().manual_seed(3)
-    seeded = Cae3DCtp(Enc3DCtp(CTP_CHANNELS, padding=CTP_PAD, generator=gen),
-                      Dec3D(CTP_CHANNELS, generator=gen))
     real_dw = cm.conv3x3_bwd_dw
 
     def entry_dw_zeroed(x, *args):
@@ -3269,48 +3438,93 @@ def ctp_step_vs_cpu(torch, learner):
              "conv3x3_bwd_dw")
     real = {n: getattr(cm, n) for n in names}
     plain = {n: getattr(cm, n + "_plain") for n in names}
-    out, signs = {}, {}
+    m = copy.deepcopy(seeded).to(dev).train()
+    if dt == torch.float64:
+        m.double()
+    set_cae_dtype(m, dt)
+    swap = (plain if dt == torch.float64 else
+            dict(real, conv3x3_bwd_dw=entry_dw_zeroed)
+            if "zeroed" in side else real)
+    t0 = time.perf_counter()
+    try:
+        for n in names:
+            setattr(cm, n, swap[n])
+        f = flip.to(dev)
+        labs = elastic_deform_batch(
+            hemispheric_flip(labels.to(dev, dt), f),
+            elastic_fields(noise.to(dev, dt)))
+        imgs = hemispheric_flip(images.to(dev, dt), f)
+        dto = m(stub.make_dto(labs, clinical.to(dev, dt), images=imgs))
+        lat = dto.latents.gtruth
+        sign = torch.sign(lat.interpolation - lat.lesion).detach().cpu()
+        loss = cae_loss(dto, CTP_VS_CPU_FACTOR)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            loss.backward()
+    finally:
+        for n in names:
+            setattr(cm, n, real[n])
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return (float(loss.detach()),
+            {k: p.grad.cpu().double()
+             for k, p in m.named_parameters() if p.grad is not None},
+            {k: b.cpu().double() for k, b in m.named_buffers()},
+            time.perf_counter() - t0), sign
+
+
+def ctp_step_vs_cpu(torch, learner):
+    """One float32 CTP training step (forward, loss at CTP_VS_CPU_FACTOR,
+    backward; no optimizer step) at batch 2 from seeded weights, on the
+    same masks, images, flips and displacement fields, on the card and on
+    the CPU: the loss, every gradient (relative to its layer's largest)
+    and the running statistics at the STEP_* limits; two controls (the
+    entry conv's K4 output zeroed on the card, the card's entry BN
+    gradients zeroed) must fail the gradient limit; the entry BN's scale
+    and bias and the entry kernel's gradients, card and CPU, against a
+    float64 step (the plain versions, run on the card) within
+    CTP_ENTRY_F64_REL of their own max|ref|.  The CPU side runs in the
+    witnesses' pool; the comparisons when the returned :class:`Deferred`
+    resolves."""
+    from stroke_prediction_tpu_torch.data.dataset import (
+        KEY_GLOBAL, KEY_IMAGES, KEY_LABELS)
+    from stroke_prediction_tpu_torch.models.cae3d import (
+        Cae3DCtp, Dec3D, Enc3DCtp)
+    from stroke_prediction_tpu_torch.ops.warp import elastic_noise
+
+    data, _ = learner.device_data(learner._dataloader_training)
+    nb = CAE_VS_CPU_BATCH
+    labels = data[KEY_LABELS][:nb].cpu()
+    images = data[KEY_IMAGES][:nb].cpu()
+    clinical = data[KEY_GLOBAL][:nb].cpu()
+    noise = elastic_noise(torch.Generator().manual_seed(5), nb, CAE_DHW)
+    flip = torch.tensor([True, False])
+    gen = torch.Generator().manual_seed(3)
+    seeded = Cae3DCtp(Enc3DCtp(CTP_CHANNELS, padding=CTP_PAD, generator=gen),
+                      Dec3D(CTP_CHANNELS, generator=gen))
+    args = (seeded, labels, images, clinical, noise, flip,
+            learner_stub(learner))
     # the float64 witness runs the plain versions (the CPU's code) on the
     # card: float64 convs there take seconds, on the CPU ~55 s
-    for side, dev, dt in (("card float32", "cuda", torch.float32),
-                          ("card float32, entry K4 zeroed", "cuda",
-                           torch.float32),
-                          ("CPU float32", "cpu", torch.float32),
-                          ("float64 (plain, on the card)", "cuda",
-                           torch.float64)):
-        m = copy.deepcopy(seeded).to(dev).train()
-        if dt == torch.float64:
-            m.double()
-        set_cae_dtype(m, dt)
-        swap = (plain if dt == torch.float64 else
-                dict(real, conv3x3_bwd_dw=entry_dw_zeroed)
-                if "zeroed" in side else real)
-        t0 = time.perf_counter()
-        try:
-            for n in names:
-                setattr(cm, n, swap[n])
-            f = flip.to(dev)
-            labs = elastic_deform_batch(
-                hemispheric_flip(labels.to(dev, dt), f),
-                elastic_fields(noise.to(dev, dt)))
-            imgs = hemispheric_flip(images.to(dev, dt), f)
-            dto = m(learner.make_dto(labs, clinical.to(dev, dt),
-                                     images=imgs))
-            lat = dto.latents.gtruth
-            signs[side] = torch.sign(lat.interpolation - lat.lesion).cpu()
-            loss = cae_loss(dto, CTP_VS_CPU_FACTOR)
-            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-                loss.backward()
-        finally:
-            for n in names:
-                setattr(cm, n, real[n])
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        out[side] = (float(loss.detach()),
-                     {k: p.grad.cpu().double()
-                      for k, p in m.named_parameters() if p.grad is not None},
-                     {k: b.cpu().double() for k, b in m.named_buffers()},
-                     time.perf_counter() - t0)
+    sides = (("card float32", "cuda", torch.float32),
+             ("card float32, entry K4 zeroed", "cuda", torch.float32),
+             ("CPU float32", "cpu", torch.float32),
+             ("float64 (plain, on the card)", "cuda", torch.float64))
+    pool = {side: witness(ctp_step_side, *args, side, dev, dt)
+            for side, dev, dt in sides if dev == "cpu"}
+    got = {side: ctp_step_side(torch, *args, side, dev, dt)
+           for side, dev, dt in sides if dev != "cpu"}
+    n_params = len(list(seeded.parameters()))
+    return Deferred(lambda: ctp_step_vs_cpu_check(got, pool, n_params))
+
+
+def ctp_step_vs_cpu_check(got, pool, n_params):
+    """:func:`ctp_step_vs_cpu`'s comparisons, its CPU side in."""
+    import torch
+
+    got.update({side: f.result() for side, f in pool.items()})
+    out = {side: v[0] for side, v in got.items()}
+    signs = {side: v[1] for side, v in got.items()}
+    nb = CAE_VS_CPU_BATCH
     print("\ncae ctp step seconds: " + ", ".join(
         f"{side} {v[3]:.2f} s" for side, v in out.items()))
     f64 = "float64 (plain, on the card)"
@@ -3323,7 +3537,6 @@ def ctp_step_vs_cpu(torch, learner):
     out["card float32, entry BN zeroed"] = (card[0], {
         k: torch.zeros_like(g) if k in CTP_ENTRY[:2] else g
         for k, g in card[1].items()}) + card[2:]
-    n_params = len(list(seeded.parameters()))
     if any(len(v[1]) != n_params for v in out.values()):
         raise AssertionError(f"cae ctp step: {n_params} gradients expected")
     what = f"cae ctp step (batch {nb})"
@@ -4083,6 +4296,54 @@ def in_float64(torch, fn):
     return run
 
 
+def large_step_side(torch, seeded, imgs, labs, stub, dev, dt, swap):
+    """One side of :func:`large_step_vs_cpu`: the LargeUnet3D step of
+    ``seeded`` in ``dt`` on ``dev`` with the 3^3 convs of ``swap``
+    ("kernels", "kernels, entry K4 zeroed", "convs in float64" or
+    "plain") -> (loss, gradients, running statistics, seconds)."""
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+
+    names = ("conv3x3", "conv3x3_bwd_fused", "conv3x3_bwd_dx",
+             "conv3x3_bwd_dw")
+    real = {n: getattr(cm, n) for n in names}
+    plain = {n: getattr(cm, n + "_plain") for n in names}
+
+    def entry_dw_zeroed(x, *args):
+        """K4 with the entry conv's (data input) dW and db zeroed."""
+        out = real["conv3x3_bwd_dw"](x, *args)
+        return (tuple(torch.zeros_like(t) for t in out)
+                if x.shape[-1] == LARGE_CHANNELS[0] else out)
+
+    entry_dw_zeroed.launches = 0
+    convs = {"kernels": real,
+             "kernels, entry K4 zeroed": dict(
+                 real, conv3x3_bwd_dw=entry_dw_zeroed),
+             "convs in float64": {n: in_float64(torch, f)
+                                  for n, f in plain.items()},
+             "plain": plain}[swap]
+    m = copy.deepcopy(seeded).to(dev, dt).train()
+    m.compute_dtype = dt
+    t0 = time.perf_counter()
+    try:
+        for n in names:
+            setattr(cm, n, convs[n])
+        seg = m(imgs.to(dev))
+        labs_d = labs.to(dev, dt)
+        loss = stub.loss(seg[..., 0:1], seg[..., 1:2], labs_d[..., 0:1],
+                         labs_d[..., 1:2])
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            loss.backward()
+    finally:
+        for n in names:
+            setattr(cm, n, real[n])
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return (float(loss.detach()),
+            {k: p.grad.cpu().double() for k, p in m.named_parameters()},
+            {k: b.cpu().double() for k, b in m.named_buffers()},
+            time.perf_counter() - t0)
+
+
 def large_step_vs_cpu(torch, learner):
     """One LargeUnet3D training step (forward, loss, backward; no optimizer
     step) at batch LARGE_VS_CPU_BATCH from seeded weights on the same crop,
@@ -4092,15 +4353,15 @@ def large_step_vs_cpu(torch, learner):
     times the CPU's (:func:`f64_distance`), its loss and statistics card vs
     CPU at STEP_LOSS_REL and STEP_STATS_ATOL; the float64 step card vs CPU
     at the STEP_* limits.  A control for each: the entry conv's K4 output
-    zeroed on the card, and the card's entry BN gradients zeroed."""
+    zeroed on the card, and the card's entry BN gradients zeroed.  The CPU
+    sides run in the witnesses' pool; the comparisons when the returned
+    :class:`Deferred` resolves."""
     from stroke_prediction_tpu_torch.data.augment import (
         crop_patch, random_offsets)
     from stroke_prediction_tpu_torch.data.dataset import (
         KEY_IMAGES, KEY_LABELS)
     from stroke_prediction_tpu_torch.models.unet3d import LargeUnet3D
-    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
 
-    what = f"large unet step (batch {LARGE_VS_CPU_BATCH})"
     nb = LARGE_VS_CPU_BATCH
     data, _ = learner.device_data(learner._dataloader_training)
     images, labels = data[KEY_IMAGES][:nb].cpu(), data[KEY_LABELS][:nb].cpu()
@@ -4110,55 +4371,32 @@ def large_step_vs_cpu(torch, learner):
                             LARGE_PAD)
     seeded = LargeUnet3D(LARGE_CHANNELS,
                          generator=torch.Generator().manual_seed(3))
-    names = ("conv3x3", "conv3x3_bwd_fused", "conv3x3_bwd_dx",
-             "conv3x3_bwd_dw")
-    real = {n: getattr(cm, n) for n in names}
-    plain = {n: getattr(cm, n + "_plain") for n in names}
-    convs64 = {n: in_float64(torch, f) for n, f in plain.items()}
-
-    def entry_dw_zeroed(x, *args):
-        """K4 with the entry conv's (data input) dW and db zeroed."""
-        out = real["conv3x3_bwd_dw"](x, *args)
-        return (tuple(torch.zeros_like(t) for t in out)
-                if x.shape[-1] == LARGE_CHANNELS[0] else out)
-
-    entry_dw_zeroed.launches = 0
-    out = {}
     card, cpu = "card float32", "CPU float32"
     card64, cpu64 = card + ", convs in float64", cpu + ", convs in float64"
     f64, cpu_f64 = "card float64 (plain)", "CPU float64"
-    for side, dev, dt, swap in (
-            (card, "cuda", torch.float32, real),
-            (card + ", entry K4 zeroed", "cuda", torch.float32,
-             dict(real, conv3x3_bwd_dw=entry_dw_zeroed)),
-            (cpu, "cpu", torch.float32, real),
-            (card64, "cuda", torch.float32, convs64),
-            (cpu64, "cpu", torch.float32, convs64),
-            (f64, "cuda", torch.float64, plain),
-            (cpu_f64, "cpu", torch.float64, plain)):
-        m = copy.deepcopy(seeded).to(dev, dt).train()
-        m.compute_dtype = dt
-        t0 = time.perf_counter()
-        try:
-            for n in names:
-                setattr(cm, n, swap[n])
-            seg = m(imgs.to(dev))
-            labs_d = labs.to(dev, dt)
-            loss = learner.loss(seg[..., 0:1], seg[..., 1:2],
-                                labs_d[..., 0:1], labs_d[..., 1:2])
-            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-                loss.backward()
-        finally:
-            for n in names:
-                setattr(cm, n, real[n])
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        out[side] = (float(loss.detach()),
-                     {k: p.grad.cpu().double()
-                      for k, p in m.named_parameters()},
-                     {k: b.cpu().double() for k, b in m.named_buffers()},
-                     time.perf_counter() - t0)
-        del m, seg, loss
+    sides = ((card, "cuda", torch.float32, "kernels"),
+             (card + ", entry K4 zeroed", "cuda", torch.float32,
+              "kernels, entry K4 zeroed"),
+             (cpu, "cpu", torch.float32, "kernels"),
+             (card64, "cuda", torch.float32, "convs in float64"),
+             (cpu64, "cpu", torch.float32, "convs in float64"),
+             (f64, "cuda", torch.float64, "plain"),
+             (cpu_f64, "cpu", torch.float64, "plain"))
+    args = (seeded, imgs, labs, learner_stub(learner))
+    pool = {side: witness(large_step_side, *args, dev, dt, swap)
+            for side, dev, dt, swap in sides if dev == "cpu"}
+    out = {side: large_step_side(torch, *args, dev, dt, swap)
+           for side, dev, dt, swap in sides if dev != "cpu"}
+    return Deferred(lambda: large_step_vs_cpu_check(out, pool))
+
+
+def large_step_vs_cpu_check(out, pool):
+    """:func:`large_step_vs_cpu`'s comparisons, its CPU sides in."""
+    out.update({side: f.result() for side, f in pool.items()})
+    what = f"large unet step (batch {LARGE_VS_CPU_BATCH})"
+    card, cpu = "card float32", "CPU float32"
+    card64, cpu64 = card + ", convs in float64", cpu + ", convs in float64"
+    f64, cpu_f64 = "card float64 (plain)", "CPU float64"
     print(f"\n{what} seconds: " + ", ".join(
         f"{side} {v[3]:.2f} s" for side, v in out.items()))
     entry = "blocks.0.layers.0.bn."
@@ -5478,7 +5716,7 @@ def cae_dp_ranks(torch, work, learners):
         times[side] = cae_step_kernel_times(
             torch, ranks[0]["calls"][("phase1", side)], cae_dp_want("phase1"),
             f"cae dp: phase 1 rank step, {side}")
-    res.update(times=times, recorded={
+    res.update(one=one, inputs=path, times=times, recorded={
         side: {k: max(r["steps"][(kind, side)]["worst"][k] for r in ranks
                       for kind in CAE_DP_LEARNERS) for k in CAE_KERNELS}
         for side in DP_SIDES[1:3]})
@@ -5551,8 +5789,9 @@ GROUPED_TIMED_STEPS = 2      # bfloat16 steps and rank-steps timed a side
 # deterministic algorithms and with any, interleaved
 CUDNN_COST_STEPS = 12
 # (b)'s float64 CPU witness (~65 s at CAE_VS_CPU_BATCH on the H100 host's
-# CPU) runs in a process of its own from the phase's start
-GROUPED_WITNESS_TIMEOUT = 300
+# CPU in a process of its own) runs in the witnesses' pool from the phase's
+# start: seconds to wait for it after the card's steps
+GROUPED_WITNESS_TIMEOUT = 600
 GROUPED_MEASURES_ATOL = 1e-4  # a tester's measures, switch on vs off
 
 
@@ -5756,33 +5995,27 @@ def grouped_step(torch, inputs, dev, dt, drop_entry_dx=False):
             time.perf_counter() - t0)
 
 
-def grouped_witness(out_path):
-    """(b)'s witness, the grouped float64 CPU step, in a spawned process
-    that makes its own :func:`grouped_inputs` (seeded, on the CPU) ->
-    out_path."""
-    import torch
-
+def grouped_witness(torch):
+    """(b)'s witness, the grouped float64 CPU step of its own
+    :func:`grouped_inputs` (seeded, on the CPU), in the witnesses' pool."""
+    saved = os.environ.get(GROUPED_SWITCH)
     os.environ[GROUPED_SWITCH] = "1"
-    torch.save(grouped_step(torch, grouped_inputs(torch), "cpu",
-                            torch.float64), out_path)
-
-
-def start_grouped_witness(torch, work):
-    """:func:`grouped_witness` started in a process of its own -> (the
-    process, its output path)."""
-    out = os.path.join(work, "grouped_witness.pt")
-    proc = torch.multiprocessing.get_context("spawn").Process(
-        target=grouped_witness, args=(out,), daemon=True)
-    proc.start()
-    return proc, out
+    try:
+        return grouped_step(torch, grouped_inputs(torch), "cpu",
+                            torch.float64)
+    finally:
+        if saved is None:
+            del os.environ[GROUPED_SWITCH]
+        else:
+            os.environ[GROUPED_SWITCH] = saved
 
 
 def grouped_steps_vs_f64(torch, inputs, witness):
     """(b): :func:`grouped_step` on the card in float32, grouped and
     sequential, each against the grouped float64 CPU step of ``witness``
-    (the process :func:`start_grouped_witness` started) at the STEP_*
-    limits; the grouped step with the entry conv's dx dropped must fail
-    them."""
+    (:func:`grouped_witness`'s future, submitted at the phase's start) at
+    the STEP_* limits; the grouped step with the entry conv's dx dropped
+    must fail them."""
     dropped = "grouped card float32, entry dx dropped"
     out = {}
     for side, switch, drop in (("grouped card float32", "1", False),
@@ -5791,19 +6024,12 @@ def grouped_steps_vs_f64(torch, inputs, witness):
         os.environ[GROUPED_SWITCH] = switch
         out[side] = grouped_step(torch, inputs, "cuda", torch.float32, drop)
     os.environ[GROUPED_SWITCH] = "1"
-    proc, path = witness
     t0 = time.perf_counter()
-    proc.join(GROUPED_WITNESS_TIMEOUT)
-    if proc.is_alive():
-        proc.kill()
-        proc.join()
-    if proc.exitcode != 0:
-        raise AssertionError(f"cae grouped: the float64 CPU witness exited "
-                             f"with {proc.exitcode}")
-    out["grouped CPU float64"] = torch.load(path)
+    out["grouped CPU float64"] = witness.result(GROUPED_WITNESS_TIMEOUT)
     print("\ncae grouped step seconds: " + ", ".join(
         f"{side} {v[3]:.2f} s" for side, v in out.items()) +
-        f" (its own process; waited for {time.perf_counter() - t0:.1f} s)")
+        f" (the witnesses' pool; waited for {time.perf_counter() - t0:.1f} "
+        f"s)")
     what = f"cae grouped step (batch {CAE_VS_CPU_BATCH})"
     res = {}
     for side in ("grouped card float32", "card float32", dropped):
@@ -6135,7 +6361,7 @@ def cae_grouped_phase(torch, work):
     """Structure batching on the card: (a) :func:`grouped_kernels`, (b)
     :func:`grouped_steps_vs_f64`, (c) :func:`grouped_testers`, (d)
     :func:`grouped_ranks`, (e) :func:`grouped_step_times`; (b)'s witness
-    runs in its own process from the start, beside the parts that time
+    runs in the witnesses' pool from the start, beside the parts that time
     nothing on the host's clock ((a), (c), (d)'s one-process steps, (e)'s
     profiles); the switch restored after."""
     before = os.environ.get(GROUPED_SWITCH)
@@ -6148,9 +6374,8 @@ def cae_grouped_phase(torch, work):
         seconds[name] = round(time.perf_counter() - t0, 1)
         return out
 
-    witness = None
     try:
-        witness = start_grouped_witness(torch, work)
+        witness_step = witness(grouped_witness)
         inputs = part("inputs", grouped_inputs)
         torch.save(inputs, os.path.join(work, "grouped_inputs.pt"))
         kernels = part("a", grouped_kernels, inputs)
@@ -6158,19 +6383,669 @@ def cae_grouped_phase(torch, work):
         one = part("d, one process", grouped_one_process, inputs)
         busy = part("e, profiles", grouped_step_profiles, inputs)
         out = dict(kernels=kernels, testers=testers,
-                   vs_f64=part("b", grouped_steps_vs_f64, inputs, witness),
+                   vs_f64=part("b", grouped_steps_vs_f64, inputs,
+                               witness_step),
                    ranks=part("d", grouped_ranks, work, one),
                    times=part("e", grouped_step_times, inputs, busy))
         print(f"cae grouped: seconds by part {seconds}")
         return out
     finally:
-        if witness is not None and witness[0].is_alive():
-            witness[0].kill()
-            witness[0].join()
         if before is None:
             os.environ.pop(GROUPED_SWITCH, None)
         else:
             os.environ[GROUPED_SWITCH] = before
+
+
+# The rest of the space axis: the four CAE learners, their eval and the
+# 4-scale U-Net with H sharded over the ranks, four ranks on cuda:0 over
+# gloo, on the CAE data-parallel phase's global batch of 4 (28x128x128
+# masks, the CTP images padded to 68x168x168, each cut by its own block
+# rule) and weights: (a) each learner's float64, float32 and bfloat16
+# rank-step at {data: 2, space: 2} (the float32 and bfloat16 steps
+# recorded), two float64 controls and phase 1's float64 step with its
+# augmentation on; (b) eval_step at {data: 1, space: 4} on the CAE training
+# phase's trained CAE, float64 (HD bit for bit) and float32 (recorded);
+# (c) a float64 and a bfloat16 LargeUnet3D step at {2, 2} on 116x220x220
+# patches; (d) the launches, exchanges and bfloat16 ms of a phase-1
+# rank-step; (e) K4's repeat checks: each rank runs the U-Net spatial
+# rank-step of the spatial phase and the phase-1 CAE rank-step three times
+# with every K4 call's inputs and outputs hashed, then K4 and K2 at their
+# rank-step shapes with their partials filled with NaN before each launch.
+SPATIAL_CAE_MESH = (2, 2)
+SPATIAL_CAE_EVAL_MESH = (1, 4)
+SPATIAL_CAE_SIDES = ("float64", "float32", "bfloat16")
+SPATIAL_CAE_CONTROLS = ("float64, padding per block",
+                        "float64, draws over the block")
+# a float64 CAE rank-step against the one-process float64 step (loss,
+# gradients, statistics), as one process sums them in another order; the
+# 4-scale U-Net's at DP_F64_REL: its gradients sum over ~10M voxels, and
+# reordered they moved 1.10e-13 of a layer's largest on an NVIDIA H100
+# 80GB HBM3 (700 W)
+SPATIAL_F64_REL = 1e-13
+LARGE_SPATIAL_DHW = (116, 220, 220)   # the large U-Net tester's volume
+LARGE_SPATIAL_BATCH = 2
+LARGE_SPATIAL_SIDES = ("float64", "bfloat16")
+SPATIAL_REPEATS = 3                  # (e): rank-steps run again, hashed
+K4_REPEATS = 200                     # (e): launches at K4_REPEAT_SHAPE
+# where a recorded U-Net rank-step's K4 once gave two results on the same
+# inputs (L8 of a rank's block, C_out 32)
+K4_REPEAT_SHAPE = (3, 18, 19, 36, 32)
+KERNEL_REPEATS = 10                  # (e): launches at each rank-step shape
+
+
+def block_padding(real):
+    """``spatial.conv_rows`` with the classic fault of a padded conv: each
+    rank pads its own block, so its neighbours' rows inside the volume read
+    as zeros (a control)."""
+    def conv_rows(x, h_in, stride=1, pad=0):
+        import torch
+
+        from stroke_prediction_tpu_torch.parallel import spatial
+
+        got, h_out = real(x, h_in, stride, pad)
+        if not pad:
+            return got, h_out
+        lo, _ = spatial.own_block(h_out)
+        o_lo, o_hi = spatial.own_block(h_in)
+        rows = stride * lo - pad + torch.arange(got.shape[2],
+                                                device=got.device)
+        keep = ((rows >= o_lo) & (rows < o_hi)) | (rows < 0) | (rows >= h_in)
+        return got * keep.to(got.dtype).reshape(1, 1, -1, 1, 1), h_out
+    return conv_rows
+
+
+def local_draws(generator, labels):
+    """The CAE draws over this rank's block of H alone (a control)."""
+    import torch
+
+    from stroke_prediction_tpu_torch.data.augment import random_flip_mask
+    from stroke_prediction_tpu_torch.ops.warp import (
+        elastic_fields, elastic_noise)
+    from stroke_prediction_tpu_torch.parallel.mesh import current
+
+    sharding = current()
+    n = sharding.global_size(labels.shape[0])
+    flip = random_flip_mask(generator, n)
+    noise = elastic_noise(generator, n, tuple(labels.shape[1:4]),
+                          labels.dtype)
+    fields = torch.stack([elastic_fields(x) for x in sharding.take(noise)])
+    return sharding.take(flip), fields
+
+
+def spatial_cae_batch(torch, inputs, kind, mesh, dtype):
+    """This rank's rows and block of H (each array by its own H) of
+    ``kind``'s global batch on the card."""
+    from stroke_prediction_tpu_torch.parallel.mesh import shard_batch
+
+    wide = torch.promote_types(dtype, torch.float32)
+    got = shard_batch(mesh, inputs["data"][kind], spatial=True)
+    return {k: None if v is None else v.contiguous().to("cuda", wide)
+            for k, v in got.items()}
+
+
+def spatial_cae_step(torch, inputs, kind, side, mesh=None, record=False,
+                     augment=False, evaluate=False):
+    """One training step of ``kind`` in ``side`` (a SPATIAL_CAE_SIDES or
+    SPATIAL_CAE_CONTROLS entry; float64 with the plain versions of K1-K4)
+    on this rank's rows and block of H under a spatial ``mesh`` (the whole
+    batch without one), augmentation off unless ``augment``; ``evaluate``:
+    ``eval_step`` on the trained CAE instead; ``record``: every K1-K4 and
+    edt_sites call against plain (:func:`cae_recorded`) -> ({loss, grads,
+    stats, metrics, calls, sites, worst, exchanges}, learner, calls)."""
+    from stroke_prediction_tpu_torch.data import augment as aug
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+    from stroke_prediction_tpu_torch.parallel import collectives, spatial
+    from stroke_prediction_tpu_torch.parallel.mesh import batch_sharding
+
+    dtype = getattr(torch, side.split(",")[0])
+    learner = cae_dp_learner(torch, inputs, kind, dtype, mesh,
+                             os.path.join(tempfile.gettempdir(),
+                                          "spatial_cae"))
+    if evaluate:
+        learner._model.load_state_dict(inputs["states"]["cae"])
+    if not (augment or "draws" in side):
+        learner.augment = lambda batch: batch
+    sharding = batch_sharding(mesh, spatial=True)
+    batch = spatial_cae_batch(torch, inputs, kind, mesh, dtype)
+    names = ("conv3x3", "conv3x3_bwd_fused", "conv3x3_bwd_dx",
+             "conv3x3_bwd_dw")
+    real = {n: getattr(cm, n) for n in names}
+    conv_rows, draws = spatial.conv_rows, aug._cae_draws
+    got = []
+
+    def run():
+        with sharding.active():
+            got.append(learner.eval_step(batch) if evaluate else
+                       learner.train_step(batch, CAE_DP_FACTOR[kind]))
+
+    calls, sites, worst = {}, {}, {}
+    try:
+        if dtype == torch.float64:
+            for n in names:
+                setattr(cm, n, getattr(cm, n + "_plain"))
+        if "padding" in side:
+            spatial.conv_rows = block_padding(conv_rows)
+        if "draws" in side:
+            aug._cae_draws = local_draws
+        collectives.reset_exchange_counts()
+        if record:
+            calls, sites, worst = cae_recorded(torch, run, grad=not evaluate)
+        else:
+            run()
+            torch.cuda.synchronize()
+        exchanges = dict(collectives.EXCHANGE_COUNTS)
+    finally:
+        for n in names:
+            setattr(cm, n, real[n])
+        spatial.conv_rows, aug._cae_draws = conv_rows, draws
+    metrics = got[0]
+    model = learner._model
+    counts = {k: sum(n for key, n in calls.items() if key[0] == k)
+              for k in CAE_KERNELS}
+    return dict(loss=float(metrics["loss"]),
+                grads={k: p.grad.cpu().double()
+                       for k, p in model.named_parameters()
+                       if p.grad is not None},
+                stats={k: b.cpu().double() for k, b in model.named_buffers()},
+                metrics={k: float(v) for k, v in metrics.items()},
+                calls=counts, sites=sites, worst=worst,
+                exchanges=exchanges), learner, calls
+
+
+def large_spatial_inputs(torch):
+    """Seeded ``LargeUnet3D`` weights (LARGE_CHANNELS) and a global batch
+    of LARGE_SPATIAL_BATCH 116x220x220 patches: images in [0, 4), labels
+    two overlapping balls at the output's 28x132x132."""
+    from stroke_prediction_tpu_torch.models.unet3d import (
+        LargeUnet3D, unet_output_spatial)
+
+    gen = torch.Generator().manual_seed(9)
+    model = LargeUnet3D(LARGE_CHANNELS, generator=gen)
+    images = torch.rand(LARGE_SPATIAL_BATCH, *LARGE_SPATIAL_DHW, 2,
+                        generator=gen) * 4
+    out = unet_output_spatial(LARGE_SPATIAL_DHW, n_scales=4)
+    grid = torch.stack(torch.meshgrid(*(torch.linspace(-1, 1, n)
+                                        for n in out), indexing="ij"))
+    r = grid.pow(2).sum(0).sqrt()
+    labels = torch.stack([r < 0.5, r < 0.8], -1).float()
+    labels = labels[None].expand(LARGE_SPATIAL_BATCH, *labels.shape)
+    return {"state": model.state_dict(), "images": images,
+            "labels": labels.contiguous()}
+
+
+def large_spatial_step(torch, inputs, side, mesh=None):
+    """One ``LargeUnet3D`` training step of ``side`` (float64 with the plain
+    versions of K1-K4, or bfloat16) on this rank's rows and block of H (the
+    whole batch without ``mesh``) -> {loss, grads, stats, metrics,
+    launches, exchanges}."""
+    import types
+
+    from stroke_prediction_tpu_torch.models.unet3d import LargeUnet3D
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+    from stroke_prediction_tpu_torch.parallel import collectives
+    from stroke_prediction_tpu_torch.parallel.mesh import (
+        batch_sharding, shard_batch)
+    from stroke_prediction_tpu_torch.train.optim import make_optimizer
+    from stroke_prediction_tpu_torch.train.unet_learner import (
+        UnetSegmentationLearner)
+
+    dtype = getattr(torch, side)
+    wide = torch.promote_types(dtype, torch.float32)
+    model = LargeUnet3D(LARGE_CHANNELS, compute_dtype=dtype)
+    model.load_state_dict(inputs["state"])
+    model.to("cuda", wide)
+    learner = UnetSegmentationLearner(
+        types.SimpleNamespace(batch_size=LARGE_SPATIAL_BATCH), None, model,
+        make_optimizer(model.parameters(), 1e-3, betas=(0.99, 0.999),
+                       weight_decay=1e-5), None, 1,
+        patch_whd=LARGE_SPATIAL_DHW[::-1], pad_xyz=LARGE_PAD,
+        device=torch.device("cuda", torch.cuda.current_device()), mesh=mesh)
+    local = shard_batch(mesh, {k: inputs[k] for k in ("images", "labels")},
+                        spatial=True)
+    names = ("conv3x3", "conv3x3_bwd_fused", "conv3x3_bwd_dx",
+             "conv3x3_bwd_dw")
+    real = {n: getattr(cm, n) for n in names}
+    try:
+        if dtype == torch.float64:
+            for n in names:
+                setattr(cm, n, getattr(cm, n + "_plain"))
+        reset_launches()
+        collectives.reset_exchange_counts()
+        with batch_sharding(mesh, spatial=True).active():
+            metrics = learner.train_patches(
+                local["images"].contiguous().to("cuda", wide),
+                local["labels"].contiguous().to("cuda", wide))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        exchanges = dict(collectives.EXCHANGE_COUNTS)
+    finally:
+        for n in names:
+            setattr(cm, n, real[n])
+    return dict(loss=float(metrics["loss"]),
+                grads={k: p.grad.cpu().double()
+                       for k, p in model.named_parameters()},
+                stats={k: b.cpu().double() for k, b in model.named_buffers()},
+                metrics={k: float(v) for k, v in metrics.items()},
+                launches=launches, exchanges=exchanges)
+
+
+def k4_hashes(torch, run):
+    """``run()`` with every K4 call's inputs (x, g, y) and outputs (dk, db)
+    hashed (sha1 of their bytes), in call order -> [(shape, input hash,
+    output hash)]."""
+    import hashlib
+
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+
+    real, seen = cm.conv3x3_bwd_dw, []
+
+    def digest(*ts):
+        h = hashlib.sha1()
+        for t in ts:
+            h.update(t.detach().contiguous().view(torch.uint8).cpu()
+                     .numpy().tobytes())
+        return h.hexdigest()
+
+    def k4(x, g, y, *args, **kw):
+        out = real(x, g, y, *args, **kw)
+        torch.cuda.synchronize()
+        seen.append((tuple(x.shape) + (g.shape[-1],), digest(x, g, y),
+                     digest(*out)))
+        return out
+
+    k4.launches = 0
+    cm.conv3x3_bwd_dw = k4
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        cm.conv3x3_bwd_dw = real
+    return seen
+
+
+def repeat_hashes(torch, mesh, dp_inputs, inputs):
+    """(e): the spatial phase's U-Net bfloat16 rank-step and the phase-1
+    bfloat16 CAE rank-step, SPATIAL_REPEATS times each from the same
+    weights and batch, every K4 call hashed -> {name: [runs]}."""
+    out = {}
+    for name, step in (
+            ("unet", lambda: spatial_step(torch, dp_inputs, "bfloat16",
+                                          mesh)),
+            ("cae phase1", lambda: spatial_cae_step(
+                torch, inputs, "phase1", "bfloat16", mesh))):
+        out[name] = [k4_hashes(torch, step) for _ in range(SPATIAL_REPEATS)]
+    return out
+
+
+def spatial_cae_rank(rank, coordinator, inputs_path, outdir):
+    """One rank of the spatial CAE phase, on cuda:0 over gloo: (a) each
+    learner's SPATIAL_CAE_SIDES rank-steps at SPATIAL_CAE_MESH (float32 and
+    bfloat16 recorded), the two controls and phase 1's augmented float64
+    step; (d) the phase-1 bfloat16 rank-step timed; (e) the repeated
+    rank-steps, hashed; (c) the LargeUnet3D steps; (b) eval_step at
+    SPATIAL_CAE_EVAL_MESH -> outdir/rank<rank>.pt."""
+    import torch
+
+    from stroke_prediction_tpu_torch.parallel import distributed
+    from stroke_prediction_tpu_torch.parallel.mesh import (
+        batch_sharding, make_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(coordinator, SPATIAL_WORLD, rank, backend="gloo",
+                           device="cuda")
+    mesh = make_mesh(*SPATIAL_CAE_MESH)
+    paths = torch.load(inputs_path)
+    inputs = torch.load(paths["cae"])
+    out = {"steps": {}, "calls": {}}
+    for kind in CAE_DP_LEARNERS:
+        for side in SPATIAL_CAE_SIDES:
+            torch.cuda.empty_cache()
+            got, _, calls = spatial_cae_step(
+                torch, inputs, kind, side, mesh,
+                record=side != "float64")
+            out["steps"][(kind, side)] = got
+            if calls:
+                out["calls"][(kind, side)] = calls
+    for side in SPATIAL_CAE_CONTROLS:
+        out["steps"][("phase1", side)] = spatial_cae_step(
+            torch, inputs, "phase1", side, mesh)[0]
+    out["steps"][("phase1", "float64, augmented")] = spatial_cae_step(
+        torch, inputs, "phase1", "float64", mesh, augment=True)[0]
+
+    learner = cae_dp_learner(torch, inputs, "phase1", torch.bfloat16, mesh,
+                             os.path.join(tempfile.gettempdir(),
+                                          "spatial_cae_time"),
+                             distances=False)
+    sharding = batch_sharding(mesh, spatial=True)
+    batch = spatial_cae_batch(torch, inputs, "phase1", mesh, torch.bfloat16)
+
+    def step():
+        with sharding.active():
+            learner.train_step(batch, CAE_DP_FACTOR["phase1"])
+
+    out["timing"] = rank_step_times(torch, step)
+    del learner, batch
+    out["repeats"] = repeat_hashes(torch, mesh, torch.load(paths["unet"]),
+                                   inputs)
+    large = torch.load(paths["large"])
+    out["large"] = {side: large_spatial_step(torch, large, side, mesh)
+                    for side in LARGE_SPATIAL_SIDES}
+    del large
+    torch.cuda.empty_cache()
+    eval_mesh = make_mesh(*SPATIAL_CAE_EVAL_MESH)
+    out["eval"] = {"float64": spatial_cae_step(
+        torch, inputs, "phase1", "float64", eval_mesh, evaluate=True)[0]}
+    got, _, calls = spatial_cae_step(torch, inputs, "phase1", "float32",
+                                     eval_mesh, record=True, evaluate=True)
+    out["eval"]["float32"], out["eval_calls"] = got, calls
+    out["device"] = str(torch.cuda.current_device())
+    distributed.shutdown()
+    torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def nan_partials(torch):
+    """``conv3x3._dw_buffers`` with the dW and db partials filled with NaN
+    before the kernel writes them: a partial row that no block writes then
+    reaches dk or db."""
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+
+    real = cm._dw_buffers
+
+    def buffers(*args):
+        dk, db, part, dbp, n = real(*args)
+        part.fill_(float("nan"))
+        dbp.fill_(float("nan"))
+        return dk, db, part, dbp, n
+
+    return real, buffers
+
+
+def kernel_repeats(torch, kernel, key, n):
+    """``n`` launches of K4 (or K2) at a recorded call's ``key`` on fixed
+    inputs, partials NaN before each: every result bit-equal to the first
+    and finite, the first within DW_REL of plain -> max|err| vs plain."""
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+
+    _, b, d, h, w, ci, co, mode, table, act, dname = key
+    dtype = getattr(torch, dname)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(b, d, h, w, ci, device="cuda", generator=gen).to(dtype)
+    k = (torch.randn(3, 3, 3, ci, co, device="cuda", generator=gen)
+         / (27 * ci) ** 0.5).to(dtype)
+    bias = torch.randn(*((cm._out_depth(d, mode), co) if table else (co,)),
+                       device="cuda", generator=gen)
+    y = cm.conv3x3_plain(x, k, bias, act, 0.01, mode).to(dtype)
+    g = torch.randn(y.shape, device="cuda", generator=gen).to(dtype)
+    real, buffers = nan_partials(torch)
+    cm._dw_buffers = buffers
+    try:
+        if kernel == "K4":
+            runs = [cm.conv3x3_bwd_dw(x, g, y, act, 0.01, mode, table)
+                    for _ in range(n)]
+            ref = cm.conv3x3_bwd_dw_plain(x, g, y, act, 0.01, mode, table)
+        else:
+            runs = [cm.conv3x3_bwd_fused(x, g, y, k, act, 0.01, mode,
+                                         table)[1:] for _ in range(n)]
+            ref = cm.conv3x3_bwd_fused_plain(x, g, y, k, act, 0.01, mode,
+                                             table)[1:]
+        torch.cuda.synchronize()
+    finally:
+        cm._dw_buffers = real
+    for i, r in enumerate(runs):
+        if not all(torch.equal(p, q) for p, q in zip(r, runs[0])):
+            raise AssertionError(f"spatial cae: {kernel} {key}: launch {i} "
+                                 f"differs from launch 0")
+    if not all(bool(torch.isfinite(t).all()) for t in runs[0]):
+        raise AssertionError(f"spatial cae: {kernel} {key}: a NaN partial "
+                             f"reached the result")
+    errs = [rel_err(p, q) for p, q in zip(runs[0], ref)]
+    if max(errs) > DW_REL:
+        raise AssertionError(f"spatial cae: {kernel} {key}: {errs} of "
+                             f"max|ref| off plain")
+    return max(float((p - q).abs().max()) for p, q in zip(runs[0], ref))
+
+
+def k4_repeat_check(torch, ranks):
+    """(e) in this process: K4 (bfloat16 and float32) K4_REPEATS times at
+    K4_REPEAT_SHAPE, then K4 and K2 KERNEL_REPEATS times at each of
+    their shapes in the recorded rank-steps, partials NaN before each
+    launch; and the ranks' repeated rank-steps, every K4 call's inputs and
+    outputs equal from run to run -> summary."""
+    b, d, h, w, c = K4_REPEAT_SHAPE
+    res = {"repeat_shape": {}, "shapes": {}, "runs": {}}
+    for dname in ("bfloat16", "float32"):
+        key = ("K4", b, d, h, w, c, c, "v", False, "leaky_relu", dname)
+        res["repeat_shape"][dname] = kernel_repeats(torch, "K4", key,
+                                                  K4_REPEATS)
+    keys = {key for r in ranks for calls in r["calls"].values()
+            for key in calls if key[0] in ("K2", "K4")}
+    for key in sorted(keys, key=str):
+        res["shapes"][key] = kernel_repeats(torch, key[0], key,
+                                            KERNEL_REPEATS)
+    for r, got in enumerate(ranks):
+        for name, runs in got["repeats"].items():
+            first = runs[0]
+            for i, run in enumerate(runs[1:], 1):
+                if len(run) != len(first):
+                    raise AssertionError(f"spatial cae: rank {r} {name}: "
+                                         f"run {i} has {len(run)} K4 calls, "
+                                         f"run 0 {len(first)}")
+                for j, (a, bb) in enumerate(zip(first, run)):
+                    if a[1] != bb[1]:
+                        raise AssertionError(
+                            f"spatial cae: rank {r} {name}: run {i}'s K4 "
+                            f"call {j} at {a[0]} had other inputs than run "
+                            f"0's")
+                    if a[2] != bb[2]:
+                        raise AssertionError(
+                            f"spatial cae: rank {r} {name}: run {i}'s K4 "
+                            f"call {j} at {a[0]} gave another result on "
+                            f"the same inputs")
+            res["runs"][(r, name)] = len(first) * len(runs)
+    n_launches = (2 * K4_REPEATS + KERNEL_REPEATS * len(keys)
+                  + sum(res["runs"].values()))
+    print(f"spatial cae: (e) K4 repeat check: {K4_REPEATS} launches a type "
+          f"at {K4_REPEAT_SHAPE} (C_out {c}) bit-equal, partials NaN before "
+          f"each, max|err| vs plain {res['repeat_shape']}; K2 / K4 at "
+          f"{len(keys)} rank-step shapes x {KERNEL_REPEATS} bit-equal; "
+          f"{SPATIAL_REPEATS} runs of each rank's U-Net and CAE rank-step: "
+          f"every K4 call's inputs and outputs equal ({res['runs']} calls); "
+          f"{n_launches} launches in all")
+    res["launches"] = n_launches
+    return res
+
+
+def spatial_cae_phase(torch, work, dp, cae_dp):
+    """(a)-(e) on the CAE data-parallel phase's inputs and one-process card
+    steps (and the data-parallel phase's U-Net inputs for (e))."""
+    one, path = cae_dp["one"], cae_dp["inputs"]
+    inputs = torch.load(path)
+    # one-process references this phase adds: phase 1's augmented float64
+    # step, the trained CAE's eval_step, and the LargeUnet3D steps
+    one[("phase1", "float64, augmented")] = spatial_cae_step(
+        torch, inputs, "phase1", "float64", augment=True)[0]
+    ev_one = {"float64": spatial_cae_step(torch, inputs, "phase1", "float64",
+                                          evaluate=True)[0],
+              "float32": spatial_cae_step(torch, inputs, "phase1", "float32",
+                                          evaluate=True)[0]}
+    large = large_spatial_inputs(torch)
+    large_path = os.path.join(work, "spatial_large_inputs.pt")
+    torch.save(large, large_path)
+    large_one = {side: large_spatial_step(torch, large, side)
+                 for side in LARGE_SPATIAL_SIDES}
+    del large
+    paths = os.path.join(work, "spatial_cae_inputs.pt")
+    torch.save({"cae": path, "unet": dp["inputs"], "large": large_path},
+               paths)
+    ranks = run_ranks(torch, spatial_cae_rank, paths,
+                      os.path.join(work, "spatial_cae_ranks"), "spatial cae",
+                      world=SPATIAL_WORLD)
+
+    res = {"ranks": [], "one_process_vs_f64": cae_dp["one_process_vs_f64"]}
+    sites_want = {(CAE_DP_BATCH // SPATIAL_CAE_MESH[0], *CAE_DHW):
+                  CAE_EDT_PER_CASE}
+    for r, got in enumerate(ranks):
+        entry = {"vs_f64": {}, "calls": {}}
+        for kind in CAE_DP_LEARNERS:
+            f64 = one[(kind, "float64")]
+            d = {side: dp_distance(got["steps"][(kind, side)], f64,
+                                   cae_dp_layer_of)
+                 for side in SPATIAL_CAE_SIDES}
+            if kind == "phase1":
+                d.update({side: dp_distance(got["steps"][("phase1", side)],
+                                            f64, cae_dp_layer_of)
+                          for side in SPATIAL_CAE_CONTROLS[:1]})
+                aug = one[("phase1", "float64, augmented")]
+                for side in ("float64, augmented", SPATIAL_CAE_CONTROLS[1]):
+                    d[side] = dp_distance(got["steps"][("phase1", side)],
+                                          aug, cae_dp_layer_of)
+            for side, dd in d.items():
+                print(f"spatial cae: {kind} rank {r} {side} vs the "
+                      f"one-process float64 step: {dd}")
+            for side in ("float64", "float64, augmented"):
+                if side not in d:
+                    continue
+                dd = d[side]
+                if (max(dd["loss"], dd["element"], dd["layer"], dd["stats"])
+                        > SPATIAL_F64_REL or dd["metrics"] > DP_F64_REL
+                        or dd["assd"] > DP_ASSD_REL):
+                    raise AssertionError(f"spatial cae: {kind} rank {r}'s "
+                                         f"{side} step is off the "
+                                         f"one-process step: {dd}")
+            for side in SPATIAL_CAE_CONTROLS if kind == "phase1" else ():
+                if d[side]["element"] <= SPATIAL_F64_REL:
+                    raise AssertionError(f"spatial cae: rank {r}: the "
+                                         f"control '{side}' passes: "
+                                         f"{d[side]}")
+            want = cae_dp_want(kind)
+            one_f64 = cae_dp["one_process_vs_f64"][kind]
+            for side in SPATIAL_CAE_SIDES[1:]:
+                limit = {m: DP_FACTOR * one_f64[side][m] + DP_FLOOR
+                         for m in ("loss", "element", "layer", "stats")}
+                over = {m: d[side][m] for m in limit if d[side][m] > limit[m]}
+                step = got["steps"][(kind, side)]
+                print(f"spatial cae: {kind} rank {r} {side}: limits {limit};"
+                      f" calls {step['calls']} (one process, route rule "
+                      f"{want}), edt_sites {step['sites']}; max|err| vs "
+                      f"plain {step['worst']}; exchanges "
+                      f"{step['exchanges']}")
+                if over:
+                    print(f"spatial cae: {kind} {side} rank {r}: worst "
+                          f"layers {layer_errors(step, f64, cae_dp_layer_of)[:6]}")
+                    raise AssertionError(f"spatial cae: {kind} rank {r} "
+                                         f"{side} beyond {limit}: {over}")
+                if step["calls"] != {k: want.get(k, 0) for k in CAE_KERNELS} \
+                        or step["sites"] != sites_want:
+                    raise AssertionError(f"spatial cae: {kind} rank {r} "
+                                         f"{side}: calls {step['calls']}, "
+                                         f"edt_sites {step['sites']}")
+            entry["vs_f64"][kind] = {s: {m: v[m] for m in (
+                "loss", "element", "layer", "stats", "metrics", "assd")}
+                for s, v in d.items()}
+            entry["calls"][kind] = got["steps"][(kind, "bfloat16")]["calls"]
+        ex = got["steps"][("phase1", "bfloat16")]["exchanges"]
+        t = got["timing"]
+        print(f"spatial cae: rank {r} phase-1 bfloat16 rank-step (rows "
+              f"{CAE_DP_BATCH // SPATIAL_CAE_MESH[0]} a rank, H "
+              f"{CAE_DHW[1]} over {SPATIAL_CAE_MESH[1]}, {SPATIAL_WORLD} "
+              f"ranks on the one card, augmentation on): "
+              f"{t['step_ms']:.3f} ms; instrumented "
+              f"{t['instrumented_ms']:.3f} ms, of it exchange_rows "
+              f"{t['exchange_ms']:.3f} ms ({t['exchange_calls']:.0f} "
+              f"transfers) and all_reduce {t['collective_ms']:.3f} ms "
+              f"({t['calls']:.0f} calls); {ex['exchanges']} exchanges + "
+              f"{ex['adjoints']} adjoints a step, {ex['bytes']} bytes "
+              f"received against {ex['all_gather_bytes']} for an all-gather "
+              f"of the same tensors")
+        entry.update(timing=t, exchanges=ex, recorded={
+            side: {k: max(got["steps"][(kind, side)]["worst"][k]
+                          for kind in CAE_DP_LEARNERS) for k in CAE_KERNELS}
+            for side in SPATIAL_CAE_SIDES[1:]})
+
+        # (b) eval at SPATIAL_CAE_EVAL_MESH
+        for dname, ev in got["eval"].items():
+            ref = ev_one[dname]["metrics"]
+            gap = {k: abs(ev["metrics"][k] - v) / max(abs(v), 1e-30)
+                   for k, v in ref.items() if math.isfinite(v)}
+            hd = {k: (ev["metrics"][k], v) for k, v in ref.items()
+                  if k.endswith("_hd")}
+            print(f"spatial cae: rank {r} {dname} eval_step at "
+                  f"{SPATIAL_CAE_EVAL_MESH} vs one process: worst relative "
+                  f"gap {max(gap.values()):.3e} ({max(gap, key=gap.get)}); "
+                  f"HD (rank, one process) {hd}; exchanges "
+                  f"{ev['exchanges']}")
+            if dname == "float64":
+                if any(a != b for a, b in hd.values()) or not all(
+                        math.isfinite(b) for _, b in hd.values()):
+                    raise AssertionError(f"spatial cae: rank {r}: float64 "
+                                         f"HD at {SPATIAL_CAE_EVAL_MESH} "
+                                         f"not bit-equal to one process: "
+                                         f"{hd}")
+                if max(v for k, v in gap.items()
+                       if not k.endswith("_assd")) > DP_F64_REL or max(
+                           v for k, v in gap.items()
+                           if k.endswith("_assd")) > DP_ASSD_REL:
+                    raise AssertionError(f"spatial cae: rank {r}: float64 "
+                                         f"eval measures off one process: "
+                                         f"{gap}")
+        entry["eval"] = {dname: ev["metrics"]
+                         for dname, ev in got["eval"].items()}
+        ev_calls = {k: sum(n for key, n in got["eval_calls"].items()
+                           if key[0] == k) for k in CAE_KERNELS}
+        if ev_calls["K1"] != cae_step_launches()["K1"]:
+            raise AssertionError(f"spatial cae: rank {r} eval K1 calls "
+                                 f"{ev_calls}")
+        entry["eval_k1"] = ev_calls["K1"]
+        entry["eval_edt"] = got["eval"]["float32"]["sites"]
+
+        # (c) LargeUnet3D at SPATIAL_CAE_MESH
+        lf64 = large_one["float64"]
+        ld = {side: dp_distance(got["large"][side], lf64)
+              for side in LARGE_SPATIAL_SIDES}
+        one_bf16 = dp_distance(large_one["bfloat16"], lf64)
+        limit = {m: DP_FACTOR * one_bf16[m] + DP_FLOOR
+                 for m in ("loss", "element", "layer", "stats")}
+        print(f"spatial cae: rank {r} LargeUnet3D {LARGE_SPATIAL_DHW} "
+              f"float64 vs one process {ld['float64']}; bfloat16 vs float64 "
+              f"{ld['bfloat16']} (one process {one_bf16}, limits {limit}); "
+              f"launches {got['large']['bfloat16']['launches']} (one process"
+              f" {large_one['bfloat16']['launches']}); exchanges "
+              f"{got['large']['bfloat16']['exchanges']}")
+        f = ld["float64"]
+        if max(f["loss"], f["element"], f["layer"], f["stats"],
+               f["metrics"]) > DP_F64_REL:
+            raise AssertionError(f"spatial cae: rank {r} LargeUnet3D float64 "
+                                 f"off one process: {f}")
+        over = {m: ld["bfloat16"][m] for m in limit
+                if ld["bfloat16"][m] > limit[m]}
+        if over or got["large"]["bfloat16"]["launches"] != \
+                large_one["bfloat16"]["launches"]:
+            raise AssertionError(f"spatial cae: rank {r} LargeUnet3D "
+                                 f"bfloat16 beyond {limit}: {over}, or "
+                                 f"launches differ")
+        entry["large"] = {s: {m: v[m] for m in ("loss", "element", "layer",
+                                                 "stats")}
+                          for s, v in ld.items()}
+        res["ranks"].append(entry)
+
+    for kind in CAE_DP_LEARNERS:
+        for side in SPATIAL_CAE_SIDES:
+            a = ranks[0]["steps"][(kind, side)]
+            for b in ranks[1:]:
+                b = b["steps"][(kind, side)]
+                if a["loss"] != b["loss"] or any(
+                        not torch.equal(a["grads"][k], b["grads"][k])
+                        for k in a["grads"]):
+                    raise AssertionError(f"spatial cae: {kind} {side}: the "
+                                         f"ranks' losses or gradients "
+                                         f"differ")
+    res["repeat"] = k4_repeat_check(torch, ranks)
+    res["times"] = {dname: cae_step_kernel_times(
+        torch, ranks[0]["calls"][("phase1", dname)], cae_dp_want("phase1"),
+        f"spatial cae: phase 1 rank-step ({dname})")
+        for dname in ("bfloat16", "float32")}
+    return res
 
 
 def main():
@@ -6200,6 +7075,16 @@ def main():
     if log.exists():
         print(log.read_text().strip())
 
+    start_witnesses()
+    try:
+        return run_phases(torch)
+    finally:
+        stop_witnesses()
+
+
+def run_phases(torch):
+    """The phases after the kernel build, the CPU witnesses' checks, the
+    summary lines, the kernels line and the last line."""
     phase_s = {}
 
     def timed(name, phase, *args):
@@ -6224,7 +7109,10 @@ def main():
         dp = timed("data parallel", dp_phase, work)
         spatial = timed("spatial", spatial_phase, work, dp)
         cae_dp = timed("cae data parallel", cae_dp_phase, work)
+        spatial_cae = timed("spatial cae", spatial_cae_phase, work, dp,
+                            cae_dp)
         grouped = timed("cae grouped", cae_grouped_phase, work)
+        timed("cpu witnesses (waited for)", resolve_witnesses)
 
     def per_step(key, dtype="bfloat16"):
         """Sums over the layers whose route runs ``key`` in one step."""
@@ -6408,6 +7296,41 @@ def main():
                        f"every call of a float32 and a bfloat16 rank-step "
                        f"on every rank vs plain"}
 
+    def spatial_cae_use(key):
+        """A kernel's use on the spatial CAE path: each learner's launches
+        a bfloat16 rank-step (rank 0; every rank's equal one process's),
+        its largest error against plain over every call of the four
+        learners' float32 and bfloat16 rank-steps on every rank, per
+        phase-1 rank-step at rank 0's shapes the layers' sums (both
+        types), and K4's and K2's repeat checks."""
+        use = {"launches_per_rank_step": {
+                   kind: spatial_cae["ranks"][0]["calls"][kind][key]
+                   for kind in CAE_DP_LEARNERS},
+               **{side: dict({f: spatial_cae["times"][side][key][f]
+                              for f in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by", "gflop")},
+                             max_abs_err=max(
+                                 r["recorded"][side][key]
+                                 for r in spatial_cae["ranks"]))
+                  for side in ("bfloat16", "float32")},
+               "per": f"one phase-1 training step of one rank at {{data: "
+                      f"{SPATIAL_CAE_MESH[0]}, space: {SPATIAL_CAE_MESH[1]}"
+                      f"}} (global batch {CAE_DP_BATCH}, 28x128x128, rank "
+                      f"0's rows and block of H with its halo rows): each "
+                      f"layer's time times its calls; max_abs_err: every "
+                      f"call of the four learners' float32 and bfloat16 "
+                      f"rank-steps on every rank vs plain"}
+        rep = spatial_cae["repeat"]
+        if key == "K4":
+            use["repeat_check"] = {
+                "launches": rep["launches"],
+                "repeat_shape_max_abs_err": rep["repeat_shape"],
+                "per": f"{K4_REPEATS} launches a type at {K4_REPEAT_SHAPE} "
+                       f"and {KERNEL_REPEATS} at each K2 / K4 rank-step "
+                       f"shape, partials NaN before each, bit-equal; the "
+                       f"rank-steps' K4 calls over {SPATIAL_REPEATS} runs"}
+        return use
+
     def grouped_use(key):
         """A kernel's use on the grouped CAE path (structure batching on):
         its launches in one unrecorded phase-1 step, per step in each type
@@ -6490,6 +7413,7 @@ def main():
              cae_prediction=learner_use("K1", "prediction"),
              cae_ctp=ctp_use("K1"), large_unet=large_use("K1"),
              data_parallel=dp_use("K1"), spatial=spatial_use("K1"),
+             spatial_cae=spatial_cae_use("K1"),
              cae_data_parallel=cae_dp_use(cae_dp, "K1"),
              cae_grouped=grouped_use("K1")),
         dict({"name": "conv3x3_bwd_fused", "route": "cuda",
@@ -6506,6 +7430,7 @@ def main():
                         "the entry is over FUSED_DW_BYTES (split route), "
                         "the entry conv takes dW only"},
              data_parallel=dp_use("K2"), spatial=spatial_use("K2"),
+             spatial_cae=spatial_cae_use("K2"),
              cae_data_parallel=cae_dp_use(cae_dp, "K2"),
              cae_grouped=grouped_use("K2")),
         dict({"name": "conv3x3_bwd_dx", "route": "cuda",
@@ -6519,6 +7444,7 @@ def main():
              cae_prediction=learner_use("K3", "prediction"),
              cae_ctp=ctp_use("K3"), large_unet=large_use("K3"),
              data_parallel=dp_use("K3"), spatial=spatial_use("K3"),
+             spatial_cae=spatial_cae_use("K3"),
              cae_data_parallel=cae_dp_use(cae_dp, "K3"),
              cae_grouped=grouped_use("K3")),
         dict({"name": "conv3x3_bwd_dw", "route": "cuda",
@@ -6531,6 +7457,7 @@ def main():
              cae_prediction=learner_use("K4", "prediction"),
              cae_ctp=ctp_use("K4"), large_unet=large_use("K4"),
              data_parallel=dp_use("K4"), spatial=spatial_use("K4"),
+             spatial_cae=spatial_cae_use("K4"),
              cae_data_parallel=cae_dp_use(cae_dp, "K4"),
              cae_grouped=grouped_use("K4")),
         {"name": "edt_sites", "route": "cuda",
@@ -6608,6 +7535,16 @@ def main():
                     f"validation steps, {EDT_PER_STEP} a case or step; "
                     f"every call of one tester case at (1, 28, 132, 132) "
                     f"vs plain (equal)"},
+         "spatial_cae": {
+             "launches_per_rank_step": CAE_EDT_PER_CASE,
+             "eval_launches_per_rank": [
+                 sum(r["eval_edt"].values()) for r in spatial_cae["ranks"]],
+             "max_abs_err": 0.0,
+             "per": f"each rank's CAE training steps and eval_step at "
+                    f"{SPATIAL_CAE_EVAL_MESH}: the masks' whole H gathered, "
+                    f"{CAE_EDT_PER_CASE} calls on the global volume of the "
+                    f"rank's rows; every call on its own masks vs plain "
+                    f"(equal)"},
          "data_parallel": {
              "launches": dp["cli"]["launches"]["edt_sites"],
              "launches_per_step_per_rank": [
@@ -6754,6 +7691,22 @@ def main():
           + f"; forward at {SPATIAL_FORWARD_MESH} "
           f"{spatial['forward']['rel_err']:.3e} of max|ref| off one process "
           f"(bit-equal {spatial['forward']['bit_equal']})")
+    print(f"spatial cae (the CAE learners, their eval and LargeUnet3D, "
+          f"{SPATIAL_WORLD} gloo ranks on the one card): " + "; ".join(
+              f"rank {i} {SPATIAL_CAE_MESH} float64 vs one process "
+              + ", ".join(f"{kind} {v['float64']['element']:.3e}"
+                          for kind, v in r["vs_f64"].items())
+              + f"; phase-1 bfloat16 rank-step {r['timing']['step_ms']:.3f} "
+              f"ms (exchange_rows {r['timing']['exchange_ms']:.3f}, "
+              f"all_reduce {r['timing']['collective_ms']:.3f} of "
+              f"{r['timing']['instrumented_ms']:.3f} ms instrumented), "
+              f"{r['exchanges']['exchanges']} + {r['exchanges']['adjoints']}"
+              f" exchanges, {r['exchanges']['bytes']} bytes (all-gather "
+              f"{r['exchanges']['all_gather_bytes']}); LargeUnet3D "
+              f"{r['large']}"
+              for i, r in enumerate(spatial_cae["ranks"]))
+          + f"; K4 repeat check {spatial_cae['repeat']['launches']} "
+          f"launches bit-equal")
     gv, gt, gr = grouped["vs_f64"], grouped["testers"], grouped["ranks"]
     print(f"CAE grouped (STROKE_TPU_CAE_BATCH=1): float32 step vs float64 "
           f"(of its layer's largest gradient) grouped "

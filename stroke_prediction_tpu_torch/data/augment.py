@@ -23,6 +23,10 @@ learners' draws are those of the global batch: every rank draws the flip
 mask and the noise for all its rows, takes its own rows of them and blurs
 only those, so N ranks deform what one process deforms and every rank's
 generator stays in step (as ``train/unet_learner.py`` draws its crops).
+Under a spatial step (H sharded) the noise is that of the global volume;
+each rank blurs its samples' fields over the whole H and keeps its block,
+and the warp fetches the rows its points read (``ops/warp.py``).  The
+flip is along W and stays local.
 
 Layouts: batch volumes ``(B, D, H, W, C)``; patch and pad are given in the
 reference's (x, y, z) = (W, H, D) order.
@@ -36,6 +40,7 @@ import torch
 
 from stroke_prediction_tpu_torch.ops.warp import (
     elastic_fields, elastic_noise, map_coordinates_batch)
+from stroke_prediction_tpu_torch.parallel import spatial
 from stroke_prediction_tpu_torch.parallel.mesh import current
 
 
@@ -92,7 +97,8 @@ def hemispheric_flip(volumes: torch.Tensor,
     """(B, D, H, W, C) volumes with the samples where ``flip`` holds
     mirrored along the hemispheric (X = W) axis."""
     cond = flip.reshape((-1,) + (1,) * (volumes.ndim - 1))
-    return torch.where(cond, torch.flip(volumes, dims=(-2,)), volumes)
+    return spatial.like(torch.where(cond, torch.flip(volumes, dims=(-2,)),
+                                    volumes), volumes)
 
 
 def elastic_deform_batch(labels: torch.Tensor,
@@ -101,25 +107,37 @@ def elastic_deform_batch(labels: torch.Tensor,
     fields of :func:`ops.warp.elastic_fields`, one field shared by a
     sample's channels: each voxel p reads ``labels(p + field(p))``
     trilinearly, zero outside.  Phase 2 warps its images by the same call
-    on the same fields (the JAX ``apply_to_images=True``)."""
+    on the same fields (the JAX ``apply_to_images=True``).  Under a
+    spatial step ``labels`` and ``fields`` are this rank's block of H, p
+    is global, and the rows the points read come from their owners."""
     _, d, h, w, _ = labels.shape
-    grid = torch.meshgrid(*(torch.arange(n, dtype=fields.dtype,
+    lo, hi = (0, h)
+    if spatial.active():
+        lo, hi = spatial.own_block(spatial.height(labels))
+    grid = torch.meshgrid(*(torch.arange(a, n, dtype=fields.dtype,
                                          device=fields.device)
-                            for n in (d, h, w)), indexing="ij")
-    return map_coordinates_batch(labels, torch.stack(grid)[None] + fields)
+                            for a, n in ((0, d), (lo, hi), (0, w))),
+                          indexing="ij")
+    return spatial.like(map_coordinates_batch(
+        labels, torch.stack(grid)[None] + fields), labels)
 
 
 def _cae_draws(generator: torch.Generator, labels: torch.Tensor):
     """One flip mask and one displacement field per sample of ``labels``:
     drawn for the running step's global batch, this rank's rows of them.
     The blur runs a sample at a time, so that a sample's field is the same
-    bits however many rows a rank holds."""
+    bits however many rows a rank holds.  Under a spatial step the noise
+    is drawn, and a sample's field blurred, over the global H, and this
+    rank keeps its block of H of the fields."""
     sharding = current()
     n = sharding.global_size(labels.shape[0])
     flip = random_flip_mask(generator, n)
-    noise = elastic_noise(generator, n, tuple(labels.shape[1:4]),
+    noise = elastic_noise(generator, n, spatial.spatial_shape(labels),
                           labels.dtype)
     fields = torch.stack([elastic_fields(x) for x in sharding.take(noise)])
+    if sharding.spatial:
+        lo, hi = spatial.own_block(noise.shape[3])
+        fields = fields[:, :, :, lo:hi].contiguous()
     return sharding.take(flip), fields
 
 

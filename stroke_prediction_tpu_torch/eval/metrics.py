@@ -9,13 +9,18 @@ loss, :func:`monotonicity_hinge` and :func:`binary_measures` are those of
 the global batch: their sums (the Dice's three, the hinge's, the measures'
 counts and distance sums, the distance maximum) are reduced over the ranks
 before any ratio is formed.  Under H sharding each rank sums its own rows
-of H (the labels cut by the same block rule as the outputs); HD and ASSD
-are refused there.
+of H (the labels cut by the same block rule as the outputs).  HD and ASSD
+need the whole volume (a surface voxel's neighbours, the EDT's pass along
+H): every rank fetches the thresholded masks' whole H as uint8 (the one
+all-gather of a spatial step, counted by the exchange counters), runs the
+surface and the EDT on the global volume, and counts only the surface
+voxels of its own rows, so that the ranks' sums add disjoint parts and the
+maximum is the global one.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,12 +78,15 @@ def _surface6(mask: torch.Tensor) -> torch.Tensor:
     return c & ~eroded
 
 
-def _surface_distance_stats(a: torch.Tensor, b: torch.Tensor):
+def _surface_distance_stats(a: torch.Tensor, b: torch.Tensor,
+                            rows: Tuple[int, Optional[int]] = (0, None)):
     """(max, sum, count) per volume, each (N,), of the distances from
-    surface(a) to surface(b); a, b: (N, D, H, W) bool.  The EDT runs once
-    for all N volumes (two K5 kernel launches on the card)."""
-    sa = _surface6(a)
-    dist_to_b = edt_to_sites(_surface6(b), axes=(1, 2, 3))
+    surface(a) to surface(b) at the surface voxels of H rows ``rows``
+    (``[lo, hi)``, all by default); a, b: (N, D, H, W) bool.  The EDT runs
+    once for all N volumes (two K5 kernel launches on the card)."""
+    lo, hi = rows
+    sa = _surface6(a)[:, :, lo:hi]
+    dist_to_b = edt_to_sites(_surface6(b), axes=(1, 2, 3))[:, :, lo:hi]
     d = torch.where(sa, dist_to_b, torch.zeros_like(dist_to_b))
     axes = (1, 2, 3)
     return torch.amax(d, axes), torch.sum(d, axes), torch.sum(sa, axes)
@@ -108,14 +116,16 @@ def _measure_sums(r: torch.Tensor, t: torch.Tensor, n: int,
             "fn": torch.sum((1 - rf) * tf, 1),
             "tn": torch.sum((1 - rf) * (1 - tf), 1)}
     if with_distances:
+        rows: Tuple[int, Optional[int]] = (0, None)
         if spatial.active():
-            raise NotImplementedError("HD / ASSD under H sharding (the EDT "
-                                      "along H) are not ported")
+            rows = spatial.own_block(spatial.height(r))
+            r, t = (spatial.whole(spatial.like(m.to(torch.uint8), m)).bool()
+                    for m in (r, t))
         r3, t3 = _to_b3(r), _to_b3(t)
         m1, s1, n1 = (v.reshape(n, -1) for v in
-                      _surface_distance_stats(r3, t3))
+                      _surface_distance_stats(r3, t3, rows))
         m2, s2, n2 = (v.reshape(n, -1) for v in
-                      _surface_distance_stats(t3, r3))
+                      _surface_distance_stats(t3, r3, rows))
         sums.update(dmax=torch.maximum(m1.amax(1), m2.amax(1)),
                     dsum=s1.sum(1) + s2.sum(1),
                     dcount=(n1.sum(1) + n2.sum(1)).float())

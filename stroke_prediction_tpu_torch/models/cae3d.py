@@ -31,6 +31,13 @@ encoder's and the decoder's entry on (the encoder's entry BN takes its
 moments of the input as given, as the JAX package's ``BatchNorm`` does of
 its float32 input, and the entry conv its cast); parameters, BN statistics
 and the sigmoid's output stay float32.
+
+Under a spatial step (``parallel.mesh.batch_sharding(mesh,
+spatial=True)``) the same code runs on this rank's block of H of the
+masks (and of the padded CBV and TTD images, by their own block rule):
+each conv, transposed conv and crop fetches the rows it reads from their
+owners (``parallel/spatial.py``), and every latent and reconstruction is
+this rank's block of the one-process one.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from stroke_prediction_tpu_torch.models.layers import (
     BatchNorm, BnConvActBlock, Conv3d, ConvTranspose3d, Dense,
     check_compute_dtype)
 from stroke_prediction_tpu_torch.ops.conv3x3 import activation
+from stroke_prediction_tpu_torch.parallel import spatial
 
 
 def elu(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
@@ -78,11 +86,12 @@ def _run_many(trunk: nn.Module, xs: List[Optional[torch.Tensor]]
     sizes = [xs[i].shape[0] for i in present]
     if trunk.training and len(set(sizes)) > 1:
         raise ValueError(f"grouped BN needs equal batches, got {sizes}")
-    parts = trunk(torch.cat([xs[i] for i in present]),
-                  groups=len(present)).split(sizes)
+    stacked = spatial.like(torch.cat([xs[i] for i in present]),
+                           xs[present[0]])
+    y = trunk(stacked, groups=len(present))
     out: List[Optional[torch.Tensor]] = [None] * len(xs)
-    for i, part in zip(present, parts):
-        out[i] = part
+    for i, part in zip(present, y.split(sizes)):
+        out[i] = spatial.like(part, y)
     return out
 
 
@@ -107,7 +116,8 @@ def interpolate_latent(latent_core: Optional[torch.Tensor],
     if step is None:
         raise ValueError("Step must be given for interpolation!")
     s = step.reshape(step.shape[0], 1, 1, 1, 1).to(latent_core.dtype)
-    return latent_core + s * (latent_penu - latent_core)
+    return spatial.like(latent_core + s * (latent_penu - latent_core),
+                        latent_core)
 
 
 def _reset(module: nn.Module, generator: Optional[torch.Generator]) -> None:
@@ -190,17 +200,18 @@ class DecoderStack(nn.Module):
     def forward(self, z: torch.Tensor, groups: int = 1) -> torch.Tensor:
         """The reconstructions of z; ``groups`` equal blocks of rows take
         their own BN statistics in training."""
-        x = z.to(self.compute_dtype)
+        x = spatial.like(z.to(self.compute_dtype), z)
         last = len(self.ORDER) - 1
         for n, ((kind, i), bn) in enumerate(zip(self.ORDER, self.bns)):
             x = bn(x, groups)
             if kind == "ct":
-                x = elu(self.cts[i](x), self.alpha)
+                y = self.cts[i](x)
+                x = spatial.like(elu(y, self.alpha), y)
             else:
                 x = self.convs[i](x, "none" if n == last else "elu",
                                   self.alpha)
-        return torch.sigmoid(x.to(torch.promote_types(x.dtype,
-                                                      torch.float32)))
+        return spatial.like(torch.sigmoid(x.to(torch.promote_types(
+            x.dtype, torch.float32))), x)
 
 
 class Enc3D(nn.Module):
@@ -315,6 +326,12 @@ class Enc3DCtp(Enc3D):
         given = dto.given_variables
 
         def crop(v):
+            if spatial.active():
+                # the images' own blocks of H, cropped to the masks' blocks
+                h = spatial.height(v)
+                v = spatial.crop_rows(v, h, h - 2 * ph, ph)
+                return spatial.like(
+                    v[:, pd:v.shape[1] - pd, :, pw:v.shape[3] - pw], v)
             return v[:, pd:v.shape[1] - pd, ph:v.shape[2] - ph,
                      pw:v.shape[3] - pw]
 
@@ -322,7 +339,8 @@ class Enc3DCtp(Enc3D):
         latents = dto.latents
         if branches.gtruth:
             core, penu, lesion = self._encode_many([
-                None if m is None else torch.cat([m, cbv, ttd], dim=-1)
+                None if m is None else spatial.like(
+                    torch.cat([m, cbv, ttd], dim=-1), cbv)
                 for m in (given.gtruth.core, given.gtruth.penu,
                           given.gtruth.lesion)])
             latents = replace(latents, gtruth=replace(

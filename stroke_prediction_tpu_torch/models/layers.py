@@ -13,8 +13,9 @@ kernel's epilogue, as on the JAX package's s2d path.  Where the conv's
 padding holds BN outputs in H or W, or the conv has stride 2, or BN is
 grouped (per-structure statistics of a stacked batch, in training), BN is
 applied to its input instead.  The stride-2 and transposed convs are
-cuDNN's, with its deterministic algorithms.  In training the fold uses the
-batch statistics, so the conv's kernel and bias
+cuDNN's, with its deterministic algorithms.  Under H sharding every layer
+runs on this rank's block of H (``parallel/spatial.py``).  In training the
+fold uses the batch statistics, so the conv's kernel and bias
 gradients flow back through the fold to BN's ``scale`` / ``bias`` and,
 through the batch mean and variance, to the input.
 """
@@ -98,28 +99,37 @@ class Conv3d(_ConvParams):
           its epilogue.
         * stride 2: cuDNN's conv in float32 (the JAX package runs it as
           XLA convs, a stride-1 conv sliced), then bias and activation.
+
+        Under H sharding a 3^3 conv runs on the rows its block of the
+        output reads, fetched from their owners with the H padding added
+        at the volume's edges alone (``parallel.spatial.conv_rows``), and
+        with no H padding of its own; a 1^3 conv on the block as it is.
         """
-        if self.kernel.shape[0] != 1 and spatial.active():
-            raise NotImplementedError("a bare 3^3 conv under H sharding is "
-                                      "not ported")
         if self.kernel.shape[0] == 1:
             acc = torch.promote_types(x.dtype, torch.float32)
             k = self.kernel[0, 0, 0].to(x.dtype).to(acc)
             y = torch.matmul(x.to(acc), k) + self.bias.to(acc)
-            return activation(y, act, alpha).to(x.dtype)
+            return spatial.like(activation(y, act, alpha).to(x.dtype), x)
         pd, ph, pw = self.pads
+        h = None
+        if spatial.active():
+            x, h = spatial.conv_rows(x, spatial.height(x), self.strides[1],
+                                     ph)
+            ph = 0
         if self.strides == (1, 1, 1):
             if ph or pw:
                 x = F.pad(x, (0, 0, pw, pw, ph, ph))
-            return Conv3x3Fn.apply(x.contiguous(), self.kernel, self.bias,
-                                   act, alpha, "s" if pd else "v")
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
-                                        deterministic=True):
-            y = F.conv3d(x.permute(0, 4, 1, 2, 3),
-                         self.kernel.to(x.dtype).permute(4, 3, 0, 1, 2),
-                         stride=self.strides, padding=self.pads)
-        return activation(y.permute(0, 2, 3, 4, 1) + self.bias.to(x.dtype),
-                          act, alpha)
+            y = Conv3x3Fn.apply(x.contiguous(), self.kernel, self.bias,
+                                act, alpha, "s" if pd else "v")
+        else:
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                            deterministic=True):
+                y = F.conv3d(x.permute(0, 4, 1, 2, 3),
+                             self.kernel.to(x.dtype).permute(4, 3, 0, 1, 2),
+                             stride=self.strides, padding=(pd, ph, pw))
+            y = activation(y.permute(0, 2, 3, 4, 1) + self.bias.to(x.dtype),
+                           act, alpha)
+        return y if h is None else spatial.record(y, h)
 
 
 class ConvTranspose3d(_ConvParams):
@@ -129,7 +139,11 @@ class ConvTranspose3d(_ConvParams):
     The kernel keeps the JAX layout ``(kD, kH, kW, C_in, C_out)``.  JAX's
     ``lax.conv_transpose`` (``transpose_kernel=False``) does not flip it and
     torch's ``conv_transpose3d`` does, so cuDNN gets it flipped on its
-    three spatial axes and laid out ``(C_in, C_out, kD, kH, kW)``."""
+    three spatial axes and laid out ``(C_in, C_out, kD, kH, kW)``.
+
+    Under H sharding it runs on the input rows that its block of the output
+    sums (``parallel.spatial.transposed_rows``) and keeps its block's rows
+    of the result."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Tuple[int, int, int] = (3, 3, 3),
@@ -138,15 +152,20 @@ class ConvTranspose3d(_ConvParams):
         self.strides = tuple(strides)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = None
         if spatial.active():
-            raise NotImplementedError("a transposed conv under H sharding is "
-                                      "not ported")
+            x, h, offset = spatial.transposed_rows(
+                x, spatial.height(x), self.kernel.shape[1], self.strides[1])
         w = self.kernel.to(x.dtype).flip(0, 1, 2).permute(3, 4, 0, 1, 2)
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
                                         deterministic=True):
             y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w,
                                    stride=self.strides)
-        return y.permute(0, 2, 3, 4, 1) + self.bias.to(x.dtype)
+        y = y.permute(0, 2, 3, 4, 1) + self.bias.to(x.dtype)
+        if h is None:
+            return y
+        lo, hi = spatial.own_block(h)
+        return spatial.record(y[:, :, offset:offset + hi - lo], h)
 
 
 class Dense(nn.Module):
@@ -205,7 +224,8 @@ class BatchNorm(nn.Module):
     in stacking order, ``m^G * ra + sum_g (1 - m) * m^(G-1-g) * batch_g``
     (``_BNCore``), as G calls of one group each would chain them, and the
     affine is ``(G, C)`` (:func:`apply_affine`).  In evaluation the
-    running statistics serve every group."""
+    running statistics serve every group.  Under H sharding a group's
+    count is the global count over ``groups``."""
 
     def __init__(self, features: int, epsilon: float = 1e-5,
                  momentum: float = 0.9):
@@ -221,9 +241,6 @@ class BatchNorm(nn.Module):
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.training:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            if groups > 1 and spatial.active():
-                raise NotImplementedError("grouped BN under H sharding is "
-                                          "not ported")
             acc = spatial.sum_dtype(xf)
             if groups == 1:
                 axes = tuple(range(x.ndim - 1))
@@ -260,7 +277,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
         """``bn(x) = x*s + t`` in x's type (layers.py ``BatchNorm`` on a
         logical tensor), per group for ``groups`` > 1."""
-        return apply_affine(x, *self.affine(x, groups))
+        return spatial.like(apply_affine(x, *self.affine(x, groups)), x)
 
 
 def apply_affine(x: torch.Tensor, s: torch.Tensor,
@@ -299,11 +316,11 @@ class BnConvActBlock(nn.Module):
     (The JAX s2d path puts the grouped affine in front of its dW-only entry
     conv and so gives the entry BN a zero gradient.)
 
-    Under H sharding (stride 1, one group) BN's moments are those of the
-    rows this rank owns, summed over the ranks, and the conv runs on the
-    rows its block of the output reads, two more than it owns, fetched
-    from their owners (``parallel/spatial.py``); the conv's input gradient
-    of a fetched row goes back to its owner."""
+    Under H sharding BN's moments are those of the rows this rank owns,
+    summed over the ranks, and the conv runs on the rows its block of the
+    output reads, fetched from their owners (``parallel/spatial.py``; for
+    stride 1 two more than it owns, for stride 2 through :class:`Conv3d`);
+    the conv's input gradient of a fetched row goes back to its owner."""
 
     def __init__(self, in_features: int, features: int,
                  strides: Tuple[int, int, int] = (1, 1, 1), padding="VALID",
@@ -324,7 +341,10 @@ class BnConvActBlock(nn.Module):
         if self.conv_dtype is not None:
             x = x.to(self.conv_dtype)
         if self.conv.strides != (1, 1, 1) or s.ndim == 2:
-            return self.conv(apply_affine(x, s, t), self.act, self.act_param)
+            x = apply_affine(x, s, t)
+            if h is not None:
+                x = spatial.record(x, h)
+            return self.conv(x, self.act, self.act_param)
         if h is not None:
             x, h = spatial.conv_rows(x, h)
         if self.conv.pads[0]:

@@ -146,8 +146,7 @@ def center_crop(x: torch.Tensor,
     target = list(target_spatial)
     if spatial.active():
         h, t = spatial.height(x), target[1]
-        start = (h - t) // 2
-        x = spatial.rows(x, h, t, lambda lo, hi: (lo + start, hi + start))
+        x = spatial.crop_rows(x, h, t, (h - t) // 2)
         target[1] = x.shape[axes[1]]
     slices = [slice(None)] * x.ndim
     for ax, t in zip(axes, target):

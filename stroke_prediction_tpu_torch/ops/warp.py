@@ -20,6 +20,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from stroke_prediction_tpu_torch.parallel import spatial
+
 
 def gaussian_kernel1d(sigma: float, truncate: float = 4.0,
                       device=None) -> torch.Tensor:
@@ -62,8 +64,16 @@ def map_coordinates_batch(volume: torch.Tensor, coords: torch.Tensor,
                           cval: float = 0.0) -> torch.Tensor:
     """:func:`map_coordinates_linear` of a batch: (B, D, H, W, C) volumes at
     (B, 3, *S) points -> (B, *S, C); a sample's channels share its
-    points."""
+    points.
+
+    Under a spatial step ``volume`` is this rank's block of H and the
+    points' H coordinates are global: "outside" is tested against the
+    global extent, and the rows that the points' cells span are fetched
+    from their owners (``parallel.spatial.rows_spanning``), so that each
+    point reads what it reads in one process."""
     b, d, h, w, c = volume.shape
+    if spatial.active():
+        h = spatial.height(volume)
     cz, cy, cx = coords[:, 0], coords[:, 1], coords[:, 2]
     # scipy 'constant': a point outside the volume reads cval outright
     inside = ((cz >= 0) & (cz <= d - 1) & (cy >= 0) & (cy <= h - 1)
@@ -76,6 +86,11 @@ def map_coordinates_batch(volume: torch.Tensor, coords: torch.Tensor,
     wz = (czc - z0).to(volume.dtype)[..., None]
     wy = (cyc - y0).to(volume.dtype)[..., None]
     wx = (cxc - x0).to(volume.dtype)[..., None]
+    if spatial.active():
+        a = int(y0.min()) if y0.numel() else 0
+        b_ = int(y0.max()) + 2 if y0.numel() else 0
+        volume = spatial.rows_spanning(volume, h, a, b_)
+        y0, h = y0 - a, b_ - a
     shape = cz.shape                                       # (B, *S)
     first = torch.arange(b, device=volume.device).reshape(
         (b,) + (1,) * (len(shape) - 1)) * (d * h * w)

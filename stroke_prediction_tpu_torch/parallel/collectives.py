@@ -11,7 +11,8 @@ more than one rank (``parallel.mesh.current().reduces``):
   backward is ``all_reduce(SUM)`` of the incoming gradient.  BN's moment
   sums and the Dice loss's sums go through it.
 * :func:`global_mean` — a mean over the global batch through
-  :func:`reduce_sums` (the CAE losses' hinges and latent L1 terms).
+  :func:`reduce_sums` (the CAE losses' hinges and latent L1 terms); under
+  H sharding the sum and the element count in one call.
 * :func:`reduce_max` — ``all_reduce(MAX)``, no gradient (the measures'
   surface distance maximum).
 * :func:`average_gradients` — every parameter's gradient in one flat
@@ -89,17 +90,26 @@ def global_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean of ``x`` over the running sharded step's global batch: this
     rank's sum, summed over the ranks, over its element count times the
     world (the row rule gives every rank equal rows), with the summed
-    gradient in backward; ``torch.mean(x)`` otherwise.  Refused under a
-    spatial sharding, whose H blocks differ in size."""
+    gradient in backward; ``torch.mean(x)`` otherwise.
+
+    Under a spatial sharding the H blocks differ in size: this rank's sum
+    and element count go through one ``reduce_sums`` together, in float64
+    (as the step's other sums, ``parallel.spatial.sum_dtype``), and the
+    mean is their ratio.  A tensor of fewer than five axes holds no H and
+    is the same on every space rank of a data index: space index 0 alone
+    counts it."""
     sharding = current()
     if not sharding.reduces:
         return torch.mean(x)
-    if sharding.spatial:
-        raise NotImplementedError("global_mean under H sharding is not "
-                                  "ported")
-    wide = torch.promote_types(x.dtype, torch.float32)
-    total, = reduce_sums(torch.sum(x, dtype=wide))
-    return (total / (x.numel() * sharding.mesh.world)).to(x.dtype)
+    if not sharding.spatial:
+        wide = torch.promote_types(x.dtype, torch.float32)
+        total, = reduce_sums(torch.sum(x, dtype=wide))
+        return (total / (x.numel() * sharding.mesh.world)).to(x.dtype)
+    mine = float(x.ndim >= 5 or sharding.mesh.space_index == 0)
+    total, count = reduce_sums(
+        torch.sum(x, dtype=torch.float64) * mine,
+        torch.tensor(x.numel() * mine, dtype=torch.float64, device=x.device))
+    return (total / count).to(x.dtype)
 
 
 def reduce_max(x: torch.Tensor) -> torch.Tensor:

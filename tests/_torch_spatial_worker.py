@@ -61,24 +61,29 @@ EXCHANGE_SHAPE = (2, 2, 3, 2)      # B, D, W, C around H
 SPAWN_TIMEOUT = 180                # seconds, for all ranks together
 
 
-def spawn(data, space, inputs, outdir):
-    """This worker's ``data * space`` ranks on ``inputs`` (written to
-    ``outdir``), with a timeout of their own -> each rank's results."""
+def start(data, space, inputs, outdir, script=__file__):
+    """Start ``script``'s ``data * space`` ranks (this worker's by default)
+    on ``inputs`` (written to ``outdir``) -> the processes."""
     path = os.path.join(outdir, "inputs.npz")
     np.savez(path, **inputs)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(PYTHONPATH=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), OMP_NUM_THREADS="1", TMPDIR=str(outdir))
     coordinator = f"127.0.0.1:{free_port()}"
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), coordinator, str(data),
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(script), coordinator, str(data),
          str(space), str(rank), path, str(outdir)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
         for rank in range(data * space)]
+
+
+def join(procs, outdir, timeout=SPAWN_TIMEOUT):
+    """Each rank's results, the ranks within ``timeout`` (killed after
+    it)."""
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=SPAWN_TIMEOUT)[0])
+            outs.append(p.communicate(timeout=timeout)[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -88,7 +93,12 @@ def spawn(data, space, inputs, outdir):
         if p.returncode != 0 or f"SPATIAL_WORKER_OK rank={rank}" not in out:
             raise AssertionError(f"rank {rank} failed:\n{out}")
     return [dict(np.load(os.path.join(outdir, f"rank{r}.npz")))
-            for r in range(data * space)]
+            for r in range(len(procs))]
+
+
+def spawn(data, space, inputs, outdir, script=__file__):
+    """:func:`start`, then :func:`join`: each rank's results."""
+    return join(start(data, space, inputs, outdir, script), outdir)
 
 
 def exchange_case(mesh, index, h, needs):

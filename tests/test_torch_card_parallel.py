@@ -25,7 +25,11 @@ against the same step in one process under the data-parallel rule: the
 loss and each layer's gradients no further from a float64 one-process
 step (the plain versions of the kernels) than twice the float32
 one-process step's distance plus 1e-4 (a dropped exchange adjoint or
-reduction moves a layer's gradients by about their size).
+reduction moves a layer's gradients by about their size).  The same for
+one float32 phase-1 CAE step (reference width, batch 2, 28x128x128 masks,
+the latent L1 term off, augmentation off): its stride-2, padded and
+transposed convs, global means (the hinges) and BN fetch their rows and
+sum over NCCL.
 """
 
 import os
@@ -68,6 +72,13 @@ CAE = "stroke_prediction_tpu_torch.cli.train_shape_reconstruction"
 CAE_CHANNELS = (1, 16, 24, 32, 100, 200, 1)         # the CLI's defaults
 SPATIAL_PATCH, SPATIAL_BATCH = (68, 104, 104), 2
 SPATIAL_FACTOR, SPATIAL_FLOOR = 2.0, 1e-4        # PERF.md's data-parallel rule
+# the curriculum factor 0, as chip_smoke.py's CTP_VS_CPU_FACTOR: at 0.4 the
+# latent L1 term's gradient, sign(z_interp - z_lesion), flips at latent
+# elements near zero with the last bits of a float32 step, and on these
+# random masks put the encoder's gradients 4.57e-3 of a layer's norm off
+# float64 on two cards over NCCL and on two gloo ranks of one card alike
+# (one process 1.83e-4; the float64 rank-step 2.5e-14 of one process)
+CAE_SPATIAL_DHW, CAE_SPATIAL_FACTOR = (28, 128, 128), 0.0
 
 
 def _leaves(tree, path=()):
@@ -237,5 +248,86 @@ def test_space_axis_on_two_cards_equals_one_process(tmp_path):
         got = torch.load(tmp_path / f"rank{rank}.pt")
         dist = _distance((got["loss"], got["grads"]), f64)
         print(f"space axis, rank {rank}: (loss, worst layer) off float64 "
+              f"{dist}, one process {one}, limits {limit}")
+        assert dist[0] <= limit[0] and dist[1] <= limit[1]
+
+
+def _cae_spatial_inputs():
+    gen = torch.Generator().manual_seed(SEED)
+    model = Cae3D(Enc3D(CAE_CHANNELS, generator=gen),
+                  Dec3D(CAE_CHANNELS, generator=gen))
+    labels = (torch.rand(SPATIAL_BATCH, *CAE_SPATIAL_DHW, 3, generator=gen)
+              > 0.5).float()
+    clinical = torch.rand(SPATIAL_BATCH, 5, generator=gen) * 4
+    return {"state": model.state_dict(), "labels": labels,
+            "clinical": clinical}
+
+
+def _cae_spatial_step(inputs, mesh, device, dtype=torch.float32):
+    """(loss, {name: gradient}) of one phase-1 CAE training step on this
+    rank's block of H (the whole batch without a mesh); float64 with the
+    plain versions of K1-K4."""
+    from stroke_prediction_tpu_torch.ops import conv3x3 as cm
+    from stroke_prediction_tpu_torch.train.cae_learners import (
+        CaeReconstructionLearner)
+
+    model = Cae3D(Enc3D(CAE_CHANNELS, compute_dtype=dtype),
+                  Dec3D(CAE_CHANNELS, compute_dtype=dtype))
+    model.load_state_dict(inputs["state"])
+    model.to(device, dtype)
+    learner = CaeReconstructionLearner(
+        types.SimpleNamespace(batch_size=SPATIAL_BATCH), None, model,
+        make_optimizer(model.parameters(), 1e-3), None, 1, device=device,
+        mesh=mesh)
+    learner.augment = lambda batch: batch
+    local = shard_batch(mesh, {k: inputs[k] for k in ("labels", "clinical")},
+                        spatial=True)
+    names = ("conv3x3", "conv3x3_bwd_fused", "conv3x3_bwd_dx",
+             "conv3x3_bwd_dw")
+    real = {n: getattr(cm, n) for n in names}
+    try:
+        if dtype == torch.float64:
+            for n in names:
+                setattr(cm, n, getattr(cm, n + "_plain"))
+        with batch_sharding(mesh, spatial=True).active():
+            metrics = learner.train_step(
+                {"images": None,
+                 "labels": local["labels"].contiguous().to(device, dtype),
+                 "clinical": local["clinical"].to(device, dtype)},
+                CAE_SPATIAL_FACTOR)
+    finally:
+        for n in names:
+            setattr(cm, n, real[n])
+    return float(metrics["loss"]), {k: p.grad.cpu().double()
+                                    for k, p in model.named_parameters()}
+
+
+def _cae_spatial_rank(rank, coordinator, inputs_path, outdir):
+    """Rank ``rank`` of the two-card spatial CAE step: NCCL, cuda:rank."""
+    distributed.initialize(coordinator, 2, rank)
+    loss, grads = _cae_spatial_step(torch.load(inputs_path), make_mesh(1, 2),
+                                    torch.device("cuda", rank))
+    distributed.shutdown()
+    torch.save({"loss": loss, "grads": grads},
+               os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def test_cae_space_axis_on_two_cards_equals_one_process(tmp_path):
+    _cards()
+    inputs = _cae_spatial_inputs()
+    path = tmp_path / "inputs.pt"
+    torch.save(inputs, path)
+    torch.multiprocessing.start_processes(
+        _cae_spatial_rank, args=(f"127.0.0.1:{free_port()}", str(path),
+                                 str(tmp_path)),
+        nprocs=2, join=True, start_method="spawn")
+    dev = torch.device("cuda", 0)
+    f64 = _cae_spatial_step(inputs, None, dev, torch.float64)
+    one = _distance(_cae_spatial_step(inputs, None, dev), f64)
+    limit = [SPATIAL_FACTOR * d + SPATIAL_FLOOR for d in one]
+    for rank in range(2):
+        got = torch.load(tmp_path / f"rank{rank}.pt")
+        dist = _distance((got["loss"], got["grads"]), f64)
+        print(f"cae space axis, rank {rank}: (loss, worst layer) off float64 "
               f"{dist}, one process {one}, limits {limit}")
         assert dist[0] <= limit[0] and dist[1] <= limit[1]

@@ -207,15 +207,29 @@ def test_spatial_sharding_refusals():
                 collectives.exchange_rows(x, 4, [(0, 2), (2, 4)])
 
 
+class _Reached(Exception):
+    """A collective was reached."""
+
+
 @pytest.mark.parametrize("what", ["global_mean", "distances", "grouped_bn",
                                   "transposed_conv", "learner_crop"])
 def test_unported_paths_refuse_h_sharding(what):
-    """The CAE's pieces (a global mean over unequal blocks, grouped BN,
-    transposed convs), HD / ASSD (the EDT along H) and the learner's crop of
-    whole patches raise under a spatial step, before any collective."""
+    """The learner's crop of whole patches raises under a spatial step,
+    before any collective.  The CAE's pieces that this refused before they
+    were ported (a global mean over unequal blocks, grouped BN, transposed
+    convs) and HD / ASSD (the EDT along H) now run there up to their first
+    collective (their values: tests/test_torch_spatial_ops.py)."""
     x = torch.rand(2, 3, 4, 3, 1)
-    with mesh.batch_sharding(mesh.Mesh(0, 2, 2), spatial=True).active():
-        with pytest.raises(NotImplementedError):
+
+    def reached(*args, **kw):
+        raise _Reached
+
+    with mesh.batch_sharding(mesh.Mesh(0, 2, 2), spatial=True).active(), \
+            pytest.MonkeyPatch.context() as mp:
+        mp.setattr(collectives.dist, "get_backend", lambda: "gloo")
+        mp.setattr(collectives.dist, "all_reduce", reached)
+        with pytest.raises(NotImplementedError if what == "learner_crop"
+                           else _Reached):
             if what == "global_mean":
                 collectives.global_mean(x)
             elif what == "distances":
