@@ -260,6 +260,34 @@ non-zero without one.  Phases:
    times at each of their rank-step shapes, their partials filled with NaN
    before each launch, bit-equal and finite.
 
+17. graph phase (``graph_phase``, lines prefixed ``graph``): the learner's
+   planned epoch, each single-process step captured into a CUDA graph after
+   its first (eager) step and replayed (``STROKE_TPU_DEVICE_CACHE``, on by
+   default; phases 5-16 run with it off, the eager loop, because they
+   count and record each kernel's calls at its wrapper, which a replay
+   does not call).  (a) the U-Net CLI (reference width, bfloat16, batch 6,
+   ``--profile``) and the phase-1 CLI (reference width, bfloat16, batch 4,
+   a loss factor from the first epoch on), three epochs across an lr
+   milestone and the beta1 ramp, twice eagerly and once graphed: where the
+   two eager runs are bit-equal the graphed run's curves JSON, ``.model``
+   and ``.optim`` files equal theirs byte for byte, else its curves are
+   within 1e-6 of theirs; its steps replayed; the trace of its second
+   epoch holds the ``train_step`` ranges and K1; two controls that must
+   fail: the learning rate kept a Python float (baked into the capture)
+   and the learner's generator not registered with the graphs; (b) ms a
+   training step graphed against eager, ten each in turns, by CUDA events
+   and host clock, for the U-Net, phase 1 and the 4-scale U-Net, and from
+   torch.profiler traces of three replayed and three eager steps, training
+   and validation: the busy share and kernels a step, the K1-K5 kernels a
+   step by kernel name, equal on both sides (K1 in training, K1 and K5 in
+   validation), and the host's CUDA API calls that put work on
+   the card, one graph launch and at most three calls in all a replayed
+   training step; (c) the sync debug mode "error" over one
+   eager run of each graphed learner's step body, training and validation;
+   (d) the step learner, phase 2, the CTP CAE and phase 1 with structure
+   batching, two epochs, one eager and one graphed run each, their curves
+   within 1e-6.
+
 The CPU witnesses of phases 6-9, 11 and 14 (their float32, bfloat16 and
 float64 CPU steps) run in a pool of WITNESS_WORKERS processes started after
 the kernel build; their checks run after the last phase (phase 14's within
@@ -269,6 +297,7 @@ Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises and exits non-zero.
 """
 
+import contextlib
 import copy
 import filecmp
 import json
@@ -664,40 +693,72 @@ def profiled(torch, run, what):
     return prof
 
 
-def device_ms(torch, fn, reps, events=False):
+# torch.cuda._sleep cycles of the spin kernel that opens a counted trace
+# (~1 ms at the card's clock)
+LEAD_CYCLES = 2_000_000
+
+
+def lead_in(torch):
+    """One spin kernel (``torch.cuda._sleep``, named like EDT_MARK) at the
+    start of a traced region, left out of its counts: the kernels after it
+    start about a millisecond into the trace.  A trace on the card's
+    machine loses the kernels that run in its first moments (seen in every
+    retrace: the first 4 of 10 ``edt_sites`` calls, the first K1 of an
+    eager validation step)."""
+    torch.cuda._sleep(LEAD_CYCLES)
+
+
+def device_ms(torch, fn, reps, events=False, expect=None):
     """Device time per call and kernels per call, from the kernels' device
     time in a torch.profiler trace of ``reps`` calls after a warm-up call,
     and {kernel name: device ms per call}.  ``events``: where no trace
     holds device time, the calls' time between CUDA events instead, with
     the kernels not measured (nan, {}).  A trace on the card's machine
-    now and then lacks a kernel's event (seen: 19 of 20 calls' kernel A of
-    ``edt_sites``; 38 of its 40 events): a kernel seen in most calls but
-    not in all counts round(count / reps) launches a call, each at its
-    mean time in the trace, and the shortfall is printed."""
+    now and then lacks kernel events (seen: 19 of 20 calls' kernel A of
+    ``edt_sites``; 38 of its 40 events; 11 of 40; 5 of 10 calls' each):
+    a kernel seen in fewer calls than were made, or a count a call other
+    than ``expect``, is traced again (up to PROFILE_ATTEMPTS traces); in
+    the last trace a kernel seen in at least half the calls counts
+    floor(count / reps + 1/2) launches a call, each at its mean time in
+    the trace, and the shortfall is printed."""
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
-    prof = profiled(torch, lambda: [fn() for _ in range(reps)], "device_ms")
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    if not sum(e.self_device_time_total for e in kernels):
-        if not events:
-            raise AssertionError("no device time in the profiler's trace")
-        ms = cuda_ms(torch, fn, reps)
-        print(f"device_ms: no device time in {PROFILE_ATTEMPTS} traces: "
-              f"{ms:.4f} ms a call between CUDA events (kernels not "
-              f"measured)")
-        return ms, float("nan"), {}
-    n_k, per = 0.0, {}
-    for e in kernels:
-        n = e.count / reps
-        if n >= 0.5 and n != round(n):
-            print(f"device_ms: {e.key[:60]} seen {e.count} times in {reps} "
-                  f"calls (events lost): {round(n)} a call")
-            n = round(n)
-        n_k += n
-        per[e.key] = e.self_device_time_total / e.count * n / 1e3
+    for attempt in range(PROFILE_ATTEMPTS):
+        prof = profiled(torch, lambda: (lead_in(torch),
+                                        [fn() for _ in range(reps)]),
+                        "device_ms")
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and EDT_MARK not in e.key]
+        if not sum(e.self_device_time_total for e in kernels):
+            if not events:
+                raise AssertionError("no device time in the profiler's "
+                                     "trace")
+            ms = cuda_ms(torch, fn, reps)
+            print(f"device_ms: no device time in {PROFILE_ATTEMPTS} "
+                  f"traces: {ms:.4f} ms a call between CUDA events "
+                  f"(kernels not measured)")
+            return ms, float("nan"), {}
+        n_k, per, lost = 0.0, {}, 0
+        for e in kernels:
+            n = e.count / reps
+            if n >= 0.5 and n != round(n):
+                lost += 1
+                print(f"device_ms: {e.key[:60]} seen {e.count} times in "
+                      f"{reps} calls (events lost): "
+                      f"{math.floor(n + 0.5)} a call")
+                n = math.floor(n + 0.5)
+            n_k += n
+            per[e.key] = e.self_device_time_total / e.count * n / 1e3
+        if not lost and (expect is None or n_k == expect):
+            break
+        print(f"device_ms: {n_k:g} kernels a call in the trace"
+              + (f", {expect} expected" if expect is not None else "")
+              + f", {lost} kernels with events lost"
+              + (", tracing again" if attempt + 1 < PROFILE_ATTEMPTS
+                 else ""))
     return sum(per.values()), n_k, per
 
 
@@ -785,7 +846,8 @@ def edt_phase(torch):
         sites[:, :, :, ::7] = False            # columns without a site
         sites[:, shape[1] // 2] = False        # a plane without a site
         hold(shape, sites)
-        ms, n_k, per = device_ms(torch, lambda: edt.edt_sites(sites), 20)
+        ms, n_k, per = device_ms(torch, lambda: edt.edt_sites(sites), 20,
+                                 expect=2)
         split = [sum(v for nm, v in per.items() if k in nm)
                  for k in EDT_KERNELS]
         if n_k != 2 or any(not any(k in nm for k in EDT_KERNELS)
@@ -2122,8 +2184,11 @@ def unet_step_side(torch, model, imgs, labs, stub, side, dev, dtype):
 def step_vs_cpu(torch, learner):
     """One float32 training step (forward, loss, backward; no optimizer
     step) at full width and patch, batch 2, on the card and on the CPU from
-    the same weights and crop; the same step in float64 on the CPU says
-    which float32 side is further off, and by which gradient.  The same
+    the same weights and crop, and the same step in float64 on the CPU: the
+    card's float32 step is held to the float64 one at the STEP_* limits;
+    the CPU's float32 step against both is printed (its sums' order, which
+    the host's CPU and thread count set, put it 6.2e-4 to 7.2e-4 of
+    max|grad| off float64 on one host, the card 1.3e-4).  The same
     step in bfloat16 on the card and on the CPU, with two controls
     (:func:`unet_bf16_step_check`).  The CPU sides run in the witnesses'
     pool; the comparisons when the returned :class:`Deferred` resolves."""
@@ -2174,18 +2239,19 @@ def step_vs_cpu_check(out, cpu):
 
     print("\nstep seconds: " + ", ".join(f"{side} {v[3]:.2f} s"
                                          for side, v in out.items()))
-    loss_rel, grad, stats_err = compare("card", "CPU")
-    card64 = compare("card", "CPU float64")
+    card32 = compare("card", "CPU")
+    loss_rel, grad, stats_err = card64 = compare("card", "CPU float64")
     cpu64 = compare("CPU", "CPU float64")
     print(f"step float32 vs float64: card {card64[1][0]:.2e}, CPU "
           f"{cpu64[1][0]:.2e} of max|grad|: the "
           f"{'card' if card64[1][0] > cpu64[1][0] else 'CPU'} is further off")
     if loss_rel > STEP_LOSS_REL or grad[0] > STEP_GRAD_REL or \
             stats_err > STEP_STATS_ATOL:
-        raise AssertionError("card and CPU training steps differ")
+        raise AssertionError("the card's float32 training step is beyond "
+                             "the STEP_* limits of the float64 step")
     bf16 = unet_bf16_step_check(out)
     return dict(loss_rel=loss_rel, grad_rel=grad[0], worst_grad=grad[1],
-                stats_err=stats_err, card_vs_f64=card64[1][0],
+                stats_err=stats_err, card_vs_cpu=card32[1][0],
                 cpu_vs_f64=cpu64[1][0], bfloat16=bf16)
 
 
@@ -2709,7 +2775,10 @@ def cae_step_side(torch, model, labels, clinical, noise, flip, stub, side,
     if "zeroed" in side:
         cm.conv3x3_bwd_dw = entry_dw_zeroed
     try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        # as the CAE learners' train_step runs it: cuDNN's deterministic
+        # algorithms, TF32 off
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                        deterministic=True):
             loss.backward()
     finally:
         cm.conv3x3_bwd_dw = real_dw
@@ -2728,14 +2797,16 @@ def cae_steps_vs_cpu(torch, learner):
     fields, with a float64 CPU step as the witness:
 
     * from seeded weights (as :func:`step_vs_cpu`'s U-Net), float32 and
-      bfloat16, card against CPU, with the bfloat16 limits' two controls;
-    * from the trained weights (the CLI's run), the card's float32 step
-      against float64 at the STEP_* limits.  The CPU's float32 step is
-      only printed there: a channel whose batch variance falls far below
-      its squared mean makes the folded BN's kernel gradient
-      ``dk' * s + t * db'`` two large terms that cancel, and the CPU's
-      sums' order put it 3.9e-3 of its layer's largest gradient off
-      float64 on the card's first run, the card 1.4e-5.
+      bfloat16, with the bfloat16 limits' two controls;
+    * from the trained weights (the CLI's run), float32.
+
+    Each float32 card step is held to the float64 one at the STEP_*
+    limits; the CPU's float32 step is only printed: a channel whose batch
+    variance falls far below its squared mean makes the folded BN's kernel
+    gradient ``dk' * s + t * db'`` two large terms that cancel, and the
+    CPU's sums' order put it 3.9e-3 of its layer's largest gradient off
+    float64 on the card's first trained run, the card 1.4e-5 (from the
+    seeded weights 6.8e-4, the card 2.0e-4).
 
     The CPU sides run in the witnesses' pool; the comparisons when the
     returned :class:`Deferred` resolves."""
@@ -2792,25 +2863,22 @@ def cae_steps_vs_cpu_check(out, cpu, n_params):
     def compare(a, b):
         return grad_compare(out, a, b, cae_layer_of, what)
 
-    def f32_check(card, cpu, f64, witness):
-        """The card's float32 step against ``witness`` within the STEP_*
-        limits; both float32 steps against ``f64``."""
-        loss_rel, grad, stats, _ = compare(card, witness)
+    def f32_check(card, cpu, f64):
+        """The card's float32 step against the float64 step ``f64`` within
+        the STEP_* limits; the CPU's float32 step against both, printed."""
+        loss_rel, grad, stats, _ = compare(card, f64)
         res = dict(loss_rel=loss_rel, grad_rel=grad[0], worst_grad=grad[1],
-                   stats_err=stats,
-                   card_vs_f64=(grad[0] if witness == f64
-                                else compare(card, f64)[1][0]),
+                   stats_err=stats, card_vs_cpu=compare(card, cpu)[1][0],
                    cpu_vs_f64=compare(cpu, f64)[1][0])
         if (loss_rel > STEP_LOSS_REL or grad[0] > STEP_GRAD_REL
                 or stats > STEP_STATS_ATOL):
-            raise AssertionError(f"cae step {card} vs {witness}: beyond the "
+            raise AssertionError(f"cae step {card} vs {f64}: beyond the "
                                  f"STEP_* limits: {res}")
         return res
 
-    f32 = f32_check("card float32", "CPU float32", "CPU float64",
-                    "CPU float32")
+    f32 = f32_check("card float32", "CPU float32", "CPU float64")
     f32_trained = f32_check("trained card float32", "trained CPU float32",
-                            "trained CPU float64", "trained CPU float64")
+                            "trained CPU float64")
 
     bf16 = bf16_step_check(out, cae_layer_of, what, (
         "card bfloat16, entry K4 zeroed", "card bfloat16, entry BN zeroed"))
@@ -3108,7 +3176,10 @@ def learner_step_side(torch, models, batch, stub, kind, dev, dt):
     else:
         dto = cae_enc_inference(ms[0], ms[1], dto, True)
     loss = stub.loss(dto, 0.0)
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+    # as the CAE learners' train_step runs it: cuDNN's deterministic
+    # algorithms, TF32 off
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                    deterministic=True):
         loss.backward()
     if dev == "cuda":
         torch.cuda.synchronize()
@@ -3458,7 +3529,10 @@ def ctp_step_side(torch, seeded, labels, images, clinical, noise, flip,
         lat = dto.latents.gtruth
         sign = torch.sign(lat.interpolation - lat.lesion).detach().cpu()
         loss = cae_loss(dto, CTP_VS_CPU_FACTOR)
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        # as the CAE learners' train_step runs it: cuDNN's deterministic
+        # algorithms, TF32 off
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                        deterministic=True):
             loss.backward()
     finally:
         for n in names:
@@ -3476,13 +3550,15 @@ def ctp_step_vs_cpu(torch, learner):
     """One float32 CTP training step (forward, loss at CTP_VS_CPU_FACTOR,
     backward; no optimizer step) at batch 2 from seeded weights, on the
     same masks, images, flips and displacement fields, on the card and on
-    the CPU: the loss, every gradient (relative to its layer's largest)
-    and the running statistics at the STEP_* limits; two controls (the
-    entry conv's K4 output zeroed on the card, the card's entry BN
-    gradients zeroed) must fail the gradient limit; the entry BN's scale
-    and bias and the entry kernel's gradients, card and CPU, against a
-    float64 step (the plain versions, run on the card) within
-    CTP_ENTRY_F64_REL of their own max|ref|.  The CPU side runs in the
+    the CPU, and a float64 step (the plain versions, run on the card): the
+    card's loss, every gradient (relative to its layer's largest) and the
+    running statistics against float64 at the STEP_* limits, the CPU's
+    float32 step against both printed (as :func:`step_vs_cpu`); two
+    controls (the entry conv's K4 output zeroed on the card, the card's
+    entry BN gradients zeroed) must fail the gradient limit; the entry
+    BN's scale and bias and the entry kernel's gradients, card and CPU,
+    against float64 within CTP_ENTRY_F64_REL of their own max|ref|.  The
+    CPU side runs in the
     witnesses' pool; the comparisons when the returned :class:`Deferred`
     resolves."""
     from stroke_prediction_tpu_torch.data.dataset import (
@@ -3540,11 +3616,11 @@ def ctp_step_vs_cpu_check(got, pool, n_params):
     if any(len(v[1]) != n_params for v in out.values()):
         raise AssertionError(f"cae ctp step: {n_params} gradients expected")
     what = f"cae ctp step (batch {nb})"
-    loss_rel, grad, stats, _ = grad_compare(out, "card float32",
-                                            "CPU float32", cae_layer_of, what)
+    loss_rel, grad, stats, _ = grad_compare(out, "card float32", f64,
+                                            cae_layer_of, what)
     res = dict(loss_rel=loss_rel, grad_rel=grad[0], worst_grad=grad[1],
                stats_err=stats,
-               card_vs_f64=grad_compare(out, "card float32", f64,
+               card_vs_cpu=grad_compare(out, "card float32", "CPU float32",
                                         cae_layer_of, what)[1][0],
                cpu_vs_f64=grad_compare(out, "CPU float32", f64,
                                        cae_layer_of, what)[1][0],
@@ -3559,14 +3635,14 @@ def ctp_step_vs_cpu_check(got, pool, n_params):
           f"max|ref| (limit {CTP_ENTRY_F64_REL}): {entry}")
     for side in ("card float32, entry K4 zeroed",
                  "card float32, entry BN zeroed"):
-        g = grad_compare(out, side, "CPU float32", cae_layer_of, what)[1]
+        g = grad_compare(out, side, f64, cae_layer_of, what)[1]
         res["controls"][side] = dict(grad_rel=g[0], worst_grad=g[1])
         if g[0] <= STEP_GRAD_REL:
             raise AssertionError(f"{what}: the {side} control passes the "
                                  f"STEP_GRAD_REL limit: {g}")
     if (loss_rel > STEP_LOSS_REL or grad[0] > STEP_GRAD_REL
             or stats > STEP_STATS_ATOL):
-        raise AssertionError(f"{what}: card vs CPU beyond the STEP_* "
+        raise AssertionError(f"{what}: card vs float64 beyond the STEP_* "
                              f"limits: {res}")
     if any(e["card float32"] > CTP_ENTRY_F64_REL for e in entry.values()):
         raise AssertionError(f"{what}: the card's entry gradients off "
@@ -4279,7 +4355,7 @@ def large_unet_train(torch, work):
                 step_ms=dict(mean=mean, std=std, host=host), busy=busy,
                 vs_cpu=vs_cpu, widths=widths,
                 throughput=float(rates[-1][0]),
-                step_rate=1e3 * TRAIN_BATCH / mean)
+                step_rate=1e3 * TRAIN_BATCH / mean, learner=learner)
 
 
 def in_float64(torch, fn):
@@ -7048,6 +7124,480 @@ def spatial_cae_phase(torch, work, dp, cae_dp):
     return res
 
 
+# CUDA graphs of the planned epoch (train/learner.py), the default path of a
+# single-process run: each (phase, group) step captured after its first,
+# eager, step and replayed.  run_phases pins the phases above to the eager
+# loop (STROKE_TPU_DEVICE_CACHE=0): they count each kernel's launches at its
+# wrapper and record its calls, which a replay makes without the wrapper.
+GRAPH_SWITCH = "STROKE_TPU_DEVICE_CACHE"
+GRAPH_EPOCHS = 3                 # (a): the U-Net's and phase 1's CLI runs
+GRAPH_OTHER_EPOCHS = 2           # (d): the other learners' (replays: epoch 2)
+GRAPH_LRSTEPS = ("--lrsteps", "1")   # an lr milestone inside every run
+GRAPH_CURVE_REL = 1e-6           # where two eager runs differ: the
+#                                  --distributed rule (PERF.md §2)
+GRAPH_TIMED_STEPS = 10           # (b): steps timed a side, in turns ABBA
+GRAPH_MAX_HOST_LAUNCHES = 3      # (b): host launches a replayed step
+GRAPH_TRACED_STEPS = 3           # (b): steps a trace of each side holds
+# CUDA API calls that put work on the card (torch.profiler's
+# names), the host launches of (b)
+HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                     "cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
+
+
+def graph_factor(epoch):
+    """Phase 1's loss factor in the graph phase's runs: nonzero from the
+    first epoch and moving each epoch (the CLI's curriculum starts at epoch
+    26, past a short run)."""
+    return 0.2 + 0.15 * epoch
+
+
+@contextlib.contextmanager
+def env_set(name, value):
+    """``os.environ[name] = value`` for the body."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = saved
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """``obj.name = value`` for the body."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def graph_cli_run(torch, cli, argv, base, graphed, patch=None):
+    """One training CLI run, planned and graphed or eager (the switch),
+    under ``patch`` (a context manager factory) -> (learner, seconds)."""
+    with env_set(GRAPH_SWITCH, "1" if graphed else "0"), (
+            patch() if patch else contextlib.nullcontext()):
+        t0 = time.perf_counter()
+        learner = cli.train(argv(base))
+        torch.cuda.synchronize()
+    return learner, time.perf_counter() - t0
+
+
+def same_files(a, b, files):
+    """Which of ``files`` (suffixes) differ between bases ``a`` and ``b``."""
+    return [f for f in files if not filecmp.cmp(a + f, b + f, shallow=False)]
+
+
+def graph_equality(torch, work, what, cli, argv, files, patch=None,
+                   eager_runs=2, epochs=GRAPH_EPOCHS):
+    """(a) / (d): ``eager_runs`` eager CLI runs and one graphed run of the
+    same seed and arguments.  Where two eager runs are bit-equal (files:
+    the curves JSON, the .model and .optim files), the graphed run must
+    equal them byte for byte; else (or with one eager run) its curves must
+    be within GRAPH_CURVE_REL of the eager run's.  The graphed run must have
+    replayed its steps, with the eager run's step counts."""
+    runs = {}
+    for tag in ["eager", "eager again"][:eager_runs] + ["graphed"]:
+        base = os.path.join(work, f"graph_{what}_{tag.replace(' ', '_')}")
+        runs[tag] = (*graph_cli_run(torch, cli, argv, base,
+                                    tag == "graphed", patch), base)
+    (eager, _, e_base), (graphed, g_s, g_base) = runs["eager"], \
+        runs["graphed"]
+    bit = eager_runs > 1 and not same_files(e_base, runs["eager again"][2],
+                                            files)
+    differ = same_files(e_base, g_base, files)
+    gap = curve_gap(graphed, eager)
+    replays = graphed.graph_replays
+    print(f"graph {what}: {epochs} epochs; eager {runs['eager'][1]:.2f} s, "
+          f"graphed {g_s:.2f} s; steps {graphed.step_counts} (eager "
+          f"{eager.step_counts}); graphs {sorted(graphed._planned)}; "
+          f"replays {replays}; two eager runs "
+          + ("bit-equal" if bit else "not bit-equal" if eager_runs > 1
+             else "(one run)")
+          + f"; graphed vs eager: files differing {differ}, largest curve "
+            f"gap {gap:.3e}")
+    if graphed.step_counts != eager.step_counts or not replays:
+        raise AssertionError(f"graph {what}: steps {graphed.step_counts} vs "
+                             f"{eager.step_counts}, {replays} replays")
+    if bit and differ:
+        raise AssertionError(f"graph {what}: the eager runs are bit-equal "
+                             f"and the graphed run's {differ} differ")
+    if gap > GRAPH_CURVE_REL:
+        raise AssertionError(f"graph {what}: curves {gap:.3e} off the "
+                             f"eager run's (limit {GRAPH_CURVE_REL})")
+    return dict(learner=graphed, eager=eager, base=g_base, bit=bit,
+                rule="bit-equal" if bit else
+                f"curves within {GRAPH_CURVE_REL}", differ=differ, gap=gap,
+                seconds=g_s, eager_seconds=runs["eager"][1],
+                replays=replays, steps=dict(graphed.step_counts))
+
+
+def graph_control(torch, work, what, cli, argv, files, eager_base, eager,
+                  patch, bit):
+    """A control run, graphed under ``patch``, that must fail (a):
+    capture raising, or its files (where the eager runs are bit-equal) or
+    curves differing from the eager run's."""
+    base = os.path.join(work, f"graph_control_{what}")
+    try:
+        learner, _ = graph_cli_run(torch, cli, argv, base, True, patch)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"graph control {what}: the capture raised "
+              f"{type(e).__name__}: {str(e).splitlines()[0][:200]}")
+        return dict(raised=str(e).splitlines()[0][:200])
+    differ = same_files(eager_base, base, files)
+    gap = curve_gap(learner, eager)
+    print(f"graph control {what}: {learner.graph_replays} "
+          f"replays; files differing {differ}; largest curve gap {gap:.3e}")
+    if (bit and not differ) or gap <= GRAPH_CURVE_REL:
+        raise AssertionError(f"graph control {what}: it equals the eager "
+                             f"run (files differing {differ}, gap {gap})")
+    return dict(differ=differ, gap=gap)
+
+
+def graph_step(torch, learner, training=True):
+    """``learner``'s training (or validation) step of its loader's first
+    group, as the planned pass runs it (a plan for one more epoch where
+    the learner has none) -> ``step(eager=False)``: one step, replayed
+    (eagerly with ``eager``), of a block that repeats the plan's first
+    row vector as many times as the runner's buffer holds vectors, the
+    cursor moving on as in a pass (back to 0, a seek, after the last)."""
+    loader = (learner._dataloader_training if training
+              else learner._dataloader_validation)
+    if not learner._plans:
+        learner._device_cache = True
+        learner._n_epochs += 1
+    plan = learner._plan_of(loader, learner._n_epochs - 1)
+    run = learner._runner(loader, plan, training, 0)
+    i, j, size = plan["bounds"][0]
+    room = learner.PLAN_BLOCK * (j - i)
+    first = plan["blocks"][0][0].view(-1, size + 1)[:1]
+    block = first.expand(room, size + 1).reshape(room, 1, size + 1)
+    at = {"k": 0}
+
+    def step(eager=False):
+        run(block, at["k"], eager)
+        at["k"] = (at["k"] + 1) % room
+
+    step.at = at
+    return step
+
+
+def kernel_of(name):
+    """The hand kernel (K1-K5) that a profiler kernel name belongs to, or
+    None."""
+    group = next((g for frag, g in PROFILE_GROUPS if frag in name), "")
+    return group.split()[0] if group.startswith("K") else None
+
+
+def traced_steps(torch, run, what, reps=GRAPH_TRACED_STEPS):
+    """``reps`` calls of ``run()`` in one torch.profiler trace -> (device
+    busy ms a call, {kernel name: launches a call}, {host call that puts
+    work on the card: calls a call}), the host calls read from the
+    trace's CUDA API events (HOST_LAUNCH_CALLS)."""
+    from torch.autograd import DeviceType
+
+    prof = profiled(torch, lambda: (lead_in(torch),
+                                    [run() for _ in range(reps)]), what)
+    events = prof.key_averages()
+    # the kernels, copies and sets, not the device spans of annotations
+    # nor the lead-in's spin kernel
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and EDT_MARK not in e.key]
+    busy = sum(e.self_device_time_total for e in device) / 1e3 / reps
+    kernels = {e.key: e.count / reps for e in device}
+    # less the lead-in's own launch
+    host = {e.key: (e.count - (e.key == "cudaLaunchKernel")) / reps
+            for e in events if e.device_type == DeviceType.CPU
+            and e.key.startswith(HOST_LAUNCH_CALLS)}
+    return busy, kernels, {k: n for k, n in host.items() if n}
+
+
+def hand_kernels(kernels):
+    """{K1-K5 kernel name: launches a call} of :func:`traced_steps`'s."""
+    return {k: n for k, n in kernels.items() if kernel_of(k)}
+
+
+def graph_vs_eager_trace(torch, what, step):
+    """Traces of GRAPH_TRACED_STEPS calls of ``step`` replayed and run
+    eagerly (:func:`graph_step`), each trace after one step outside it
+    that sets the cursor to 0, so that the traced steps move it on as a
+    pass does; traced again, up to PROFILE_ATTEMPTS times, while their
+    K1-K5 launches by kernel name differ (a trace on the card's machine
+    now and then lacks events, see :func:`device_ms`) -> ({side: (busy ms,
+    kernels, host calls)}, {K: kernels a step}).  Raises if the counts
+    never agree or no hand kernel ran: then a replay did not launch what
+    the eager step does."""
+    def traced(eager):
+        step.at["k"] = 0
+        step(eager)
+        torch.cuda.synchronize()
+        return traced_steps(torch, lambda: step(eager),
+                            f"{what} ({'eager' if eager else 'graphed'})")
+
+    for attempt in range(PROFILE_ATTEMPTS):
+        sides = {"eager": traced(True), "graphed": traced(False)}
+        hand = {side: hand_kernels(t[1]) for side, t in sides.items()}
+        if hand["eager"] == hand["graphed"] and hand["eager"]:
+            break
+        print(f"{what}: K1-K5 launches a step differ between the traces "
+              f"(eager {sum(hand['eager'].values()):g}, graphed "
+              f"{sum(hand['graphed'].values()):g})"
+              + (", tracing again" if attempt + 1 < PROFILE_ATTEMPTS
+                 else ""))
+    else:
+        raise AssertionError(f"{what}: K1-K5 launches a step by kernel, "
+                             f"eager {hand['eager']}, graphed "
+                             f"{hand['graphed']}")
+    by_kernel = {}
+    for name, n in hand["graphed"].items():
+        by_kernel[kernel_of(name)] = by_kernel.get(kernel_of(name), 0) + n
+    other = {k: (sides["eager"][1].get(k, 0), sides["graphed"][1].get(k, 0))
+             for k in set(sides["eager"][1]) | set(sides["graphed"][1])
+             if sides["eager"][1].get(k, 0) != sides["graphed"][1].get(k, 0)}
+    print(f"{what}: K1-K5 launches a step equal by kernel name in the "
+          f"eager and the replayed step ({len(hand['graphed'])} names; "
+          + ", ".join(f"{k} {n:g}" for k, n in sorted(by_kernel.items()))
+          + f"); kernels a step eager "
+            f"{sum(sides['eager'][1].values()):g}, graphed "
+            f"{sum(sides['graphed'][1].values()):g}; other kernels whose "
+            f"count differs (eager, graphed): "
+          + ("; ".join(f"{k[:80]} {e:g}, {g:g}"
+                       for k, (e, g) in sorted(other.items())) or "none"))
+    for side, (_, _, host) in sides.items():
+        print(f"{what}: host calls a step ({side}): "
+              + (", ".join(f"{k} {n:g}" for k, n in sorted(host.items()))
+                 or "none in the trace"))
+    return sides, by_kernel
+
+
+def graph_times(torch, what, learner):
+    """(b): ``learner``'s graphed training step (a replay) against the
+    same step run eagerly on the same rows, GRAPH_TIMED_STEPS each in turns
+    (eager, graphed, graphed, eager): ms a step by CUDA events and host
+    clock; from traces of each, the device's busy share, kernels a step,
+    the K1-K5 launches by kernel name (equal on both sides, K1 among
+    them; likewise in a traced validation step, K1 and K5 among them),
+    and the host calls a step that put work on the card (one graph launch,
+    at most GRAPH_MAX_HOST_LAUNCHES in all)."""
+    step = graph_step(torch, learner)
+    step()                         # warm-up and capture, where not yet made
+    torch.cuda.synchronize()
+    steps = {"eager": lambda: step(eager=True), "graphed": step}
+    times = {k: [] for k in steps}
+    for side in ("eager", "graphed", "graphed", "eager"):
+        times[side].append(time_steps(torch, steps[side], GRAPH_TIMED_STEPS,
+                                      f"graph {what} ({side})"))
+    traces, by_kernel = graph_vs_eager_trace(
+        torch, f"graph {what} train step", step)
+    e_step = graph_step(torch, learner, training=False)
+    e_step()
+    torch.cuda.synchronize()
+    _, eval_kernels = graph_vs_eager_trace(
+        torch, f"graph {what} validation step", e_step)
+    out = {}
+    for side, ts in times.items():
+        busy, kernels, host = traces[side]
+        mean = sum(t[0] for t in ts) / len(ts)
+        host_ms = sum(t[2] for t in ts) / len(ts)
+        out[side] = dict(ms=mean, host_ms=host_ms,
+                         ms_runs=[round(t[0], 4) for t in ts],
+                         busy_ms=busy, busy_share=busy / host_ms,
+                         kernels=sum(kernels.values()),
+                         host_launches=sum(host.values()),
+                         host_calls=host)
+    out["hand_kernels"] = by_kernel
+    out["eval_hand_kernels"] = eval_kernels
+    graphed = out["graphed"]
+    print(f"graph {what}: ms a step (CUDA events / host) eager "
+          f"{out['eager']['ms']:.3f} / {out['eager']['host_ms']:.3f}, "
+          f"graphed {graphed['ms']:.3f} / {graphed['host_ms']:.3f}; busy "
+          f"{100 * out['eager']['busy_share']:.1f}% / "
+          f"{100 * graphed['busy_share']:.1f}%; kernels a step "
+          f"{out['eager']['kernels']:g} / {graphed['kernels']:g}; host "
+          f"calls a step {out['eager']['host_launches']:g} / "
+          f"{graphed['host_launches']:g}")
+    if "K1" not in by_kernel or not {"K1", "K5"} <= set(eval_kernels):
+        raise AssertionError(f"graph {what}: the replayed training step's "
+                             f"{sorted(by_kernel)} lack K1, or the "
+                             f"validation step's {sorted(eval_kernels)} "
+                             f"lack K1 / K5")
+    if graphed["host_calls"].get("cudaGraphLaunch") != 1:
+        raise AssertionError(f"graph {what}: {graphed['host_calls']} host "
+                             f"calls a replayed step, not one graph launch")
+    if graphed["host_launches"] > GRAPH_MAX_HOST_LAUNCHES:
+        raise AssertionError(f"graph {what}: {graphed['host_launches']:g} "
+                             f"host launches a replayed step")
+    return out
+
+
+def graph_syncs(torch, what, learner):
+    """(c): one eager run of the planned step's body (what the graphs
+    captured), training and validation, under the sync debug mode "error":
+    a host synchronisation in it raises."""
+    phases = [True] + [False] * (learner._dataloader_validation
+                                 is not None)
+    for training in phases:
+        step = graph_step(torch, learner, training)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(eager=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    print(f"graph {what}: sync debug mode \"error\" over one eager run of "
+          f"the planned step's body: "
+          + ", ".join("training" if t else "validation" for t in phases)
+          + " without a host synchronisation")
+    return len(phases)
+
+
+def graph_phase(torch, work, large_learner):
+    """The planned epoch's CUDA graphs on the card.  (a) the U-Net CLI
+    (reference width, bfloat16, batch 6, ``--profile``) and the phase-1 CLI
+    (reference width, bfloat16, batch 4, the loss factor
+    :func:`graph_factor`), GRAPH_EPOCHS epochs across an lr milestone (and
+    phase 1's beta1 ramp), twice eagerly and once graphed
+    (:func:`graph_equality`); the graphed run's trace holds its
+    ``train_step`` ranges and K1; two U-Net controls that must fail: the
+    learning rate kept a Python float (a capture bakes it in), the
+    generator not registered with the graphs.  (b) ms a step graphed
+    against eager (U-Net, phase 1, the 4-scale U-Net).  (c) the sync debug
+    mode over each graphed learner's step body.  (d) the step learner,
+    phase 2, the CTP CAE and phase 1 with structure batching, one eager and
+    one graphed run each."""
+    from stroke_prediction_tpu_torch.cli import (
+        train_interpolationstep_after_reconstruction as step_cli)
+    from stroke_prediction_tpu_torch.cli import (
+        train_shape_prediction, train_shape_reconstruction)
+    from stroke_prediction_tpu_torch.cli import (
+        train_shape_reconstruction_with_ctp as ctp_cli)
+    from stroke_prediction_tpu_torch.cli import train_unet_segmentation
+    from stroke_prediction_tpu_torch.train import cae_learners
+    from stroke_prediction_tpu_torch.train import learner as learner_mod
+    from stroke_prediction_tpu_torch.utils.args import (
+        get_args_shape_prediction_training, get_args_shape_training,
+        get_args_step_training, get_args_unet_training)
+
+    common = ["--synthetic", "--fold", *map(str, TRAIN_FOLD),
+              "--validsetsize", "0.25", *GRAPH_LRSTEPS]
+    cae_common = [*common, "--batchsize", str(CAE_TRAIN_BATCH)]
+
+    def unet_argv(base):
+        return get_args_unet_training(
+            [os.path.join(work, "unused.model"), *common, "--batchsize",
+             str(TRAIN_BATCH), "--epochs", str(GRAPH_EPOCHS), "--device",
+             "cuda", "--channels", *map(str, CHANNELS), "--profile",
+             base + "_profile", "--outbasepath", base])
+
+    def cae_argv(base):
+        return get_args_shape_training(
+            [*cae_common, "--epochs", str(GRAPH_EPOCHS), "--outbasepath",
+             base])
+
+    def factored():
+        return patched(cae_learners.CaeReconstructionLearner, "loss_factor",
+                       lambda self, epoch: graph_factor(epoch))
+
+    res = {}
+    unet_files = ["_unet.json", "_unet.model", "_unet.optim",
+                  "_unet_final.model"]
+    res["unet"] = graph_equality(torch, work, "unet", train_unet_segmentation,
+                                 unet_argv, unet_files)
+    check_trace(res["unet"]["base"] + "_profile", "graph unet",
+                res["unet"]["steps"]["train"] // GRAPH_EPOCHS)
+    res["cae"] = graph_equality(
+        torch, work, "cae", train_shape_reconstruction, cae_argv,
+        ["_cae1.json", "_cae1.model", "_cae1.optim", "_cae1_final.model"],
+        patch=factored)
+    lr = float(res["cae"]["learner"]._optimizer.param_groups[0]["lr"])
+    print(f"graph cae: loss factors "
+          f"{[graph_factor(e) for e in range(GRAPH_EPOCHS)]}, final lr {lr:g}")
+
+    # (b) and (c) on the learners of (a) and the 4-scale U-Net's
+    res["times"] = {what: graph_times(torch, what, learner) for what, learner
+                    in (("unet", res["unet"]["learner"]),
+                        ("cae", res["cae"]["learner"]),
+                        ("large unet", large_learner))}
+    res["syncs"] = {what: graph_syncs(torch, what, learner) for what, learner
+                    in (("unet", res["unet"]["learner"]),
+                        ("cae", res["cae"]["learner"]),
+                        ("large unet", large_learner))}
+
+    # (d) the learners that share the planned path
+    cae1 = os.path.join(work, "shape_train_cae1.model")
+    width = [*map(str, CAE_CHANNELS)]
+    short = ["--epochs", str(GRAPH_OTHER_EPOCHS)]
+    others = {
+        "step": (step_cli, lambda base: get_args_step_training(
+            [cae1, *cae_common, *short, "--channelscae", *width,
+             "--outbasepath", base]),
+            ["_cae1step.json", "_cae1step.model", "_cae1step.optim"], None),
+        "prediction": (train_shape_prediction,
+                       lambda base: get_args_shape_prediction_training(
+                           [cae1, *cae_common, *short, "--channelsenc",
+                            *width, "--initbycae", "--outbasepath", base]),
+                       ["_cae2.json", "_cae2_enc.model", "_cae2.optim"],
+                       None),
+        "ctp": (ctp_cli, lambda base: get_args_shape_training(
+            [*cae_common, *short, "--channelscae", *map(str, CTP_CHANNELS),
+             "--outbasepath", base]),
+            ["_cae1.json", "_cae1.model", "_cae1.optim"], None),
+        "grouped": (train_shape_reconstruction,
+                    lambda base: get_args_shape_training(
+                        [*cae_common, *short, "--outbasepath", base]),
+                    ["_cae1.json", "_cae1.model", "_cae1.optim"],
+                    lambda: env_set(GROUPED_SWITCH, "1"))}
+    for what, (cli, argv, files, patch) in others.items():
+        res[what] = graph_equality(torch, work, what, cli, argv, files,
+                                   patch=patch, eager_runs=1,
+                                   epochs=GRAPH_OTHER_EPOCHS)
+        res["syncs"][what] = graph_syncs(torch, what, res[what]["learner"])
+
+    # (a)'s controls, last: a failed capture leaves nothing for later
+    def lr_as_float(optimizer, lr):
+        for group in optimizer.param_groups:
+            group["lr"] = float(lr)
+
+    unet = res["unet"]
+    controls = {
+        "lr a Python float": lambda: patched(
+            learner_mod, "set_learning_rate", lr_as_float),
+        "generator not registered": lambda: patched(
+            learner_mod.Learner, "_register_generators",
+            lambda self, graph: None)}
+    res["controls"] = {
+        name: graph_control(torch, work, name.replace(" ", "_"),
+                            train_unet_segmentation, unet_argv, unet_files,
+                            os.path.join(work, "graph_unet_eager"),
+                            unet["eager"], patch, unet["bit"])
+        for name, patch in controls.items()}
+    for what in ("unet", "cae", *others):
+        for key in ("learner", "eager"):
+            res[what].pop(key)
+    return res
+
+
+def host_cpu():
+    """The host CPU's model name and the ISA extensions that set the CPU
+    witnesses' sums (AVX-512, AMX)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            info = f.read()
+    except OSError:
+        return "unknown"
+    names = [line.split(":", 1)[1].strip() for line in info.splitlines()
+             if line.startswith("model name")]
+    flags = [x for x in ("avx512f", "amx_tile") if f" {x}" in info]
+    return f"{names[0] if names else 'unknown'} ({' '.join(flags) or '-'})"
+
+
 def main():
     import torch
 
@@ -7061,7 +7611,9 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"device {torch.cuda.get_device_name(0)}")
+          f"device {torch.cuda.get_device_name(0)}; host CPU "
+          f"{host_cpu()}, {os.cpu_count()} cores, CPU kernels "
+          f"{torch.backends.cpu.get_cpu_capability()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -7093,6 +7645,8 @@ def run_phases(torch):
         phase_s[name] = round(time.perf_counter() - t_phase, 1)
         return out
 
+    # the phases before the graph phase run the eager loop (see GRAPH_SWITCH)
+    os.environ[GRAPH_SWITCH] = "0"
     k1 = timed("kernels (tester)", kernel_phase)
     k5 = timed("edt", edt_phase)
     train_k, s_err = timed("kernels (training)", train_kernel_phase)
@@ -7112,6 +7666,8 @@ def run_phases(torch):
         spatial_cae = timed("spatial cae", spatial_cae_phase, work, dp,
                             cae_dp)
         grouped = timed("cae grouped", cae_grouped_phase, work)
+        graphs = timed("graphs", graph_phase, work,
+                       large["train"].pop("learner"))
         timed("cpu witnesses (waited for)", resolve_witnesses)
 
     def per_step(key, dtype="bfloat16"):
@@ -7363,6 +7919,18 @@ def run_phases(torch):
                     for dname in ("bfloat16", "float32")}
         return use
 
+    def graphed_use(key):
+        """``key``'s kernels a replayed step by trace (graph phase (b)),
+        each equal to the same step body's run eagerly."""
+        return {"per": "kernels of this hand kernel a replayed step, read "
+                       "from torch.profiler traces of three replays, equal "
+                       "by kernel name to the step body run eagerly",
+                **{phase: {what: t[field].get(key, 0)
+                           for what, t in graphs["times"].items()}
+                   for phase, field in (("train", "hand_kernels"),
+                                        ("validation",
+                                         "eval_hand_kernels"))}}
+
     csrc = "stroke_prediction_tpu_torch/ops/csrc/"
     s2d = "stroke_prediction_tpu/ops/pallas/s2d.py:"
     step_per = (f"one training step (bfloat16, batch {TRAIN_BATCH}, patch "
@@ -7415,7 +7983,7 @@ def run_phases(torch):
              data_parallel=dp_use("K1"), spatial=spatial_use("K1"),
              spatial_cae=spatial_cae_use("K1"),
              cae_data_parallel=cae_dp_use(cae_dp, "K1"),
-             cae_grouped=grouped_use("K1")),
+             cae_grouped=grouped_use("K1"), graphed=graphed_use("K1")),
         dict({"name": "conv3x3_bwd_fused", "route": "cuda",
               "source": csrc + "conv3x3_bwd_tc.cu", "replaces": s2d + "491",
               "launches": launches["conv3x3_bwd_fused"]}, **per_step("K2"),
@@ -7432,7 +8000,7 @@ def run_phases(torch):
              data_parallel=dp_use("K2"), spatial=spatial_use("K2"),
              spatial_cae=spatial_cae_use("K2"),
              cae_data_parallel=cae_dp_use(cae_dp, "K2"),
-             cae_grouped=grouped_use("K2")),
+             cae_grouped=grouped_use("K2"), graphed=graphed_use("K2")),
         dict({"name": "conv3x3_bwd_dx", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dx_tc.cu",
               "replaces": s2d + "589",
@@ -7446,7 +8014,7 @@ def run_phases(torch):
              data_parallel=dp_use("K3"), spatial=spatial_use("K3"),
              spatial_cae=spatial_cae_use("K3"),
              cae_data_parallel=cae_dp_use(cae_dp, "K3"),
-             cae_grouped=grouped_use("K3")),
+             cae_grouped=grouped_use("K3"), graphed=graphed_use("K3")),
         dict({"name": "conv3x3_bwd_dw", "route": "cuda",
               "source": csrc + "conv3x3_bwd_dw_tc.cu",
               "replaces": s2d + "623",
@@ -7459,11 +8027,12 @@ def run_phases(torch):
              data_parallel=dp_use("K4"), spatial=spatial_use("K4"),
              spatial_cae=spatial_cae_use("K4"),
              cae_data_parallel=cae_dp_use(cae_dp, "K4"),
-             cae_grouped=grouped_use("K4")),
+             cae_grouped=grouped_use("K4"), graphed=graphed_use("K4")),
         {"name": "edt_sites", "route": "cuda",
          "source": csrc + "edt_sites.cu",
          "replaces": "stroke_prediction_tpu/ops/edt.py:80",
          "launches": launches["edt_sites"],
+         "graphed": graphed_use("K5"),
          "max_abs_err": k5["max_abs_err"],
          "ms": EDT_PER_STEP * k5[EDT_VALID]["ms"],
          "plain_ms": EDT_PER_STEP * k5[EDT_VALID]["plain_ms"],
@@ -7730,6 +8299,29 @@ def run_phases(torch):
             "error): " + "; ".join(
               f"{kind} {t['cudnn']['diff_ms']:.3f} ({t['cudnn']['se_ms']:.3f})"
               for (kind, _), t in grouped["times"].items() if "cudnn" in t))
+    print(f"CUDA graphs of the planned epoch ({GRAPH_SWITCH} on; ms by "
+          f"CUDA events / host clock a step, busy share, kernels and host "
+          f"launches a step from traces, K1-K5 launches a replayed "
+          f"training and validation step): " + "; ".join(
+              f"{what} eager {t['eager']['ms']:.3f} / "
+              f"{t['eager']['host_ms']:.3f} ms, "
+              f"{100 * t['eager']['busy_share']:.1f}%, "
+              f"{t['eager']['kernels']:g} kernels, "
+              f"{t['eager']['host_launches']:g} host launches; graphed "
+              f"{t['graphed']['ms']:.3f} / {t['graphed']['host_ms']:.3f} ms, "
+              f"{100 * t['graphed']['busy_share']:.1f}%, "
+              f"{t['graphed']['kernels']:g} kernels, "
+              f"{t['graphed']['host_launches']:g} host launches "
+              f"({t['graphed']['host_calls']}); K1-K5 {t['hand_kernels']}, "
+              f"validation {t['eval_hand_kernels']}"
+              for what, t in graphs["times"].items())
+          + "; graphed vs eager: " + "; ".join(
+              f"{what} {graphs[what]['rule']} (files differing "
+              f"{graphs[what]['differ']}, curve gap "
+              f"{graphs[what]['gap']:.3e}, {graphs[what]['replays']} "
+              f"replays)" for what in ("unet", "cae", "step", "prediction",
+                                       "ctp", "grouped"))
+          + f"; controls {graphs['controls']}")
     print(f"phase seconds: {phase_s}")
     print(f"CAE learners' visual forward vs one forward a step: "
           f"{cae_ln['vis']}; U-Net bfloat16 step card vs CPU "

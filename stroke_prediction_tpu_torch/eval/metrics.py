@@ -52,8 +52,9 @@ def batch_dice_loss(outputs: torch.Tensor, targets: torch.Tensor,
         torch.sum(o * o, dim=axes, dtype=acc),
         torch.sum(t * t, dim=axes, dtype=acc)))
     dice = (2.0 * inter + epsilon) / (oo + tt + epsilon)
-    w = torch.as_tensor(label_weights, dtype=wide, device=o.device)
-    return 1.0 - torch.sum(w * dice)
+    # the weights as Python numbers: no host copy (a captured step)
+    return 1.0 - torch.sum(torch.stack([dice[i] * w for i, w in
+                                        enumerate(label_weights)]))
 
 
 def monotonicity_hinge(diff: torch.Tensor) -> torch.Tensor:

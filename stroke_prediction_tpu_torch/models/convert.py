@@ -219,7 +219,8 @@ def _param_paths(model) -> List[Tuple[Tuple[str, ...], torch.nn.Parameter]]:
 def adam_state_to_jax(optimizer: torch.optim.Adam, model) -> Dict[str, Any]:
     """The port's Adam state -> the optax state tree of the JAX learner
     (numpy leaves), for ``{"opt_state": tree}`` in a ``.optim`` file; the
-    masked layout where ``model`` has frozen parameters."""
+    masked layout where ``model`` has frozen parameters.  The learning
+    rate, beta1 and the count may be numbers or (device) tensors."""
     group = optimizer.param_groups[0]
     count = 0
     mu: Dict[str, Any] = {}
@@ -247,8 +248,8 @@ def adam_state_to_jax(optimizer: torch.optim.Adam, model) -> Dict[str, Any]:
     return {
         "count": np.asarray(count, np.int32),
         "hyperparams": {
-            "learning_rate": np.asarray(group["lr"], np.float32),
-            "b1": np.asarray(group["betas"][0], np.float32)},
+            "learning_rate": np.asarray(float(group["lr"]), np.float32),
+            "b1": np.asarray(float(group["betas"][0]), np.float32)},
         "hyperparams_states": {},
         "inner_state": adam,
     }

@@ -33,6 +33,7 @@ integer attribute ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -232,6 +233,14 @@ conv3x3.launches = 0   # kernel launches since the caller last reset it
 # Backward: plain versions
 # ---------------------------------------------------------------------------
 
+def _round_bf16(x: float) -> float:
+    """``x`` rounded to bfloat16 as torch rounds it (to float32, then to
+    nearest, ties to even), computed without a tensor."""
+    bits = struct.unpack("<I", struct.pack("<f", x))[0]
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
 def _masked_cotangent(g: torch.Tensor, y: torch.Tensor, act: str,
                       alpha: float) -> torch.Tensor:
     """g' = g * act'(y) in the storage type, as s2d.py:879-889 forms it:
@@ -241,7 +250,7 @@ def _masked_cotangent(g: torch.Tensor, y: torch.Tensor, act: str,
     if y.dtype != torch.bfloat16:
         return g * activation_grad(y, act, alpha)
     bf = torch.bfloat16
-    alpha = float(torch.tensor(alpha, dtype=bf))
+    alpha = _round_bf16(alpha)
     y = y.float()
     if act == "elu":
         dact = torch.where(y > 0, 1.0, (y + alpha).to(bf).float())

@@ -53,9 +53,24 @@ def _nearest_matrix(n: int, out_size: int) -> np.ndarray:
     return m
 
 
-def _apply_axis_matrix(x: torch.Tensor, m: np.ndarray,
+@functools.lru_cache(maxsize=None)
+def _device_matrix(n: int, out_size: int, order: int, align_corners: bool,
+                   dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The (out_size, n) resize matrix (``order`` 0: nearest, 1: linear)
+    in ``dtype`` on ``device``, made and copied there once.  Kept for the
+    process's life, without a bound: a CUDA graph that captured a step goes
+    on reading this tensor at every replay, so it must never be freed, and
+    a step copies nothing from the host.  A normal tensor even when first
+    made under ``torch.inference_mode`` (a tester), so that autograd may
+    use it later."""
+    m = (_nearest_matrix(n, out_size) if order == 0
+         else _linear_matrix(n, out_size, align_corners))
+    with torch.inference_mode(False):
+        return torch.as_tensor(m, dtype=dtype, device=device)
+
+
+def _apply_axis_matrix(x: torch.Tensor, w: torch.Tensor,
                        axis: int) -> torch.Tensor:
-    w = torch.as_tensor(m, dtype=x.dtype, device=x.device)
     return torch.movedim(torch.tensordot(x, w, dims=([axis], [1])), -1, axis)
 
 
@@ -64,8 +79,9 @@ def _axis_linear(x: torch.Tensor, axis: int, out_size: int,
     n = x.shape[axis]
     if out_size == n:
         return x
-    return _apply_axis_matrix(x, _linear_matrix(n, out_size, align_corners),
-                              axis)
+    return _apply_axis_matrix(
+        x, _device_matrix(n, out_size, 1, align_corners, x.dtype, x.device),
+        axis)
 
 
 def resize_linear(x: torch.Tensor, out_sizes: Sequence[int],
@@ -81,7 +97,8 @@ def resize_nearest(x: torch.Tensor, out_sizes: Sequence[int],
                    axes: Sequence[int]) -> torch.Tensor:
     for ax, s in zip(axes, out_sizes):
         if s != x.shape[ax]:
-            x = _apply_axis_matrix(x, _nearest_matrix(x.shape[ax], s), ax)
+            x = _apply_axis_matrix(x, _device_matrix(
+                x.shape[ax], s, 0, True, x.dtype, x.device), ax)
     return x
 
 
@@ -133,7 +150,8 @@ def upsample2x_trilinear(x: torch.Tensor) -> torch.Tensor:
     lo, hi = spatial.own_block(2 * h)
     a, b = _input_span(m, lo, hi) if hi > lo else (0, 0)
     x = _axis_linear(x, axes[0], 2 * d)
-    x = _apply_axis_matrix(x, m[lo:hi, a:b], axes[1])
+    mat = _device_matrix(h, 2 * h, 1, True, x.dtype, x.device)
+    x = _apply_axis_matrix(x, mat[lo:hi, a:b], axes[1])
     return spatial.record(_axis_linear(x, axes[2], 2 * w), 2 * h)
 
 

@@ -141,6 +141,7 @@ def elastic_fields(noise: torch.Tensor, alpha: float = 100.0,
     field further scaled by ``z_scale`` (0.22, about 28 / 128, the voxel
     spacing's ratio)."""
     blurred = gaussian_filter3d(noise, sigma) * alpha
-    scale = torch.tensor([z_scale, 1.0, 1.0], dtype=noise.dtype,
-                         device=noise.device).reshape(3, 1, 1, 1)
+    # made on the device (no host copy, so a captured step replays it)
+    scale = torch.ones((3, 1, 1, 1), dtype=noise.dtype, device=noise.device)
+    scale[0] = z_scale
     return blurred * scale

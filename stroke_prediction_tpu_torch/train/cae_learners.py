@@ -73,9 +73,20 @@ from stroke_prediction_tpu_torch.train.unet_learner import _measures_dict
 from stroke_prediction_tpu_torch.utils import checkpoint as ckpt
 
 
-def cae_loss(dto, factor: float) -> torch.Tensor:
+def _with_scalar(fn, x: torch.Tensor, factor) -> torch.Tensor:
+    """``fn(x, factor)`` as torch computes it for a Python number
+    ``factor``, also where ``factor`` is a 0-d float64 tensor (the planned
+    pass's loss factor, which a captured step reads on the device): in
+    x's computation type (float32 for bfloat16), the result in x's type."""
+    if not isinstance(factor, torch.Tensor):
+        return fn(x, factor)
+    op = torch.promote_types(x.dtype, torch.float32)
+    return fn(x.to(op), factor.to(op)).to(x.dtype)
+
+
+def cae_loss(dto, factor) -> torch.Tensor:
     """The phase-1 loss of a gtruth-branch CAE output at curriculum
-    ``factor``."""
+    ``factor`` (a number, or the planned pass's device tensor)."""
     rec, gt = dto.reconstructions.gtruth, dto.given_variables.gtruth
     loss = monotonicity_hinge(rec.penu - rec.interpolation)
     loss = loss + monotonicity_hinge(rec.penu - rec.core)
@@ -83,9 +94,9 @@ def cae_loss(dto, factor: float) -> torch.Tensor:
     loss = loss + batch_dice_loss(rec.penu, gt.penu)
     loss = loss + batch_dice_loss(rec.lesion, gt.lesion)
     lat = dto.latents.gtruth
-    loss = loss + factor * global_mean(torch.abs(lat.interpolation
-                                                 - lat.lesion))
-    return loss / (5.0 + factor)
+    loss = loss + _with_scalar(torch.mul, global_mean(torch.abs(
+        lat.interpolation - lat.lesion)), factor)
+    return _with_scalar(torch.div, loss, 5.0 + factor)
 
 
 def step_loss(dto) -> torch.Tensor:

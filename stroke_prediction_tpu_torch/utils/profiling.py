@@ -7,6 +7,8 @@
   the ``with`` body, written as a Chrome trace JSON into ``logdir``.
 * :func:`annotate` — a named range in that trace
   (``torch.profiler.record_function``).
+* :func:`prepare_graph_trace` — called before a CUDA graph is captured, so
+  that a later trace holds the kernels of its replays.
 """
 
 from __future__ import annotations
@@ -73,3 +75,15 @@ def trace(logdir: str):
 def annotate(name: str):
     """A named range (``with annotate("train_step"): ...``)."""
     return torch.profiler.record_function(name)
+
+
+def prepare_graph_trace() -> None:
+    """Start the profiler's CUPTI before a CUDA graph is captured: a trace
+    taken later then holds the kernels that the graph's replays run, which
+    it lacks when CUPTI first starts after the capture (torch's own
+    workaround, ``torch.profiler._utils._init_for_cuda_graphs``: an empty
+    profile)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        pass

@@ -64,10 +64,11 @@ def jax_conv_grads(inputs):
         jax.config.update("jax_enable_x64", False)
 
 
-def check_conv(ranks, m_data, m_space, inputs):
-    """Each rank's dx against its rows and block of JAX's, dk and db whole,
-    at GRAD_REL of the tensor's largest."""
-    dx, dk, db = jax_conv_grads(inputs)
+def check_conv(ranks, m_data, m_space, inputs, grads=None):
+    """Each rank's dx against its rows and block of JAX's (``grads``, or
+    computed here), dk and db whole, at GRAD_REL of the tensor's
+    largest."""
+    dx, dk, db = grads if grads is not None else jax_conv_grads(inputs)
     for r, got in enumerate(ranks):
         m = mesh.Mesh(r, m_data * m_space, m_space)
         lo, hi = mesh.block(dx.shape[2], m.space_index, m_space)
@@ -97,19 +98,35 @@ def unet_variables():
 
 @pytest.fixture(scope="module")
 def exchanges(tmp_path_factory):
-    """{rank count: each rank's exchange results}."""
-    return {n: worker.spawn(1, n, {"none": np.zeros(1)},
-                            tmp_path_factory.mktemp(f"exchange{n}"))
-            for n in (2, 3)}
+    """{rank count: each rank's exchange results}, the two groups run side
+    by side."""
+    dirs = {n: tmp_path_factory.mktemp(f"exchange{n}") for n in (2, 3)}
+    procs = {n: worker.start(1, n, {"none": np.zeros(1)}, d)
+             for n, d in dirs.items()}
+    try:
+        return {n: worker.join(p, dirs[n]) for n, p in procs.items()}
+    finally:
+        for p in (q for group in procs.values() for q in group):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 @pytest.fixture(scope="module")
 def space4(tmp_path_factory):
-    """(inputs, each rank's results) at {data: 1, space: 4}."""
+    """(inputs, each rank's results, the references: JAX's conv gradients
+    and the port's one-process float64 forward, computed while the ranks
+    run) at {data: 1, space: 4}."""
     _, _, x, state = unet_variables()
     inputs = dict(conv_inputs(), unet_x=x.astype(np.float64), **state)
-    return inputs, worker.spawn(1, 4, inputs,
-                                tmp_path_factory.mktemp("space4"))
+    outdir = tmp_path_factory.mktemp("space4")
+    procs = worker.start(1, 4, inputs, outdir)
+    try:
+        refs = {"conv": jax_conv_grads(inputs),
+                "one64": worker.forward(inputs, None, torch.float64)}
+    finally:
+        ranks = worker.join(procs, outdir)
+    return inputs, ranks, refs
 
 
 @pytest.mark.parametrize("n", [2, 3])
@@ -134,16 +151,16 @@ def test_conv_gradient_at_space4_matches_jax(space4):
     """The counterpart of tests/test_parallel.py's spatially sharded s2d
     gradient at {data: 1, space: 4}: H 16 -> 14, output blocks of 3 and 4
     rows, each reading rows of two or three owners."""
-    inputs, ranks = space4
-    check_conv(ranks, 1, 4, inputs)
+    inputs, ranks, refs = space4
+    check_conv(ranks, 1, 4, inputs, refs["conv"])
 
 
 def test_forward_at_space4_matches_one_process(space4):
     """The fixture's eval forward at {data: 1, space: 4}: the output's H 4
     is one row a rank, and each rank's row is that of the port's
     one-process float64 forward."""
-    inputs, ranks = space4
-    one = worker.forward(inputs, None, torch.float64)
+    _, ranks, refs = space4
+    one = refs["one64"]
     for r, got in enumerate(ranks):
         assert got["forward64"].shape == (8, 4, 1, 4, 2)
         np.testing.assert_allclose(got["forward64"], one[:, :, r:r + 1],

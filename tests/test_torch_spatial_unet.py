@@ -44,7 +44,8 @@ from stroke_prediction_tpu_torch.parallel import mesh
 import _torch_spatial_worker as worker
 from test_torch_parallel import (
     GRAD_REL, LOSS_TOL, STATS_TOL, _Float64Numpy, _leaf)
-from test_torch_spatial import check_conv, conv_inputs, unet_variables
+from test_torch_spatial import (
+    check_conv, conv_inputs, jax_conv_grads, unet_variables)
 
 torch.set_num_threads(1)
 
@@ -56,15 +57,27 @@ STEP_X = (8, 44, 45, 44, 2)
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    """(inputs, JAX model, variables, each rank's results)."""
+    """(inputs, JAX model, variables, each rank's results, the references:
+    the port's one-process step and forward and JAX's float64 step and
+    float32 forward, computed while the ranks run)."""
     model, variables, x, state = unet_variables()
     rs = np.random.RandomState(2)
     inputs = dict(conv_inputs(), unet_x=x.astype(np.float64), **state,
                   step_x=rs.rand(*STEP_X) * 4,
                   step_y=(rs.rand(8, 4, 4, 4, 2) > 0.5).astype(np.float64))
-    ranks = worker.spawn(DATA, SPACE, inputs,
-                         tmp_path_factory.mktemp("spatial_unet"))
-    return inputs, model, variables, ranks
+    outdir = tmp_path_factory.mktemp("spatial_unet")
+    procs = worker.start(DATA, SPACE, inputs, outdir)
+    try:
+        refs = {"ref32": np.asarray(model.apply(
+                    variables, jnp.asarray(inputs["unet_x"], jnp.float32),
+                    train=False)),
+                "one64": worker.forward(inputs, None, torch.float64),
+                "one_process": worker.step(inputs, None),
+                "jax_step": _jax_step(inputs, variables),
+                "conv": jax_conv_grads(inputs)}
+    finally:
+        ranks = worker.join(procs, outdir)
+    return inputs, model, variables, ranks, refs
 
 
 def _rank_block(got, r, one):
@@ -97,13 +110,17 @@ def _errors(got, prefix, loss, grads, stats, relative=True):
 @pytest.fixture(scope="module")
 def one_process(setup):
     """The port's one-process float64 step on the whole batch."""
-    return worker.step(setup[0], None)
+    return setup[4]["one_process"]
 
 
 @pytest.fixture(scope="module")
 def jax_step(setup):
     """JAX's one-device float64 step: (loss, grads, new batch_stats)."""
-    inputs, _, variables, _ = setup
+    return setup[4]["jax_step"]
+
+
+def _jax_step(inputs, variables):
+    """JAX's one-device float64 step: (loss, grads, new batch_stats)."""
     model = JaxUnet3D(channels=worker.CHANNELS, compute_dtype=jnp.float64)
 
     def loss(seg, labels):
@@ -139,11 +156,8 @@ def test_forward_matches_jax_and_one_process(setup):
     """The 2-D mesh forward of tests/test_parallel.py: each rank's (4, 4, 2,
     4, 2) block of the (8, 4, 4, 4, 2) output, float32 against JAX's
     one-device output, float64 against the port's one-process forward."""
-    inputs, model, variables, ranks = setup
-    ref32 = np.asarray(model.apply(variables,
-                                   jnp.asarray(inputs["unet_x"], jnp.float32),
-                                   train=False))
-    one64 = worker.forward(inputs, None, torch.float64)
+    ranks, refs = setup[3], setup[4]
+    ref32, one64 = refs["ref32"], refs["one64"]
     assert ref32.shape == one64.shape == (8, 4, 4, 4, 2)
     for r, got in enumerate(ranks):
         assert got["forward32"].shape == (4, 4, 2, 4, 2)
@@ -205,5 +219,5 @@ def test_controls_fail_the_limits(setup, one_process, control):
 def test_conv_gradient_at_data2_space2_matches_jax(setup):
     """The conv gradient of test_torch_spatial.py at {data: 2, space: 2}:
     each rank's two rows and 7 of H 14."""
-    inputs, _, _, ranks = setup
-    check_conv(ranks, DATA, SPACE, inputs)
+    inputs, _, _, ranks, refs = setup
+    check_conv(ranks, DATA, SPACE, inputs, refs["conv"])
